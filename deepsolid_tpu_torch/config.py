@@ -1,0 +1,86 @@
+"""Default run configuration, as plain nested dicts with attribute access.
+
+Key names follow deepsolid_tpu/config.py so run scripts carry over; only
+the keys this port reads are present. No ml_collections: `cfg.a.b` and
+`cfg["a"]["b"]` both work, and `cfg.get(key, default)` is a dict's.
+"""
+
+from __future__ import annotations
+
+
+class ConfigDict(dict):
+    """A dict whose keys are also attributes; nested dicts convert."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+        for key, value in dict(*args, **kwargs).items():
+            self[key] = value
+
+    def __setitem__(self, key, value):
+        if isinstance(value, dict) and not isinstance(value, ConfigDict):
+            value = ConfigDict(value)
+        super().__setitem__(key, value)
+
+    def __getattr__(self, key):
+        try:
+            return self[key]
+        except KeyError as exc:
+            raise AttributeError(key) from exc
+
+    def __setattr__(self, key, value):
+        if key not in self:
+            raise AttributeError(f"unknown config key {key!r}")
+        self[key] = value
+
+
+def default() -> ConfigDict:
+    return ConfigDict(
+        {
+            "batch_size": 4096,
+            "precision": "float32",  # 'float32' | 'float64'
+            "optim": {
+                "iterations": 1000000,
+                # only 'none' (inference: MCMC + local energy, no update)
+                # is ported; 'kfac' and 'adam' belong to the training slice
+                "optimizer": "kfac",
+                "clip_el": 5.0,
+                "laplacian_mode": "forward",  # the port's only engine
+                # walkers per local-energy sweep (0 = whole batch at once)
+                "el_chunk": 0,
+            },
+            "log": {
+                "stats_frequency": 1,
+                "save_path": "",
+                "restore_path": "",
+                "stats_file_name": "train_stats",
+            },
+            "system": {
+                "cell": None,  # deepsolid_tpu_torch.system.Supercell
+                "klist_policy": "auto",  # 'auto'|'uniform'|'fermi'|'explicit'
+                "klist": None,  # used when klist_policy == 'explicit'
+                "basis": "",
+            },
+            "mcmc": {
+                "burn_in": 100,
+                "steps": 20,
+                "init_width": 0.8,
+                "move_width": 0.02,
+                "adapt_frequency": 100,
+            },
+            "network": {
+                "detnet": {
+                    "envelope_type": "isotropic",
+                    "bias_orbitals": False,
+                    "use_last_layer": False,
+                    "full_det": False,
+                    "hidden_dims": ((256, 32), (256, 32), (256, 32)),
+                    "determinants": 8,
+                    "distance_type": "nu",
+                },
+                "twist": (0.0, 0.0, 0.0),
+            },
+            "debug": {
+                "deterministic": False,
+            },
+        }
+    )

@@ -1,0 +1,30 @@
+"""Local energy: kinetic (Laplacian of log psi) + Ewald Coulomb.
+
+Mirrors deepsolid_tpu/hamiltonian.py, 'forward' mode only.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from deepsolid_tpu_torch.models.fwdlap_forward import make_kinetic_forward
+from deepsolid_tpu_torch.ops.ewald import EwaldSum
+
+
+def make_local_energy(network, supercell, mode: str = "forward") -> Callable:
+    """E_L(params, x) -> (kinetic (B,) complex, ewald (B,) real) for walkers
+    x (B, 3N), through the forward-Laplacian engine."""
+    if mode != "forward":
+        raise NotImplementedError(
+            f"laplacian mode {mode!r} is not ported; the port has 'forward'")
+    kinetic = make_kinetic_forward(network)
+    ewald = EwaldSum.build(supercell)
+
+    def local_energy(params, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        ke = kinetic(params, x)
+        ee, ei, ii = ewald.energy(x)
+        return ke, ee + ei + ii
+
+    return local_energy

@@ -1,0 +1,78 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked `cuda`: skipped without an NVIDIA GPU. This file imports no JAX,
+so it also runs on a GPU machine without JAX; there, from the repo root:
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
+(tests/conftest.py configures JAX for the rest of the suite).
+"""
+
+import pytest
+import torch
+
+from deepsolid_tpu_torch.ops.cuda import det_kernels as tdk
+from deepsolid_tpu_torch.ops.cuda import jet_kernels as tjk
+
+# f32 on the card against f32 plain versions: sums in another order
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rnd(gen, dev):
+    return lambda *s: torch.randn(s, generator=gen, device=dev)
+
+
+@pytest.mark.cuda
+def test_gj_kernel_matches_plain(cuda_device):
+    rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    for n in (5, 48, 100):  # 100: above 48 KB of shared memory (opt-in)
+        a = torch.complex(rnd(64, n, n), rnd(64, n, n)) + 4.0 * torch.eye(n, device=cuda_device)
+        before = tdk.LAUNCHES["gj_inverse_slogdet"]
+        got = tdk.gj_inverse_slogdet(a)
+        assert tdk.LAUNCHES["gj_inverse_slogdet"] == before + 1
+        for x, y in zip(got, tdk.gj_inverse_slogdet_plain(a)):
+            torch.testing.assert_close(x, y, rtol=2e-3, atol=2e-3)  # conditioning
+    sing = torch.diag(torch.tensor([1.0, 2.0, 0.0], device=cuda_device))
+    assert float(tdk.gj_inverse_slogdet(sing.to(torch.complex64)[None])[2][0]) == float("-inf")
+    with pytest.raises(ValueError, match="shared memory"):
+        tdk.gj_inverse_slogdet(torch.zeros(1, 400, 400, dtype=torch.complex64,
+                                           device=cuda_device))
+    with pytest.raises(TypeError):
+        tdk.gj_inverse_slogdet(torch.zeros(1, 4, 4, dtype=torch.complex128,
+                                           device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_dim,rows,d_in,d_out", [
+    (6, 300, 32, 32),   # narrow variant, ragged row tile
+    (7, 300, 20, 64),   # wide variant, ragged row tile
+    (3, 50, 7, 40),     # narrow, d_in not a multiple of 4
+])
+def test_dense_tanh_jet_kernel_matches_plain(cuda_device, t_dim, rows, d_in, d_out):
+    rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(1), cuda_device)
+    case = (rnd(rows, d_in), rnd(t_dim, rows, d_in), rnd(rows, d_in),
+            rnd(d_in, d_out) / d_in**0.5, rnd(d_out))
+    for x, y in zip(tjk.fused_dense_tanh_jet(*case), tjk.fused_dense_tanh_jet_plain(*case)):
+        torch.testing.assert_close(x, y, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_dim,groups,n,d_in,d_out", [
+    (20, 3, 96, 40, 256),   # wide variant
+    (9, 3, 10, 20, 40),     # narrow variant
+])
+def test_dense_tanh_jet_mix_kernel_matches_plain(cuda_device, t_dim, groups, n,
+                                                 d_in, d_out):
+    rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(2), cuda_device)
+    mix = (rnd(groups, n, d_in), rnd(t_dim, groups, n, d_in), rnd(groups, n, d_in),
+           rnd(groups, d_out), rnd(groups, d_out), rnd(t_dim, groups, d_out),
+           rnd(d_in, d_out) / d_in**0.5, rnd(d_out))
+    for x, y in zip(tjk.fused_dense_tanh_jet_mix(*mix),
+                    tjk.fused_dense_tanh_jet_mix_plain(*mix)):
+        torch.testing.assert_close(x, y, **TOL)

@@ -1,0 +1,69 @@
+"""The port stands alone: no JAX, nothing of deepsolid_tpu.
+
+Every module of deepsolid_tpu_torch and chip_smoke.py import in a
+process where `jax` and `deepsolid_tpu` cannot be imported at all.
+"""
+
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "deepsolid_tpu_torch"
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None            # any `import jax` now raises
+sys.modules["deepsolid_tpu"] = None  # and so does the JAX package
+# the port uses torch, numpy and the standard library only
+for name in ("scipy", "ml_collections", "absl", "chex", "optax"):
+    sys.modules[name] = None
+sys.path.insert(0, {repo!r})
+import deepsolid_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(deepsolid_tpu_torch.__path__,
+                                               "deepsolid_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+print(len(names))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_every_module_imports_without_jax():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL.format(repo=str(REPO))],
+                         capture_output=True, text=True, cwd=REPO, env=_env(),
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_sources_name_no_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax\b|deepsolid_tpu\b(?!_torch))",
+                         re.MULTILINE)
+    files = list(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):
+    """No GPU here: the script exits non-zero and prints no result, in the
+    repository and in a directory that holds nothing but the script."""
+    runs = [REPO]
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(REPO / "chip_smoke.py", alone / "chip_smoke.py")
+    runs.append(alone)
+    for cwd in runs:
+        out = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True,
+                             text=True, cwd=cwd, env=_env(), timeout=300)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

@@ -1,0 +1,254 @@
+"""The port's kernels: plain versions against the JAX kernels, and dispatch.
+
+The JAX kernels run as the JAX package's own tests run them on the CPU:
+the Gauss-Jordan kernel through gj_inverse_slogdet_interpret, the jet
+kernels through pl.pallas_call(interpret=True). The CUDA kernels
+themselves run only on the card: tests/test_torch_cuda_kernels.py, and
+chip_smoke.py at the main path's shapes.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from deepsolid_tpu.ops.pallas import jet_kernels as jjk
+from deepsolid_tpu.ops.pallas.det_kernels import gj_inverse_slogdet_interpret
+from deepsolid_tpu_torch.ops.cuda import build
+from deepsolid_tpu_torch.ops.cuda import det_kernels as tdk
+from deepsolid_tpu_torch.ops.cuda import jet_kernels as tjk
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    orig = pl.pallas_call
+
+    def interp_call(*args, **kwargs):
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(jjk.pl, "pallas_call", interp_call)
+
+
+def _complex64(shape, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(*shape) + 1j * rng.randn(*shape)).astype(np.complex64)
+
+
+def _assert_gj_close(got, want, inv_tol):
+    ainv, sign, logabs = got
+    np.testing.assert_allclose(ainv.numpy(), np.asarray(want[0]), rtol=inv_tol,
+                               atol=inv_tol)
+    np.testing.assert_allclose(sign.numpy(), np.asarray(want[1]), atol=1e-5)
+    np.testing.assert_allclose(logabs.numpy(), np.asarray(want[2]), atol=1e-5)
+
+
+# ---- B1: Gauss-Jordan inverse + slogdet -----------------------------------
+
+
+@pytest.mark.parametrize("b,n", [(3, 5), (4, 13), (1, 48), (130, 16)])
+def test_gj_plain_matches_jax_kernel(b, n):
+    a = _complex64((b, n, n), seed=b * 100 + n)
+    got = tdk.gj_inverse_slogdet_plain(torch.from_numpy(a))
+    want = gj_inverse_slogdet_interpret(jnp.asarray(a))
+    # complex64 on both sides: f32 rounding of the same elimination,
+    # amplified by the matrices' conditioning
+    _assert_gj_close(got, want, inv_tol=2e-4)
+
+
+def test_gj_plain_zero_diagonal_and_permutation():
+    a = np.array([[[0, 1 + 1j], [2 - 1j, 0]]], np.complex64)
+    _assert_gj_close(tdk.gj_inverse_slogdet_plain(torch.from_numpy(a)),
+                     gj_inverse_slogdet_interpret(jnp.asarray(a)), inv_tol=1e-6)
+    perm = np.roll(np.eye(6), 2, axis=0)[None].astype(np.complex64)
+    ainv, sign, logabs = tdk.gj_inverse_slogdet_plain(torch.from_numpy(perm))
+    want = gj_inverse_slogdet_interpret(jnp.asarray(perm))
+    np.testing.assert_array_equal(ainv.numpy()[0], perm[0].T)  # exact
+    np.testing.assert_array_equal(sign.numpy(), np.asarray(want[1]))
+    assert float(logabs[0]) == float(want[2][0]) == 0.0
+
+
+def test_gj_plain_zero_pivot_gives_minus_inf():
+    """A pivot of exactly zero gives log 0 = -inf, as in JAX, and no error."""
+    a = np.diag([1.0, 2.0, 0.0]).astype(np.complex64)[None]
+    _, _, logabs = tdk.gj_inverse_slogdet_plain(torch.from_numpy(a))
+    _, _, want = gj_inverse_slogdet_interpret(jnp.asarray(a))
+    assert float(logabs[0]) == float(want[0]) == -np.inf
+
+
+def test_gj_plain_batch_axes_and_float64():
+    a = _complex64((2, 3, 7, 7), seed=9).astype(np.complex128)
+    ainv, sign, logabs = tdk.gj_inverse_slogdet_plain(torch.from_numpy(a))
+    assert ainv.shape == (2, 3, 7, 7) and sign.shape == logabs.shape == (2, 3)
+    rs, rl = np.linalg.slogdet(a)
+    np.testing.assert_allclose(ainv.numpy(), np.linalg.inv(a), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(sign.numpy(), rs, atol=1e-12)
+    np.testing.assert_allclose(logabs.numpy(), rl, atol=1e-12)
+
+
+# ---- B2/B3: fused dense + tanh jet ------------------------------------------
+
+
+def _jet_case(t_dim, n, d_in, d_out, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(n, d_in), rng.randn(t_dim, n, d_in), rng.randn(n, d_in),
+            rng.randn(d_in, d_out) / np.sqrt(d_in), rng.randn(d_out))
+
+
+@pytest.mark.parametrize("shape", [(12, 10, 20, 12), (8, 4, 132, 256)])
+def test_dense_tanh_jet_plain_matches_jax_kernel(shape, interpret_pallas):
+    case = [a.astype(np.float32) for a in _jet_case(*shape)]
+    # block_t=4 < T: the kernel accumulates the tangent square sum over
+    # several sequential grid steps
+    want = jjk.fused_dense_tanh_jet(*map(jnp.asarray, case), block_n=8,
+                                    block_c=128, block_t=4)
+    got = tjk.fused_dense_tanh_jet_plain(*map(torch.from_numpy, case))
+    for g, w, name in zip(got, want, ("val", "jac", "lap")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
+                                   atol=2e-5, err_msg=name)  # f32 sum order
+
+
+@pytest.mark.parametrize("shape", [(12, 10, 20, 12), (9, 16, 40, 130)])
+def test_dense_tanh_jet_mix_plain_matches_jax_kernel(shape, interpret_pallas):
+    t_dim, n, d_in, d_out = shape
+    val, jac, lap, w, b = _jet_case(*shape, seed=1)
+    rng = np.random.RandomState(2)
+    zbc, lbc, jbc = rng.randn(d_out), rng.randn(d_out), rng.randn(t_dim, d_out)
+    args = [a.astype(np.float32) for a in (val, jac, lap, zbc, lbc, jbc, w, b)]
+    want = jjk.fused_dense_tanh_jet_mix(*map(jnp.asarray, args), block_n=8,
+                                        block_c=128, block_t=4)
+    val, jac, lap, zbc, lbc, jbc, w, b = map(torch.from_numpy, args)
+    got = tjk.fused_dense_tanh_jet_mix_plain(val[None], jac[:, None], lap[None],
+                                             zbc[None], lbc[None], jbc[:, None], w, b)
+    for g, wnt, name in zip(got, want, ("val", "jac", "lap")):
+        np.testing.assert_allclose(g.numpy()[:, 0] if name == "jac" else g.numpy()[0],
+                                   np.asarray(wnt), rtol=2e-5, atol=2e-5, err_msg=name)
+
+
+def test_dense_tanh_jet_mix_plain_groups_are_walkers():
+    """Each walker's row-constant terms reach its own rows only."""
+    t_dim, groups, n, d_in, d_out = 5, 3, 4, 6, 7
+    rng = np.random.RandomState(3)
+    val, jac, lap = (torch.from_numpy(rng.randn(*s)) for s in
+                     [(groups, n, d_in), (t_dim, groups, n, d_in), (groups, n, d_in)])
+    zbc, lbc = (torch.from_numpy(rng.randn(groups, d_out)) for _ in range(2))
+    jbc = torch.from_numpy(rng.randn(t_dim, groups, d_out))
+    w, b = torch.from_numpy(rng.randn(d_in, d_out)), torch.from_numpy(rng.randn(d_out))
+    got = tjk.fused_dense_tanh_jet_mix_plain(val, jac, lap, zbc, lbc, jbc, w, b)
+    for g in range(groups):
+        one = tjk.fused_dense_tanh_jet_mix_plain(
+            val[g:g + 1], jac[:, g:g + 1], lap[g:g + 1], zbc[g:g + 1],
+            lbc[g:g + 1], jbc[:, g:g + 1], w, b)
+        for x, y in zip(got, one):
+            # f64; batched and single-walker products may block differently
+            torch.testing.assert_close(x.narrow(x.ndim - 3, g, 1), y,
+                                       rtol=1e-12, atol=1e-12)
+
+
+# ---- wrapper dispatch -------------------------------------------------------
+
+
+def _forbid(monkeypatch, module, name):
+    def boom(*args, **kwargs):
+        raise AssertionError(f"{name} reached the plain version")
+
+    monkeypatch.setattr(module, name, boom)
+
+
+def test_wrappers_take_the_plain_version_for_cpu_tensors():
+    before = {**tdk.LAUNCHES, **tjk.LAUNCHES}
+    a = torch.from_numpy(_complex64((2, 4, 4), seed=1))
+    for x, y in zip(tdk.gj_inverse_slogdet(a), tdk.gj_inverse_slogdet_plain(a)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    case = [torch.from_numpy(c) for c in _jet_case(3, 5, 4, 6)]
+    for x, y in zip(tjk.fused_dense_tanh_jet(*case),
+                    tjk.fused_dense_tanh_jet_plain(*case)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    assert {**tdk.LAUNCHES, **tjk.LAUNCHES} == before  # no kernel launched
+
+
+def test_wrappers_never_fall_back_for_non_cpu_tensors(monkeypatch):
+    """A tensor that is not on the CPU goes to the kernel path, which
+    raises for anything but a CUDA tensor; the plain version is not used."""
+    _forbid(monkeypatch, tdk, "gj_inverse_slogdet_plain")
+    _forbid(monkeypatch, tjk, "fused_dense_tanh_jet_plain")
+    _forbid(monkeypatch, tjk, "fused_dense_tanh_jet_mix_plain")
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tdk.gj_inverse_slogdet(torch.empty(2, 4, 4, dtype=torch.complex64, **meta))
+    with pytest.raises(ValueError, match="CUDA"):
+        tjk.fused_dense_tanh_jet(*(torch.empty(s, **meta) for s in
+                                   [(5, 4), (3, 5, 4), (5, 4), (4, 6), (6,)]))
+    with pytest.raises(ValueError, match="CUDA"):
+        tjk.fused_dense_tanh_jet_mix(*(torch.empty(s, **meta) for s in
+                                       [(2, 5, 4), (3, 2, 5, 4), (2, 5, 4), (2, 6),
+                                        (2, 6), (3, 2, 6), (4, 6), (6,)]))
+
+
+def test_trunk_rules_without_bias_still_reach_the_kernel(monkeypatch):
+    """A bias-free layer runs the kernel with a zero bias: on a tensor
+    that is not on the CPU it reaches the kernel path, never a plain rule."""
+    from deepsolid_tpu_torch.ops import fwdlap as tfl
+
+    _forbid(monkeypatch, tjk, "fused_dense_tanh_jet_plain")
+    _forbid(monkeypatch, tjk, "fused_dense_tanh_jet_mix_plain")
+    _forbid(monkeypatch, tfl, "tanh")
+
+    def jet(*shape):
+        return tfl.Jet(torch.empty(shape, device="meta"),
+                       torch.empty((3,) + shape, device="meta"),
+                       torch.empty(shape, device="meta"))
+
+    w = torch.empty(4, 6, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfl.dense_tanh(jet(2, 5, 5, 4), w, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfl.dense_tanh_mix(jet(2, 5, 4), jet(2, 1, 3), w,
+                           torch.empty(3, 6, device="meta"), None)
+
+
+@pytest.mark.parametrize("shape,sms,slices", [
+    ((6, 64 * 96 * 96, 32, 32), 132, 0),   # two-electron layers: narrow
+    ((288, 6144, 320, 256), 132, 6),       # one-electron layers: 192 blocks per slice
+    ((288, 6144, 16, 256), 132, 6),
+    ((4, 6144, 320, 256), 132, 4),         # never more slices than tangents
+    ((288, 10 ** 6, 320, 256), 132, 1),    # a full grid needs no slicing
+    ((288, 6144, 318, 256), 132, 0),       # d_in not a multiple of 4
+    ((288, 6144, 320, 200), 132, 0),       # d_out not a multiple of 64
+])
+def test_variant_is_chosen_by_shape(shape, sms, slices):
+    assert tjk.wide_slices(*shape, sms) == slices
+
+
+def test_kernel_inputs_are_dense_and_16_byte_aligned():
+    base = torch.arange(40, dtype=torch.float32)
+    aligned = tjk._dense(base)
+    assert aligned.data_ptr() == base.data_ptr()  # nothing copied
+    offset = base[1:]
+    assert offset.is_contiguous() and offset.data_ptr() % 16 != 0
+    fixed = tjk._dense(offset)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, offset)
+    strided = tjk._dense(base.reshape(8, 5).T)
+    assert strided.is_contiguous() and strided.data_ptr() % 16 == 0
+
+
+def test_missing_toolchain_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    import torch.utils.cpp_extension as ext
+
+    monkeypatch.setattr(ext, "CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.library("gj_inverse", {})
+
+
+def test_kernel_sources_target_hopper():
+    assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    for name in build.SOURCES:
+        text = (build.CSRC / f"{name}.cu").read_text()
+        assert "deepsolid_tpu/ops/pallas/" in text  # names the TPU kernel it replaces
+        assert 'extern "C"' in text
