@@ -6,20 +6,32 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 Phases, one JSON line each; any failure exits non-zero:
   1. device   - the card, its power limit, full-f32 matmul policy;
   2. build    - nvcc builds every CUDA kernel from deepsolid_tpu_torch/ops/cuda/csrc;
-  3. kernels  - each kernel at the main path's shapes against its plain
-                PyTorch version on the card, timed with CUDA events (and a
-                library yardstick where one PyTorch call computes the same);
+  3. kernels  - each of the five kernels at the main paths' shapes against
+                its plain PyTorch version on the card, timed with CUDA
+                events (and a library yardstick where one PyTorch call
+                computes the same); the open ("partial") jet kernels also
+                recombined against the closed one;
   4. main     - 3 inference iterations of the committed C-diamond 2x2x2
                 checkpoint (96 electrons, 1024 walkers, full width) through
                 deepsolid_tpu_torch.train.process.process(device='cuda'),
                 with every kernel's launch count read around it;
-  5. reference - E_L of 8 checkpoint walkers on the card (f32, kernels)
-                against the port's plain path on the CPU in float64, and
-                the same with TF32 matmuls as a control the check must catch;
-  6. profile  - torch.profiler over one 64-walker local-energy chunk:
+  5. sharded  - the same entry point with parallel.deriv_devices = 2: two
+                ranks of one gloo process group share the card, each
+                holding 144 of the 288 tangent columns (256 walkers, 2
+                iterations), against the unsharded port on the same seed;
+                the ranks also drive the sharded jet algebra's dense_tanh
+                on a pair-shaped jet through the same group;
+  6. training - 3 adam iterations at 1024 walkers from the checkpoint,
+                with the checkpoint written and restored;
+  7. reference - E_L and the energy gradient of 8 checkpoint walkers on the
+                card (f32, kernels) against the port's plain path on the
+                CPU in float64, and E_L with TF32 matmuls as a control the
+                check must catch;
+  8. profile  - torch.profiler over one 64-walker local-energy chunk:
                 kernels by device time and the device's idle share.
-The last lines are the card as nvidia-smi reports it, the kernels line
-and {"ok": true, "device": {...}}.
+Launch counts are set to 0 just before each driven path and read just
+after it. The last lines are the card as nvidia-smi reports it, the
+kernels line and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -38,6 +50,15 @@ CONFIG = "C,C,3.567,2,sto-3g"
 BATCH = 1024
 EL_CHUNK = 64
 ITERATIONS = 3
+SHARD_BATCH = 256          # walkers of the sharded phase (4 chunks of EL_CHUNK)
+SHARD_ITERATIONS = 2
+SHARD_EL_TOLERANCE = 5e-4  # Ha/cell, sharded against unsharded E_L per walker
+TRAIN_ITERATIONS = 3
+TRAIN_LR = 1e-4            # a fine-tuning rate: the checkpoint is a trained state
+# relative error in the global norm of the card's f32 energy gradient
+# against the CPU float64 one, 8 walkers: ~10x the reading of 2.9e-5 on
+# an H100 (PERF.md)
+GRADIENT_TOLERANCE = 3e-4
 REFERENCE_ENERGY = -66.0  # Ha/cell, runs/ckpt_diamond/train_stats_r5_latest.csv
 ENERGY_WINDOW = 1.5       # Ha/cell, a sanity bound; phase 5 is the exact check
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 (non-tensor) FLOP/s
@@ -186,34 +207,136 @@ def kernel_phase(dev, gen):
         "ms": total, "ms_per_shape": ms, "plain_ms": plain,
         "library_ms": None, "matmul_ms": mm, "bound_ms": bnd, "bound_by": by,
     })
+    # B4a/B4b: the open forms. A rank of a 2-way deriv axis holds T_local =
+    # 144 of the 288 tangents (3 of the 6 at the pair shape) and gets the
+    # tangent square sum back instead of a closed Laplacian.
+    def open_extra_bytes(r, c):
+        return 4 * r * c  # the fourth output
+
+    t4 = t3 // 2
+    err = rel = 0.0
+    total = plain = nbytes = flops = 0.0
+    ms = []
+    # B4a at the one-electron width (256 -> 256) and at B2's pair shape
+    cases = [(t4, EL_CHUNK * 96, 256, 256), (3, rows_b2, 4, 32), (3, rows_b2, 32, 32)]
+    for t, r, k, c in cases:
+        args = (rnd(r, k), rnd(t, r, k), rnd(r, k), rnd(k, c) / math.sqrt(k), rnd(c))
+        e, r_ = max_errs(jk.fused_dense_tanh_jet_partial(*args),
+                         jk.fused_dense_tanh_jet_partial_plain(*args))
+        err, rel = max(err, e), max(rel, r_)
+        t_k = time_ms(lambda: jk.fused_dense_tanh_jet_partial(*args))
+        ms.append(t_k)
+        total += t_k
+        plain += time_ms(lambda: jk.fused_dense_tanh_jet_partial_plain(*args))
+        b_, f_ = jet_bytes_flops(t, r, k, c)
+        nbytes, flops = nbytes + b_ + open_extra_bytes(r, c), flops + f_
+        del args
+    bnd, by = bound_ms(nbytes, flops)
+    rows.append({
+        "name": "fused_dense_tanh_jet_partial", "route": "cuda",
+        "source": "deepsolid_tpu_torch/ops/cuda/csrc/dense_tanh_jet.cu",
+        "replaces": "deepsolid_tpu/ops/pallas/jet_kernels.py:166",
+        "per": "T_local=144, 6144 rows, 256->256, and both pair layers at T_local=3 (589824 rows, 4->32 and 32->32)",
+        "max_abs_err": err, "max_rel_err": rel, "tolerance": 1e-5, "ok": rel <= 1e-5,
+        "ms": total, "ms_per_shape": ms, "plain_ms": plain,
+        "library_ms": None, "bound_ms": bnd, "bound_by": by,
+    })
+
+    err = rel = recombine = 0.0
+    total = plain = nbytes = flops = 0.0
+    ms = []
+    for k, count in ((16, 1), (320, 2)):
+        full = (rnd(EL_CHUNK, 96, k), rnd(t3, EL_CHUNK, 96, k), rnd(EL_CHUNK, 96, k),
+                rnd(EL_CHUNK, c3), rnd(EL_CHUNK, c3), rnd(t3, EL_CHUNK, c3),
+                rnd(k, c3) / math.sqrt(k), rnd(c3))
+
+        def half(i, full=full):
+            val, jac, lap, zbc, lbc, jbc, w, b = full
+            sl = slice(i * t4, (i + 1) * t4)
+            return (val, jac[sl], lap, zbc, lbc, jbc[sl], w, b)
+
+        args = half(0)
+        e, r_ = max_errs(jk.fused_dense_tanh_jet_mix_partial(*args),
+                         jk.fused_dense_tanh_jet_mix_partial_plain(*args))
+        err, rel = max(err, e), max(rel, r_)
+        # recombination: the closed kernel on T=288 against two open
+        # launches on the halves, s summed, the Laplacian closed
+        v, j, l = jk.fused_dense_tanh_jet_mix(*full)
+        parts = [jk.fused_dense_tanh_jet_mix_partial(*half(i)) for i in (0, 1)]
+        closed = jk.close_laplacian(parts[0][0], parts[0][2], parts[0][3] + parts[1][3])
+        _, r_ = max_errs((parts[0][0], torch.cat([p[1] for p in parts]), closed),
+                         (v, j, l))
+        recombine = max(recombine, r_)
+        del v, j, l, parts, closed
+        t_k = time_ms(lambda: jk.fused_dense_tanh_jet_mix_partial(*args))
+        ms.append(t_k)
+        total += count * t_k
+        plain += count * time_ms(lambda: jk.fused_dense_tanh_jet_mix_partial_plain(*args))
+        b_, f_ = jet_bytes_flops(t4, EL_CHUNK * 96, k, c3, EL_CHUNK)
+        nbytes += count * (b_ + open_extra_bytes(EL_CHUNK * 96, c3))
+        flops += count * f_
+        del args, full
+    bnd, by = bound_ms(nbytes, flops)
+    rows.append({
+        "name": "fused_dense_tanh_jet_mix_partial", "route": "cuda",
+        "source": "deepsolid_tpu_torch/ops/cuda/csrc/dense_tanh_jet.cu",
+        "replaces": "deepsolid_tpu/ops/pallas/jet_kernels.py:555",
+        "per": "the three one-electron layers of one 64-walker chunk on one of two deriv ranks (T_local=144, 6144 rows, 16->256, 2x 320->256)",
+        "max_abs_err": err, "max_rel_err": rel, "recombined_max_rel_err": recombine,
+        "tolerance": 1e-5, "ok": rel <= 1e-5 and recombine <= 1e-5,
+        "ms": total, "ms_per_shape": ms, "plain_ms": plain,
+        "library_ms": None, "bound_ms": bnd, "bound_by": by,
+    })
     torch.cuda.empty_cache()
     return rows
+
+
+def reset_launches():
+    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+    from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
+
+    for counts in (dk.LAUNCHES, jk.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_launches():
+    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+    from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
+
+    return {**dk.LAUNCHES, **jk.LAUNCHES}
+
+
+def diamond_cfg(optimizer, batch, save_name, deriv_devices=1):
+    from deepsolid_tpu_torch.configs import diamond
+
+    cfg = diamond.get_config(CONFIG)
+    cfg.batch_size = batch
+    cfg.precision = "float32"
+    cfg.optim.optimizer = optimizer
+    cfg.optim.laplacian_mode = "forward"
+    cfg.optim.el_chunk = EL_CHUNK
+    cfg.parallel.deriv_devices = deriv_devices
+    cfg.mcmc.burn_in = 0  # the checkpoint's walkers are equilibrated
+    cfg.mcmc.steps = 20
+    cfg.debug.deterministic = True
+    cfg.log.restore_path = os.path.join(REPO, "runs", "ckpt_diamond")
+    cfg.log.save_path = os.path.join(REPO, "build", save_name)
+    return cfg
 
 
 def main_phase(dev):
     """3 inference iterations of the C-diamond checkpoint on the card."""
     import torch
-    from deepsolid_tpu_torch.configs import diamond
-    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
-    from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
     from deepsolid_tpu_torch.train.process import process
 
-    cfg = diamond.get_config(CONFIG)
-    cfg.batch_size = BATCH
-    cfg.precision = "float32"
-    cfg.optim.optimizer = "none"
-    cfg.optim.laplacian_mode = "forward"
-    cfg.optim.el_chunk = EL_CHUNK
-    cfg.mcmc.burn_in = 0  # the checkpoint's walkers are equilibrated
-    cfg.mcmc.steps = 20
-    cfg.debug.deterministic = True
-    cfg.log.restore_path = os.path.join(REPO, "runs", "ckpt_diamond")
-    cfg.log.save_path = os.path.join(REPO, "build", "chip_smoke_run")
+    cfg = diamond_cfg("none", BATCH, "chip_smoke_run")
     shutil.rmtree(cfg.log.save_path, ignore_errors=True)
 
     iters = []
 
     def on_iteration(t, row, seconds):
+        row.pop("local_energy")  # per-walker tensor, not for the log
         rec = {"phase": "iteration", "step": t, **row,
                "walkers_per_s_local_energy": BATCH / seconds["local_energy"],
                "walkers_per_s_iteration": BATCH / seconds["step"],
@@ -221,14 +344,12 @@ def main_phase(dev):
         iters.append(rec)
         emit(rec)
 
-    for counts in (dk.LAUNCHES, jk.LAUNCHES):
-        for key in counts:
-            counts[key] = 0
     torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
     start = time.perf_counter()
     _, _, energy = process(cfg, ITERATIONS, device="cuda", on_iteration=on_iteration)
     wall = time.perf_counter() - start
-    launches = {**dk.LAUNCHES, **jk.LAUNCHES}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     result = {
         "phase": "main", "config": CONFIG, "batch": BATCH, "el_chunk": EL_CHUNK,
@@ -244,15 +365,216 @@ def main_phase(dev):
     return result
 
 
+def inference_run(cfg, iterations):
+    """process() for `iterations` iterations; returns (first iteration's
+    per-walker E_L per cell on the host, the iterations' records, energy,
+    the launch counts of this run)."""
+    from deepsolid_tpu_torch.train.process import process
+
+    first_el, recs = [], []
+
+    def on_iteration(t, row, seconds):
+        el = row.pop("local_energy")
+        if not first_el:
+            first_el.append((el / cfg.system.cell.scale).cpu())
+        recs.append({"step": t, **row, "seconds": seconds})
+
+    reset_launches()
+    _, _, energy = process(cfg, iterations, device="cuda", on_iteration=on_iteration)
+    return first_el[0], recs, energy, read_launches()
+
+
+def sharded_rank(rank, world_size):
+    """One of the two deriv ranks sharing the card: process() with
+    parallel.deriv_devices = 2, then the sharded jet algebra's dense_tanh
+    on a pair-shaped jet through the same process group."""
+    import torch
+    from deepsolid_tpu_torch import parallel
+    from deepsolid_tpu_torch.device import set_full_precision
+    from deepsolid_tpu_torch.ops import fwdlap as fl
+
+    set_full_precision()
+    cfg = diamond_cfg("none", SHARD_BATCH, "chip_smoke_sharded",
+                      deriv_devices=world_size)
+    torch.cuda.reset_peak_memory_stats()
+    first_el, recs, energy, launches = inference_run(cfg, SHARD_ITERATIONS)
+
+    # fl.dense_tanh(..., shard=) on the pair stream's shape: every rank
+    # makes the same jet from one seed, keeps its 3 of the 6 tangents and
+    # must get the closed rule's value, Laplacian and its own jac rows
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows, k, c = EL_CHUNK * 96 * 96, 32, 32
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    jet = fl.Jet(rnd(rows, k), rnd(6, rows, k), rnd(rows, k))
+    w, b = rnd(k, c) / math.sqrt(k), rnd(c)
+    shard = parallel.make_mesh(world_size).shard
+    t_loc = 6 // world_size
+    sl = slice(shard.t0(t_loc), shard.t0(t_loc) + t_loc)
+    reset_launches()
+    got = fl.dense_tanh(fl.Jet(jet.val, jet.jac[sl], jet.lap), w, b, shard=shard)
+    algebra_launches = read_launches()
+    want = fl.dense_tanh(jet, w, b)
+    _, rel = max_errs((got.val, got.jac, got.lap), (want.val, want.jac[sl], want.lap))
+    torch.cuda.synchronize()
+    return {"rank": rank, "first_el": first_el.numpy(), "iterations": recs,
+            "energy_per_cell": energy, "launches": launches,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "algebra_launches": algebra_launches, "algebra_max_rel_err": rel}
+
+
+def sharded_phase(dev):
+    """deriv_devices = 2 on one card against the unsharded port."""
+    import numpy as np
+    from deepsolid_tpu_torch import parallel
+
+    cfg = diamond_cfg("none", SHARD_BATCH, "chip_smoke_unsharded")
+    shutil.rmtree(cfg.log.save_path, ignore_errors=True)
+    want_el, recs, energy, _ = inference_run(cfg, SHARD_ITERATIONS)
+    unsharded = statistics.median(SHARD_BATCH / r["seconds"]["local_energy"] for r in recs)
+
+    shutil.rmtree(os.path.join(REPO, "build", "chip_smoke_sharded"), ignore_errors=True)
+    start = time.perf_counter()
+    ranks = parallel.run_ranks(sharded_rank, 2, backend="gloo", timeout=600.0)
+    wall = time.perf_counter() - start
+    chunks = SHARD_BATCH // EL_CHUNK
+    expect_b4b = 3 * chunks * SHARD_ITERATIONS
+    diffs = [float(np.abs(r["first_el"] - want_el.numpy()).max()) for r in ranks]
+    sharded = statistics.median(
+        SHARD_BATCH / it["seconds"]["local_energy"] for it in ranks[0]["iterations"])
+    result = {
+        "phase": "sharded", "deriv_devices": 2, "backend": "gloo (two ranks on one card)",
+        "batch": SHARD_BATCH, "el_chunk": EL_CHUNK, "iterations": SHARD_ITERATIONS,
+        "seconds": wall,
+        "launches_per_rank": [r["launches"] for r in ranks],
+        "algebra_launches_per_rank": [r["algebra_launches"] for r in ranks],
+        "algebra_max_rel_err": max(r["algebra_max_rel_err"] for r in ranks),
+        "expected_mix_partial_launches": expect_b4b,
+        "max_abs_el_diff_per_cell_by_rank": diffs, "tolerance": SHARD_EL_TOLERANCE,
+        "energy_per_cell": [r["energy_per_cell"] for r in ranks],
+        "energy_per_cell_unsharded": energy,
+        "peak_memory_bytes_per_rank": [r["peak_memory_bytes"] for r in ranks],
+        "walkers_per_s_local_energy_sharded": sharded,
+        "walkers_per_s_local_energy_unsharded": unsharded,
+        "note": "two ranks time-share one card and reduce through the host: "
+                "the sharded rate is not expected to exceed the unsharded one",
+    }
+    result["ok"] = (
+        all(r["launches"]["fused_dense_tanh_jet_mix_partial"] == expect_b4b
+            and r["launches"]["fused_dense_tanh_jet_mix"] == 0
+            and r["launches"]["fused_dense_tanh_jet"] > 0
+            and r["launches"]["gj_inverse_slogdet"] > 0
+            and r["algebra_launches"]["fused_dense_tanh_jet_partial"] == 1
+            and r["algebra_max_rel_err"] <= 1e-5 for r in ranks)
+        and max(diffs) <= SHARD_EL_TOLERANCE
+        and all(math.isfinite(e) and abs(e - REFERENCE_ENERGY) <= ENERGY_WINDOW
+                for e in result["energy_per_cell"]))
+    emit(result)
+    return result
+
+
+def training_phase(dev):
+    """3 adam iterations at 1024 walkers from the checkpoint."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.models.network import param_shapes, params_from_jax
+    from deepsolid_tpu_torch.optim.adam import tree_leaves, tree_map
+    from deepsolid_tpu_torch.train.process import build_network, process
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    cfg = diamond_cfg("adam", BATCH, "chip_smoke_train")
+    cfg.optim.psi_chunk = EL_CHUNK
+    cfg.optim.lr.rate = TRAIN_LR
+    shutil.rmtree(cfg.log.save_path, ignore_errors=True)
+    t_start, start_data, start_params, _, _ = restore(
+        find_last_checkpoint(cfg.log.restore_path))
+
+    iters = []
+
+    def on_iteration(t, row, seconds):
+        row.pop("local_energy")
+        rec = {"phase": "train_iteration", "step": t, **row, "seconds": seconds,
+               "launches_so_far": read_launches()}
+        iters.append(rec)
+        emit(rec)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    start = time.perf_counter()
+    params, _, energy = process(cfg, t_start + TRAIN_ITERATIONS, device="cuda",
+                                on_iteration=on_iteration)
+    wall = time.perf_counter() - start
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    before = params_from_jax(start_params, dev, torch.float32)
+    moved = max(float((a - b).abs().max())
+                for a, b in zip(tree_leaves(params), tree_leaves(before)))
+    ckpt = find_last_checkpoint(cfg.log.save_path)
+    restored_ok = False
+    if ckpt:
+        t_next, data, ck_params, ck_state, _ = restore(ckpt)
+        adam_state = ck_state[1]  # the chain: clip, adam, schedule, sign
+        restored_ok = (
+            t_next == t_start + TRAIN_ITERATIONS and data.shape == (BATCH, 288)
+            and param_shapes(ck_params) == param_shapes(start_params)
+            and int(adam_state.count) == TRAIN_ITERATIONS
+            and all(np.array_equal(a, b.cpu().numpy()) for a, b in
+                    zip(tree_leaves(ck_params), tree_leaves(params))))
+
+    # B1 under autograd: launches of one chunk's log psi forward and backward
+    net = build_network(cfg, cfg.system.cell)
+    x = torch.as_tensor(np.asarray(start_data[:EL_CHUNK], np.float32), device=dev)
+    grad_params = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    leaves = tree_leaves(grad_params)
+    reset_launches()
+    logpsi = net.logdet(grad_params, x)
+    b1_forward = read_launches()["gj_inverse_slogdet"]
+    logpsi.real.sum().backward()
+    b1_backward = read_launches()["gj_inverse_slogdet"] - b1_forward
+    grads_finite = all(bool(torch.isfinite(t.grad).all()) for t in leaves)
+
+    def med(key):
+        return statistics.median(r["seconds"][key] for r in iters)
+
+    result = {
+        "phase": "training", "optimizer": "adam", "batch": BATCH, "el_chunk": EL_CHUNK,
+        "psi_chunk": EL_CHUNK, "lr": TRAIN_LR, "iterations": len(iters),
+        "seconds": wall, "energy_per_cell": energy,
+        "loss_per_cell": [r["energy"] for r in iters],
+        "grad_norm": [r["grad_norm"] for r in iters],
+        "seconds_per_iteration": {k: med(k) for k in
+                                  ("mcmc", "local_energy", "gradient", "update", "step")},
+        "walkers_per_s_training_iteration": BATCH / med("step"),
+        "peak_memory_bytes": peak, "launches": launches,
+        "b1_launches_per_psi_chunk": {"forward": b1_forward, "backward": b1_backward},
+        "max_abs_parameter_change": moved, "checkpoint": os.path.basename(ckpt or ""),
+        "checkpoint_restores": restored_ok,
+    }
+    result["ok"] = (
+        len(iters) == TRAIN_ITERATIONS
+        and all(math.isfinite(r["energy"]) and math.isfinite(r["grad_norm"])
+                and r["grad_norm"] > 0 for r in iters)
+        and abs(energy - REFERENCE_ENERGY) <= ENERGY_WINDOW
+        and moved > 0 and restored_ok and grads_finite
+        and b1_forward > 0 and b1_backward == 0)
+    emit(result)
+    return result
+
+
 def reference_phase(dev):
-    """E_L of 8 checkpoint walkers: the card's f32 kernel path against the
-    port's plain path on the CPU in float64."""
+    """E_L and the energy gradient of 8 checkpoint walkers: the card's f32
+    kernel path against the port's plain path on the CPU in float64."""
     import numpy as np
     import torch
     from deepsolid_tpu_torch.configs import diamond
     from deepsolid_tpu_torch.device import set_full_precision
-    from deepsolid_tpu_torch.hamiltonian import make_local_energy
     from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.optim.adam import tree_leaves
+    from deepsolid_tpu_torch.train.loss import make_loss
     from deepsolid_tpu_torch.train.process import build_network
     from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
 
@@ -262,20 +584,26 @@ def reference_phase(dev):
     _, data, params, _, _ = restore(
         find_last_checkpoint(os.path.join(REPO, "runs", "ckpt_diamond")))
     x = np.asarray(data[:8], np.float64)
-    el_fn = make_local_energy(net, sc)
+    total_energy = make_loss(net, sc, clip_local_energy=cfg.optim.clip_el,
+                             clip_type=cfg.optim.clip_type)
     gpu_params = params_from_jax(params, dev, torch.float32)
     gpu_x = torch.as_tensor(x, dtype=torch.float32, device=dev)
 
     def card_el():
-        with torch.no_grad():
-            ke, ew = el_fn(gpu_params, gpu_x)
-        return (ke + ew).cpu().to(torch.complex128)
+        _, aux = total_energy(gpu_params, gpu_x)
+        return aux.local_energy.cpu().to(torch.complex128)
 
-    gpu = card_el()
-    with torch.no_grad():
-        ke, ew = el_fn(params_from_jax(params, "cpu", torch.float64),
-                       torch.as_tensor(x, dtype=torch.float64))
-        cpu = ke + ew
+    (_, gpu_aux), gpu_grad = total_energy.value_and_grad(gpu_params, gpu_x)
+    gpu = gpu_aux.local_energy.cpu().to(torch.complex128)
+    (_, cpu_aux), cpu_grad = total_energy.value_and_grad(
+        params_from_jax(params, "cpu", torch.float64),
+        torch.as_tensor(x, dtype=torch.float64))
+    cpu = cpu_aux.local_energy
+    # the energy gradient of these 8 walkers: relative error in the global norm
+    diff2 = sum(float(((g.cpu().double() - c) ** 2).sum())
+                for g, c in zip(tree_leaves(gpu_grad), tree_leaves(cpu_grad)))
+    norm2 = sum(float((c ** 2).sum()) for c in tree_leaves(cpu_grad))
+    grad_rel = math.sqrt(diff2 / norm2)
 
     def diffs(el):
         d = ((el - cpu).abs() / sc.scale).numpy()
@@ -303,10 +631,14 @@ def reference_phase(dev):
         "tf32_control_max_abs_diff_per_cell": tf32_worst,
         "tf32_control_fails_check": not (tf32_median <= tol_median
                                          and tf32_worst <= tol_max),
+        "gradient_rel_err_global_norm": grad_rel,
+        "gradient_global_norm_cpu_f64": math.sqrt(norm2),
+        "gradient_tolerance": GRADIENT_TOLERANCE,
     }
     # a check the TF32 control passes could not guard the precision flags
     result["ok"] = (median <= tol_median and worst <= tol_max
-                    and result["tf32_control_fails_check"])
+                    and result["tf32_control_fails_check"]
+                    and grad_rel <= GRADIENT_TOLERANCE)
     emit(result)
     return result
 
@@ -390,19 +722,40 @@ def main() -> int:
         return fail(f"kernels disagree with their plain versions: {bad}")
 
     main_result = main_phase(dev)
-    for row in kernels:
-        row["launches"] = main_result["launches"][row["name"]]
-    idle = [r["name"] for r in kernels if r["launches"] <= 0]
-    if idle:
-        return fail(f"the main path launched no {idle}")
     energy = main_result["energy_per_cell"]
     if not (math.isfinite(energy) and abs(energy - REFERENCE_ENERGY) <= ENERGY_WINDOW):
         return fail(f"energy {energy} Ha/cell is not within {ENERGY_WINDOW} "
                     f"of {REFERENCE_ENERGY}")
 
+    sharded = sharded_phase(dev)
+    if not sharded["ok"]:
+        return fail("the sharded phase failed its checks (launch counts, E_L "
+                    "against the unsharded port, or the energy window)")
+
+    # each kernel's count on the path that runs it, read just after that
+    # path: the unsharded inference path for the closed kernels, rank 0 of
+    # the sharded path for the open mix kernel, and rank 0's sharded
+    # dense_tanh for the open plain kernel (process() keeps the pair
+    # stream rank-local, so no path of process() reaches it)
+    path_launches = {
+        **main_result["launches"],
+        "fused_dense_tanh_jet_mix_partial":
+            sharded["launches_per_rank"][0]["fused_dense_tanh_jet_mix_partial"],
+        "fused_dense_tanh_jet_partial":
+            sharded["algebra_launches_per_rank"][0]["fused_dense_tanh_jet_partial"],
+    }
+    for row in kernels:
+        row["launches"] = path_launches[row["name"]]
+    idle = [r["name"] for r in kernels if r["launches"] <= 0]
+    if idle:
+        return fail(f"the driven paths launched no {idle}")
+
+    if not training_phase(dev)["ok"]:
+        return fail("the training phase failed its checks")
+
     if not reference_phase(dev)["ok"]:
-        return fail("card E_L disagrees with the CPU float64 reference, or "
-                    "the TF32 control passed the check")
+        return fail("card E_L or its gradient disagrees with the CPU float64 "
+                    "reference, or the TF32 control passed the check")
     profile_phase(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -40,16 +40,35 @@ def default() -> ConfigDict:
             "precision": "float32",  # 'float32' | 'float64'
             "optim": {
                 "iterations": 1000000,
-                # only 'none' (inference: MCMC + local energy, no update)
-                # is ported; 'kfac' and 'adam' belong to the training slice
+                # 'adam' and 'none' (inference: MCMC + local energy, no
+                # update) are ported; 'kfac' is the next slice
                 "optimizer": "kfac",
+                "lr": {
+                    "rate": 5.0e-2,
+                    "decay": 1.0,
+                    "delay": 10000.0,
+                },
                 "clip_el": 5.0,
+                "clip_type": "real",  # 'real' | 'complex'
+                "gradient_clip": 5.0,  # global-norm clip on adam grads; <=0 off
+                "adam": {
+                    "b1": 0.9,
+                    "b2": 0.999,
+                    "eps": 1.0e-8,
+                    "eps_root": 0.0,
+                },
+                "ministeps": 1,
                 "laplacian_mode": "forward",  # the port's only engine
                 # walkers per local-energy sweep (0 = whole batch at once)
                 "el_chunk": 0,
+                # walkers per sweep of the log psi gradient and of the
+                # sampler's log|psi| evaluations (0 = whole batch)
+                "psi_chunk": 0,
             },
             "log": {
                 "stats_frequency": 1,
+                "save_frequency": 10.0,  # minutes
+                "save_frequency_in_step": -1,
                 "save_path": "",
                 "restore_path": "",
                 "stats_file_name": "train_stats",
@@ -78,6 +97,12 @@ def default() -> ConfigDict:
                     "distance_type": "nu",
                 },
                 "twist": (0.0, 0.0, 0.0),
+            },
+            "parallel": {
+                # ranks that share one walker batch and split the 3N
+                # Laplacian tangent columns among them ('forward' mode
+                # only); the remaining ranks form the data (walker) axis
+                "deriv_devices": 1,
             },
             "debug": {
                 "deterministic": False,

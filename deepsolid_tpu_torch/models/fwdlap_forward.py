@@ -1,7 +1,7 @@
 """Forward-Laplacian evaluation of the periodic FermiNet kinetic energy.
 
-Mirrors deepsolid_tpu/models/fwdlap_forward.py (network_jets without
-tangent sharding, and the full-width orbital head). One traversal
+Mirrors deepsolid_tpu/models/fwdlap_forward.py (network_jets with its
+optional tangent sharding, and the full-width orbital head). One traversal
 carrying (value, Jacobian, Laplacian) jets replaces 3N JVP-of-grad
 passes: the two-electron stream stays pair-sparse (6 tangents), each
 determinant is factorized once, and the 3N tangent axis rides the
@@ -61,11 +61,26 @@ def _isotropic_envelope_jet(r, env_params, spec: SystemSpec, cfg: NetworkConfig,
     )
 
 
+def _slice_tangents(jac: torch.Tensor, shard) -> torch.Tensor:
+    """This rank's tangent window of a dense (3N, ...) jac."""
+    if shard is None:
+        return jac
+    t_loc = jac.shape[0] // shard.size
+    return jac.narrow(0, shard.t0(t_loc), t_loc)
+
+
 def network_jets(params, x: torch.Tensor, spec: SystemSpec,
-                 cfg: NetworkConfig) -> fl.Jet:
+                 cfg: NetworkConfig, shard=None) -> fl.Jet:
     """Jet of complex log psi wrt the 3N electron coordinates.
 
     x: (B, 3N). Returns val (B,) complex, jac (3N, B), lap (B,).
+
+    `shard` (parallel.TangentShard or None) shards the 3N tangent columns
+    over the deriv ranks: every dense jet holds this rank's 3N / size
+    tangents (jac (T_local, B)) and cross-tangent contractions are summed
+    over the ranks; val and lap come out equal on every rank. The
+    pair-sparse two-electron jets (6 tangents) and the per-electron
+    envelope jets (3) stay rank-local.
     """
     dtype, dev = x.dtype, x.device
     spins = spec.spins
@@ -88,7 +103,7 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
     ae_jac = ae_jac.movedim(3, 0).reshape(3, batch, n, width)
     h_one = fl.Jet(
         val=torch.cat([sd[..., None], rl], dim=-1).reshape(batch, n, width),
-        jac=fl.dense_from_electron_rows(ae_jac),
+        jac=_slice_tangents(fl.dense_from_electron_rows(ae_jac), shard),
         lap=torch.cat([lap_sd[..., None], lap_rl], dim=-1).reshape(batch, n, width),
     )
 
@@ -121,7 +136,8 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
         for (s, e) in ranges:
             rv_parts.append(fl.Jet(
                 val=torch.mean(h2.val[:, s:e], dim=1),
-                jac=fl.dense_row_mean_from_pairs(h2.jac, s, e),
+                jac=_slice_tangents(fl.dense_row_mean_from_pairs(h2.jac, s, e),
+                                    shard),
                 lap=torch.mean(h2.lap[:, s:e], dim=1),
             ))
         return rv_parts, fl.concat(rc_parts, axis=-1)
@@ -147,7 +163,8 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
         h_rv, h_rc = symmetric_split(h_one, h_two)
         p1 = params["single"][i]
         w_rv, w_rc = split_w(p1["w"], f1)
-        h_one_next = fl.dense_tanh_mix(h_rv, h_rc, w_rv, w_rc, p1.get("b"))
+        h_one_next = fl.dense_tanh_mix(h_rv, h_rc, w_rv, w_rc, p1.get("b"),
+                                       shard=shard)
         p2 = params["double"][i]
         h_two_next = fl.dense_tanh(h_two, p2["w"], p2.get("b"))
         h_one = residual(h_one, h_one_next)
@@ -159,7 +176,7 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
         p1 = params["single"][-1]
         w_rv, w_rc = split_w(p1["w"], f1)
         h_one = residual(h_one, fl.dense_tanh_mix(h_rv, h_rc, w_rv, w_rc,
-                                                  p1.get("b")))
+                                                  p1.get("b"), shard=shard))
         h_orb_rv, h_orb_rc, f1_orb = h_one, None, None
     else:
         f1_orb = h_one.val.shape[-1]
@@ -220,39 +237,51 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
         ep_lap = (env_lap * pv + 2.0 * torch.sum(env_jac3 * pj, dim=0)
                   + env_val * phase_lap[:, :, None, :])
         orb = fl.mul_row(orb, ep_val.transpose(1, 2), ep_jac3.transpose(2, 3),
-                         ep_lap.transpose(1, 2), n_total=n, offset=s)
+                         ep_lap.transpose(1, 2), n_total=n, offset=s,
+                         shard=shard)
         channel_jets.append(orb)
 
     mats = [fl.concat(channel_jets, axis=2)] if cfg.full_det else channel_jets
 
     sign_total, l_total = None, None
     for mat in mats:
-        sign, l = fl.slogdet_jet(mat)
+        sign, l = fl.slogdet_jet(mat, shard=shard)
         if l_total is None:
             sign_total, l_total = sign, l
         else:
             sign_total = sign_total * sign
             l_total = fl.add(l_total, l)
-    return fl.logsumexp_det_jet(sign_total, l_total)
+    return fl.logsumexp_det_jet(sign_total, l_total, shard=shard)
 
 
-def make_kinetic_forward(network) -> Callable:
-    """kinetic(params, x) -> complex local kinetic energy (B,)."""
+def _check_shard(spec: SystemSpec, shard) -> None:
+    if shard is not None and (3 * spec.nelectron) % shard.size != 0:
+        raise ValueError(
+            f"the deriv axis ({shard.size} ranks) must divide the "
+            f"3N={3 * spec.nelectron} Laplacian tangent columns")
+
+
+def make_kinetic_forward(network, shard=None) -> Callable:
+    """kinetic(params, x) -> complex local kinetic energy (B,). With a
+    shard the 3N tangent columns are split over the deriv ranks."""
     spec, cfg = network.spec, network.cfg
+    _check_shard(spec, shard)
 
     def kinetic(params, x):
-        jet = network_jets(params, x, spec, cfg)
-        return -0.5 * (jet.lap + torch.sum(jet.jac**2, dim=0))
+        jet = network_jets(params, x, spec, cfg, shard=shard)
+        return -0.5 * (jet.lap + fl._tsum(jet.jac**2, shard))
 
     return kinetic
 
 
-def make_logpsi_and_kinetic(network) -> Callable:
-    """(params, x) -> (log psi (B,) complex, kinetic (B,) complex) in one pass."""
+def make_logpsi_and_kinetic(network, shard=None) -> Callable:
+    """(params, x) -> (log psi (B,) complex, kinetic (B,) complex) in one
+    pass; `shard` as in make_kinetic_forward."""
     spec, cfg = network.spec, network.cfg
+    _check_shard(spec, shard)
 
     def both(params, x):
-        jet = network_jets(params, x, spec, cfg)
-        return jet.val, -0.5 * (jet.lap + torch.sum(jet.jac**2, dim=0))
+        jet = network_jets(params, x, spec, cfg, shard=shard)
+        return jet.val, -0.5 * (jet.lap + fl._tsum(jet.jac**2, shard))
 
     return both

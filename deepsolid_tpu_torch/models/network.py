@@ -1,6 +1,7 @@
 """Periodic complex FermiNet-style wavefunction for solids.
 
-Mirrors deepsolid_tpu/models/network.py (value path):
+Mirrors deepsolid_tpu/models/network.py (value path and its first-order
+gradient with respect to the parameters):
   periodic nu/tri input features -> two-stream permutation-equivariant MLP
   -> per-spin complex orbital heads -> multiplicative envelopes -> Bloch
   phase factors e^{i k.r} from the occupied k-list -> log-sum-exp over
@@ -24,6 +25,7 @@ from deepsolid_tpu_torch.models import envelopes as envelopes_lib
 from deepsolid_tpu_torch.models import features as features_lib
 from deepsolid_tpu_torch.ops.slogdet import logdet_matmul
 from deepsolid_tpu_torch.system.cell import Supercell
+from deepsolid_tpu_torch.utils.tree import tree_map
 
 ParamTree = Any
 
@@ -142,6 +144,12 @@ def params_from_jax(tree, device="cpu", dtype=torch.float32) -> ParamTree:
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device, dtype) for v in tree]
     return torch.tensor(np.asarray(tree), dtype=dtype, device=device)
+
+
+def params_to_numpy(tree) -> ParamTree:
+    """The inverse of params_from_jax: torch leaves as numpy arrays, for
+    a checkpoint or for handing parameters to the JAX package."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
 def param_shapes(tree) -> ParamTree:
@@ -302,6 +310,8 @@ class Network:
         return apply_network(params, x, self.spec, self.cfg, "slogdet")
 
     def logdet(self, params, x):
+        """Complex log psi (B,), differentiable with respect to params
+        (the determinants' gradient runs through ops.slogdet)."""
         return apply_network(params, x, self.spec, self.cfg, "logdet")
 
     def phase_and_slogdet(self, params, x):

@@ -1,16 +1,24 @@
 // Fused dense + tanh forward-Laplacian jet rule for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of deepsolid_tpu/ops/pallas/jet_kernels.py:
+// Replaces four TPU kernels of deepsolid_tpu/ops/pallas/jet_kernels.py:
 //   * fused_dense_tanh_jet (body _kernel): the two-electron trunk layers;
 //   * fused_dense_tanh_jet_mix (_fused_mix_call, body _kernel_mix): the
 //     one-electron trunk layers, whose row-constant block enters
 //     precontracted as zbc, lbc (per walker) and jbc (per tangent and
-//     walker), added to every row of that walker.
+//     walker), added to every row of that walker;
+//   * fused_dense_tanh_jet_partial (body _kernel_partial) and
+//     fused_dense_tanh_jet_mix_partial (body _kernel_mix_partial): the same
+//     two rules for a tangent axis that is sharded over ranks. jac holds
+//     this rank's T_local tangents only, and the tangent square sum is
+//     left open: the kernel returns it as a fourth output for the caller
+//     to sum over the ranks.
 //
 // What it computes, rows r, output columns c, tangents t < T:
 //   z  = val @ w + b (+ zbc)        t_ = tanh z       d = 1 - t_^2
 //   y_t = jac[t] @ w (+ jbc[t])     jac_o[t] = d * y_t
-//   lap_o = d * (lap @ w (+ lbc)) - 2 t_ d * sum_t y_t^2
+//   closed: lap_o = d * (lap @ w (+ lbc)) - 2 t_ d * sum_t y_t^2
+//   open:   lap_o = d * (lap @ w (+ lbc)),   sq_o = sum_t y_t^2
+//           (the caller closes lap = lap_o - 2 t_ d * sum over ranks of sq_o)
 //
 // What bounds it on this card: the main path's one-electron layers
 // (T = 288, 6144 rows per 64-walker chunk, 320 -> 256) do 290 GFLOP on
@@ -35,6 +43,10 @@
 //     the grid fills the card several times over at one 64-walker chunk;
 //     each slice writes its partial square sums to scratch the wrapper
 //     allocates, and a small second kernel closes the Laplacian.
+// The open form changes no product: the narrow variant stores the square
+// sum it holds in registers instead of folding it into lap_o (a
+// compile-time flag), and the wide variant runs a second finishing kernel
+// that sums the slices into sq_o and scales lap_o's linear part by d.
 // k-slices of the input rows and of w are staged in shared memory.
 
 #include <cuda_runtime.h>
@@ -103,15 +115,15 @@ __device__ __forceinline__ void tile_product(
   }
 }
 
-template <int TN, bool MIX>
+template <int TN, bool MIX, bool OPEN>
 __global__ void __launch_bounds__(kThreads) dense_tanh_jet_kernel(
     const float* __restrict__ val, const float* __restrict__ lap,
     const float* __restrict__ jac, const float* __restrict__ w,
     const float* __restrict__ b, const float* __restrict__ zbc,
     const float* __restrict__ lbc, const float* __restrict__ jbc,
     float* __restrict__ val_o, float* __restrict__ lap_o,
-    float* __restrict__ jac_o, int T, int R, int K, int C,
-    int rows_per_group, int groups) {
+    float* __restrict__ jac_o, float* __restrict__ sq_o, int T, int R, int K,
+    int C, int rows_per_group, int groups) {
   __shared__ Tiles<TN> s;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
@@ -182,8 +194,13 @@ __global__ void __launch_bounds__(kThreads) dense_tanh_jet_kernel(
       if (MIX) yl += lbc[static_cast<size_t>(grp[i]) * C + cols[j]];
       const float t = tv[i][j];
       const float d = 1.f - t * t;
-      lap_o[static_cast<size_t>(rows[i]) * C + cols[j]] =
-          d * yl + (-2.f * t * d) * sq[i][j];
+      const size_t o = static_cast<size_t>(rows[i]) * C + cols[j];
+      if (OPEN) {  // the caller sums sq_o over the ranks and closes lap
+        lap_o[o] = d * yl;
+        sq_o[o] = sq[i][j];
+      } else {
+        lap_o[o] = d * yl + (-2.f * t * d) * sq[i][j];
+      }
     }
 }
 
@@ -366,12 +383,29 @@ __global__ void finish_lap_kernel(const float* __restrict__ val_o,
   }
 }
 
+// The open form: sq_o = sum over slices of sq_part, lap_o = d * lap_o.
+__global__ void finish_open_kernel(const float* __restrict__ val_o,
+                                   float* __restrict__ lap_o,
+                                   const float* __restrict__ sq_part,
+                                   float* __restrict__ sq_o, int slices,
+                                   size_t n) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float sum = 0.f;
+    for (int k = 0; k < slices; ++k) sum += sq_part[k * n + i];
+    const float t = val_o[i];
+    sq_o[i] = sum;
+    lap_o[i] = (1.f - t * t) * lap_o[i];
+  }
+}
+
 template <bool MIX>
 int launch_wide(const float* val, const float* lap, const float* jac,
                 const float* w, const float* b, const float* zbc,
                 const float* lbc, const float* jbc, float* val_o, float* lap_o,
-                float* jac_o, float* sq_part, int slices, int T, int R, int K,
-                int C, int rows_per_group, int groups, cudaStream_t stream) {
+                float* jac_o, float* sq_part, float* sq_o, int slices, int T,
+                int R, int K, int C, int rows_per_group, int groups,
+                cudaStream_t stream) {
   const int t_per_slice = (T + slices - 1) / slices;
   const dim3 grid((R + kWM - 1) / kWM, C / kWN, slices);
   dense_tanh_jet_wide_kernel<MIX><<<grid, kThreads, 0, stream>>>(
@@ -381,20 +415,32 @@ int launch_wide(const float* val, const float* lap, const float* jac,
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n = static_cast<size_t>(R) * C;
   const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
-  finish_lap_kernel<<<blocks, 256, 0, stream>>>(val_o, lap_o, sq_part, slices, n);
+  if (sq_o != nullptr) {
+    finish_open_kernel<<<blocks, 256, 0, stream>>>(val_o, lap_o, sq_part, sq_o,
+                                                   slices, n);
+  } else {
+    finish_lap_kernel<<<blocks, 256, 0, stream>>>(val_o, lap_o, sq_part,
+                                                  slices, n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int TN, bool MIX>
 int launch(const float* val, const float* lap, const float* jac,
            const float* w, const float* b, const float* zbc, const float* lbc,
-           const float* jbc, float* val_o, float* lap_o, float* jac_o, int T,
-           int R, int K, int C, int rows_per_group, int groups,
-           cudaStream_t stream) {
+           const float* jbc, float* val_o, float* lap_o, float* jac_o,
+           float* sq_o, int T, int R, int K, int C, int rows_per_group,
+           int groups, cudaStream_t stream) {
   const dim3 grid((R + kBM - 1) / kBM, (C + 16 * TN - 1) / (16 * TN));
-  dense_tanh_jet_kernel<TN, MIX><<<grid, kThreads, 0, stream>>>(
-      val, lap, jac, w, b, zbc, lbc, jbc, val_o, lap_o, jac_o, T, R, K, C,
-      rows_per_group, groups);
+  if (sq_o != nullptr) {
+    dense_tanh_jet_kernel<TN, MIX, true><<<grid, kThreads, 0, stream>>>(
+        val, lap, jac, w, b, zbc, lbc, jbc, val_o, lap_o, jac_o, sq_o, T, R, K,
+        C, rows_per_group, groups);
+  } else {
+    dense_tanh_jet_kernel<TN, MIX, false><<<grid, kThreads, 0, stream>>>(
+        val, lap, jac, w, b, zbc, lbc, jbc, val_o, lap_o, jac_o, sq_o, T, R, K,
+        C, rows_per_group, groups);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -406,6 +452,9 @@ extern "C" {
 // lap_o: (R, C) and jac_o: (T, R, C), all float32 and contiguous. For the
 // mix variant zbc, lbc: (groups, C) and jbc: (T, groups, C), row r
 // belonging to group r / rows_per_group; pass null zbc for the plain rule.
+// A non-null sq_out (R, C) selects the open form: it receives the tangent
+// square sum and lap_o keeps d * (lap @ w (+ lbc)) only; null closes the
+// Laplacian in the kernel.
 // The caller chooses the variant (jet_kernels.wide_slices): slices > 0
 // runs the wide one, which needs C % 64 == 0, K % 4 == 0, every pointer
 // 16-byte aligned and `slices` * R * C floats of scratch; slices = 0 runs
@@ -413,9 +462,9 @@ extern "C" {
 int dense_tanh_jet_launch(const void* val, const void* lap, const void* jac,
                           const void* w, const void* b, const void* zbc,
                           const void* lbc, const void* jbc, void* val_o,
-                          void* lap_o, void* jac_o, void* scratch, int slices,
-                          int T, int R, int K, int C, int rows_per_group,
-                          int groups, void* stream) {
+                          void* lap_o, void* jac_o, void* scratch,
+                          void* sq_out, int slices, int T, int R, int K, int C,
+                          int rows_per_group, int groups, void* stream) {
   const auto* v = static_cast<const float*>(val);
   const auto* l = static_cast<const float*>(lap);
   const auto* jc = static_cast<const float*>(jac);
@@ -427,21 +476,22 @@ int dense_tanh_jet_launch(const void* val, const void* lap, const void* jac,
   auto* vo = static_cast<float*>(val_o);
   auto* lo = static_cast<float*>(lap_o);
   auto* jo = static_cast<float*>(jac_o);
+  auto* so = static_cast<float*>(sq_out);
   auto st = static_cast<cudaStream_t>(stream);
   const bool mix = zbc != nullptr;
   if (slices > 0) {
     auto* sp = static_cast<float*>(scratch);
     return mix ? launch_wide<true>(v, l, jc, wp, bp, zp, lp, jp, vo, lo, jo,
-                                   sp, slices, T, R, K, C, rows_per_group,
+                                   sp, so, slices, T, R, K, C, rows_per_group,
                                    groups, st)
                : launch_wide<false>(v, l, jc, wp, bp, zp, lp, jp, vo, lo, jo,
-                                    sp, slices, T, R, K, C, rows_per_group,
+                                    sp, so, slices, T, R, K, C, rows_per_group,
                                     groups, st);
   }
-  return mix ? launch<2, true>(v, l, jc, wp, bp, zp, lp, jp, vo, lo, jo, T, R,
-                               K, C, rows_per_group, groups, st)
-             : launch<2, false>(v, l, jc, wp, bp, zp, lp, jp, vo, lo, jo, T,
-                                R, K, C, rows_per_group, groups, st);
+  return mix ? launch<2, true>(v, l, jc, wp, bp, zp, lp, jp, vo, lo, jo, so, T,
+                               R, K, C, rows_per_group, groups, st)
+             : launch<2, false>(v, l, jc, wp, bp, zp, lp, jp, vo, lo, jo, so,
+                                T, R, K, C, rows_per_group, groups, st);
 }
 
 const char* cuda_error_string(int code) {

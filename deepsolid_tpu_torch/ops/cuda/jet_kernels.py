@@ -1,12 +1,16 @@
 """Fused dense + tanh jet rule: CUDA kernel and plain version.
 
 Counterpart of deepsolid_tpu/ops/pallas/jet_kernels.py
-(fused_dense_tanh_jet and fused_dense_tanh_jet_mix). One CUDA source
-(csrc/dense_tanh_jet.cu) serves both; the mix variant adds the
-precontracted row-constant terms of each walker. The wrappers take the
-plain PyTorch version only for tensors on the CPU.
+(fused_dense_tanh_jet, fused_dense_tanh_jet_mix and their `_partial`
+twins). One CUDA source (csrc/dense_tanh_jet.cu) serves all four; the mix
+variant adds the precontracted row-constant terms of each walker, and the
+partial ("open") form serves a tangent axis sharded over ranks: jac holds
+this rank's tangents and the tangent square sum comes back as a fourth
+output, s_local, for the caller to sum over the ranks and close
+    lap = lap_part + (-2 v (1 - v^2)) * sum_ranks s_local.
+The wrappers take the plain PyTorch version only for tensors on the CPU.
 
-Layouts (float32 on the card):
+Layouts (float32 on the card; T is T_local in the open form):
   plain rule: val, lap (R, d_in); jac (T, R, d_in); w (d_in, d_out); b (d_out,)
   mix rule:   val, lap (G, n, d_in); jac (T, G, n, d_in); zbc, lbc (G, d_out);
               jbc (T, G, d_out) - G walkers of n rows each.
@@ -20,12 +24,14 @@ import torch
 
 from deepsolid_tpu_torch.ops.cuda import build
 
-LAUNCHES = {"fused_dense_tanh_jet": 0, "fused_dense_tanh_jet_mix": 0}
+LAUNCHES = {"fused_dense_tanh_jet": 0, "fused_dense_tanh_jet_mix": 0,
+            "fused_dense_tanh_jet_partial": 0,
+            "fused_dense_tanh_jet_mix_partial": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "dense_tanh_jet_launch": (_I, [_P] * 12 + [_I] * 7 + [_P]),
+    "dense_tanh_jet_launch": (_I, [_P] * 13 + [_I] * 7 + [_P]),
 }
 # the wide variant's block tile (kWM x kWN in csrc/dense_tanh_jet.cu)
 WIDE_ROWS, WIDE_COLS = 128, 64
@@ -68,6 +74,30 @@ def fused_dense_tanh_jet_mix_plain(val, jac, lap, zbc, lbc, jbc, w, b):
     return t, d * yj, d * yl + (-2.0 * t * d) * torch.sum(yj * yj, dim=0)
 
 
+def fused_dense_tanh_jet_partial_plain(val, jac, lap, w, b):
+    """(val_out, jac_out, lap_part, s_local) with the tangent sum open:
+    lap_part = d * (lap @ w), s_local = sum over this jac's tangents of
+    (jac_t @ w)^2."""
+    t = torch.tanh(val @ w + b)
+    d = 1.0 - t * t
+    yj = jac @ w
+    return t, d * yj, d * (lap @ w), torch.sum(yj * yj, dim=0)
+
+
+def fused_dense_tanh_jet_mix_partial_plain(val, jac, lap, zbc, lbc, jbc, w, b):
+    """The open form of the mix rule, same four outputs."""
+    t = torch.tanh(val @ w + b + zbc[:, None, :])
+    d = 1.0 - t * t
+    yj = jac @ w + jbc[:, :, None, :]
+    return t, d * yj, d * (lap @ w + lbc[:, None, :]), torch.sum(yj * yj, dim=0)
+
+
+def close_laplacian(val_out, lap_part, s_total):
+    """lap = lap_part + (-2 v (1 - v^2)) * s_total, the identity that
+    closes the open form once s_local is summed over the ranks."""
+    return lap_part + (-2.0 * val_out * (1.0 - val_out * val_out)) * s_total
+
+
 def _lib():
     return build.library("dense_tanh_jet", _SIGNATURES)
 
@@ -80,7 +110,10 @@ def _check_cuda(name, **tensors):
             raise TypeError(f"{name} kernel takes float32; {key} is {x.dtype}")
 
 
-def _launch(name, val, jac, lap, w, b, mix, rows_per_group, groups):
+def _launch(name, val, jac, lap, w, b, mix, rows_per_group, groups,
+            open_sum=False):
+    """Launches the kernel; returns (val_o, jac_o, lap_o) or, with
+    `open_sum`, (val_o, jac_o, lap_part, s_local)."""
     t_dim, rows, d_in = jac.shape
     d_out = w.shape[1]
     if val.shape != (rows, d_in) or lap.shape != (rows, d_in):
@@ -94,11 +127,14 @@ def _launch(name, val, jac, lap, w, b, mix, rows_per_group, groups):
     val_o = torch.empty((rows, d_out), dtype=val.dtype, device=val.device)
     lap_o = torch.empty_like(val_o)
     jac_o = torch.empty((t_dim, rows, d_out), dtype=val.dtype, device=val.device)
+    sq_o = torch.empty_like(val_o) if open_sum else None
     if rows and d_out:
         lib = _lib()
         # the one place the variant is chosen: the wide variant splits the
         # tangents across blocks, whose partial square sums need
-        # slices * rows * d_out floats of scratch; 0 slices is the narrow one
+        # slices * rows * d_out floats of scratch; 0 slices is the narrow
+        # one. t_dim is this call's own (a rank's T_local in the open form),
+        # so scratch and the finishing grid follow `slices`
         sms = torch.cuda.get_device_properties(val.device).multi_processor_count
         slices = wide_slices(t_dim, rows, d_in, d_out, sms)
         scratch = (torch.empty((slices, rows, d_out), dtype=val.dtype,
@@ -109,10 +145,12 @@ def _launch(name, val, jac, lap, w, b, mix, rows_per_group, groups):
             code = lib.dense_tanh_jet_launch(
                 ptr(val), ptr(lap), ptr(jac), ptr(w), ptr(b), ptr(zbc),
                 ptr(lbc), ptr(jbc), ptr(val_o), ptr(lap_o), ptr(jac_o),
-                ptr(scratch), slices, t_dim, rows, d_in, d_out,
+                ptr(scratch), ptr(sq_o), slices, t_dim, rows, d_in, d_out,
                 rows_per_group, groups, stream)
         build.check(lib, code, name)
         LAUNCHES[name] += 1
+    if open_sum:
+        return val_o, jac_o, lap_o, sq_o
     return val_o, jac_o, lap_o
 
 
@@ -129,12 +167,21 @@ def fused_dense_tanh_jet(val, jac, lap, w, b):
     return _launch(name, val, jac, lap, w, b, None, 1, 1)
 
 
-def fused_dense_tanh_jet_mix(val, jac, lap, zbc, lbc, jbc, w, b):
-    """The jet of tanh(val @ w + zbc + b) with the row-constant terms
-    zbc/lbc/jbc of each of the G walkers added to its n rows."""
+def fused_dense_tanh_jet_partial(val, jac, lap, w, b):
+    """(val_out, jac_out, lap_part, s_local) of tanh(val @ w + b) as a jet
+    whose jac holds one rank's T_local tangents; see close_laplacian.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.
+    """
     if val.device.type == "cpu":
-        return fused_dense_tanh_jet_mix_plain(val, jac, lap, zbc, lbc, jbc, w, b)
-    name = "fused_dense_tanh_jet_mix"
+        return fused_dense_tanh_jet_partial_plain(val, jac, lap, w, b)
+    name = "fused_dense_tanh_jet_partial"
+    _check_cuda(name, val=val, jac=jac, lap=lap, w=w, b=b)
+    return _launch(name, val, jac, lap, w, b, None, 1, 1, open_sum=True)
+
+
+def _launch_mix(name, val, jac, lap, zbc, lbc, jbc, w, b, open_sum):
     _check_cuda(name, val=val, jac=jac, lap=lap, zbc=zbc, lbc=lbc, jbc=jbc,
                 w=w, b=b)
     groups, n, d_in = val.shape
@@ -143,9 +190,28 @@ def fused_dense_tanh_jet_mix(val, jac, lap, zbc, lbc, jbc, w, b):
             or jbc.shape != (t_dim, groups, d_out)):
         raise ValueError(f"{name}: zbc/lbc must be {(groups, d_out)}, "
                          f"jbc {(t_dim, groups, d_out)}")
-    v, j, l = _launch(
+    v, j, *rest = _launch(
         name, val.reshape(groups * n, d_in),
         jac.reshape(t_dim, groups * n, d_in), lap.reshape(groups * n, d_in),
-        w, b, (zbc, lbc, jbc), n, groups)
+        w, b, (zbc, lbc, jbc), n, groups, open_sum=open_sum)
     return (v.reshape(groups, n, d_out), j.reshape(t_dim, groups, n, d_out),
-            l.reshape(groups, n, d_out))
+            *(x.reshape(groups, n, d_out) for x in rest))
+
+
+def fused_dense_tanh_jet_mix(val, jac, lap, zbc, lbc, jbc, w, b):
+    """The jet of tanh(val @ w + zbc + b) with the row-constant terms
+    zbc/lbc/jbc of each of the G walkers added to its n rows."""
+    if val.device.type == "cpu":
+        return fused_dense_tanh_jet_mix_plain(val, jac, lap, zbc, lbc, jbc, w, b)
+    return _launch_mix("fused_dense_tanh_jet_mix", val, jac, lap, zbc, lbc,
+                       jbc, w, b, open_sum=False)
+
+
+def fused_dense_tanh_jet_mix_partial(val, jac, lap, zbc, lbc, jbc, w, b):
+    """The open form of the mix rule: (val_out, jac_out, lap_part,
+    s_local), jac and jbc holding one rank's T_local tangents."""
+    if val.device.type == "cpu":
+        return fused_dense_tanh_jet_mix_partial_plain(val, jac, lap, zbc, lbc,
+                                                      jbc, w, b)
+    return _launch_mix("fused_dense_tanh_jet_mix_partial", val, jac, lap, zbc,
+                       lbc, jbc, w, b, open_sum=True)

@@ -17,6 +17,13 @@ The fused dense+tanh rules (`dense_tanh`, `dense_tanh_mix`) and the
 determinant factorization (`det_factor`) always go through the kernel
 wrappers of ops/cuda: the CUDA kernels on the card, their plain versions
 for CPU tensors.
+
+Tangent sharding: functions that contract over the tangent axis take
+`shard` (a parallel.TangentShard, or None), the counterpart of the JAX
+package's `axis_name`. With a shard, a dense jac holds this rank's
+T_local = 3N / size tangents and every cross-tangent contraction is
+summed over the ranks (`_tsum`); the reduced tensors keep their walker
+axis.
 """
 
 from __future__ import annotations
@@ -28,6 +35,13 @@ import torch
 from torch.func import jvp
 
 from deepsolid_tpu_torch.ops.cuda import det_kernels, jet_kernels
+
+
+def _tsum(x, shard=None):
+    """Sum over the tangent axis, across the deriv ranks when it is
+    sharded."""
+    out = torch.sum(x, dim=0)
+    return out if shard is None else shard.all_sum(out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,24 +115,30 @@ def dense(a: Jet, w, b=None) -> Jet:
     return Jet(val, a.jac @ w, a.lap @ w)
 
 
-def tanh(a: Jet) -> Jet:
+def tanh(a: Jet, shard=None) -> Jet:
     t = torch.tanh(a.val)
     d = 1.0 - t * t
     dd = -2.0 * t * d
-    return Jet(t, d[None] * a.jac, d * a.lap + dd * torch.sum(a.jac**2, dim=0))
+    return Jet(t, d[None] * a.jac, d * a.lap + dd * _tsum(a.jac**2, shard))
 
 
-def dense_tanh(a: Jet, w, b) -> Jet:
+def dense_tanh(a: Jet, w, b, shard=None) -> Jet:
     """tanh(dense(.)) through the fused jet kernel (rows of every leading
     axis folded together: rows are independent and w is shared). A layer
-    without a bias runs the same kernel with a zero bias."""
+    without a bias runs the same kernel with a zero bias. With a shard the
+    open kernel returns this rank's tangent square sum, which is summed
+    over the ranks before the Laplacian is closed."""
     t_dim, d_in, d_out = a.jac.shape[0], a.val.shape[-1], w.shape[-1]
     if b is None:
         b = w.new_zeros(d_out)
     lead = a.val.shape[:-1]
-    v, j, l = jet_kernels.fused_dense_tanh_jet(
-        a.val.reshape(-1, d_in), a.jac.reshape(t_dim, -1, d_in),
-        a.lap.reshape(-1, d_in), w, b)
+    flat = (a.val.reshape(-1, d_in), a.jac.reshape(t_dim, -1, d_in),
+            a.lap.reshape(-1, d_in), w, b)
+    if shard is None:
+        v, j, l = jet_kernels.fused_dense_tanh_jet(*flat)
+    else:
+        v, j, lap_part, s_local = jet_kernels.fused_dense_tanh_jet_partial(*flat)
+        l = jet_kernels.close_laplacian(v, lap_part, shard.all_sum(s_local))
     return Jet(v.reshape(lead + (d_out,)),
                j.reshape((t_dim,) + lead + (d_out,)),
                l.reshape(lead + (d_out,)))
@@ -137,13 +157,15 @@ def dense_mix(a_rv: Jet, a_rc: Jet, w_rv, w_rc, b=None) -> Jet:
                a_rv.lap @ w_rv + a_rc.lap @ w_rc)
 
 
-def dense_tanh_mix(a_rv: Jet, a_rc: Jet, w_rv, w_rc, b) -> Jet:
+def dense_tanh_mix(a_rv: Jet, a_rc: Jet, w_rv, w_rc, b, shard=None) -> Jet:
     """tanh(dense_mix(.)) through the fused mix kernel.
 
     a_rv: val (B, n, f_rv); a_rc: val (B, 1, f_rc). The row-constant
     contractions enter per walker as zbc, lbc (B, d_out) and jbc
     (T, B, d_out), without tiling the row-constant block over rows. A
-    layer without a bias runs the same kernel with a zero bias.
+    layer without a bias runs the same kernel with a zero bias. With a
+    shard, T is T_local and the open kernel's square sum is summed over
+    the ranks before the Laplacian is closed.
     """
     t_dim = a_rv.jac.shape[0]
     groups, n, _ = a_rv.val.shape
@@ -153,32 +175,50 @@ def dense_tanh_mix(a_rv: Jet, a_rc: Jet, w_rv, w_rc, b) -> Jet:
     zbc = (a_rc.val @ w_rc).reshape(groups, d_out)
     lbc = (a_rc.lap @ w_rc).reshape(groups, d_out)
     jbc = (a_rc.jac @ w_rc).reshape(t_dim, groups, d_out)
-    v, j, l = jet_kernels.fused_dense_tanh_jet_mix(
-        a_rv.val, a_rv.jac, a_rv.lap, zbc, lbc, jbc, w_rv, b)
+    args = (a_rv.val, a_rv.jac, a_rv.lap, zbc, lbc, jbc, w_rv, b)
+    if shard is None:
+        v, j, l = jet_kernels.fused_dense_tanh_jet_mix(*args)
+    else:
+        v, j, lap_part, s_local = jet_kernels.fused_dense_tanh_jet_mix_partial(*args)
+        l = jet_kernels.close_laplacian(v, lap_part, shard.all_sum(s_local))
     return Jet(v, j, l)
 
 
-def mul_row(a: Jet, b_val, b_jac3, b_lap, n_total: int, offset: int) -> Jet:
+def mul_row(a: Jet, b_val, b_jac3, b_lap, n_total: int, offset: int,
+            shard=None) -> Jet:
     """Product jet of a dense-tangent jet with a row-local factor.
 
     a.val: (B, D, rows, F), rows = electrons of one spin channel starting
-    at global electron `offset`; a.jac: (3 * n_total, B, D, rows, F).
-    Row i of b depends on r_{offset+i} only: b_val, b_lap (B, D, rows, F)
-    and b_jac3 (3, B, D, rows, F) = db/dr_row. Only the 3 tangents of
-    electron offset+i touch row i through b, so that correction lands on
-    a slab of the tangent axis, diagonal in (tangent electron, row).
+    at global electron `offset`; a.jac: (T, B, D, rows, F) with T =
+    3 * n_total, or with a shard this rank's window [t0, t0 + T_local) of
+    those tangents. Row i of b depends on r_{offset+i} only: b_val, b_lap
+    (B, D, rows, F) and b_jac3 (3, B, D, rows, F) = db/dr_row. Only the 3
+    tangents of electron offset+i touch row i through b, so that
+    correction lands on a slab of the tangent axis (global tangents
+    3*offset .. 3*(offset+rows)), diagonal in (tangent electron, row).
+
+    The slab meets a rank's window in a range that may begin or end
+    inside an electron's three tangents, so it is walked tangent by
+    tangent: global tangent g touches row g // 3 - offset through
+    component g % 3. Tangents outside the window belong to other ranks,
+    and the cross term is summed over the ranks.
     """
-    rows = a.val.shape[-2]
-    idx = torch.arange(rows, device=a.val.device)
-    lo, hi = 3 * offset, 3 * (offset + rows)
-    # (rows, 3, B, D, F): a.jac[3 (offset+i) + c, :, :, i, :]
-    slab = a.jac[lo:hi].unflatten(0, (rows, 3))[idx, :, :, :, idx, :]
-    bj = b_jac3.permute(3, 0, 1, 2, 4)  # (rows, 3, B, D, F)
-    cross = torch.sum(slab * bj, dim=1).permute(1, 2, 0, 3)  # (B, D, rows, F)
+    rows, t_loc = a.val.shape[-2], a.jac.shape[0]
+    t0 = 0 if shard is None else shard.t0(t_loc)
+    lo = max(3 * offset, t0)
+    hi = max(lo, min(3 * (offset + rows), t0 + t_loc))  # lo == hi: no overlap
+    g = torch.arange(lo, hi, device=a.val.device)
+    i, c, tl = g // 3 - offset, g % 3, g - t0
+    bj = b_jac3[c, :, :, i, :]  # (len, B, D, F)
+    slab = a.jac[tl, :, :, i, :]  # (len, B, D, F)
+    cross = torch.zeros((rows,) + slab.shape[1:], dtype=slab.dtype,
+                        device=slab.device)
+    cross.index_add_(0, i, slab * bj)
+    cross = cross.permute(1, 2, 0, 3)  # (B, D, rows, F)
+    if shard is not None:
+        cross = shard.all_sum(cross)
     jac = a.jac * b_val
-    upd = a.val.permute(2, 0, 1, 3)[:, None] * bj
-    jac_slab = jac[lo:hi].unflatten(0, (rows, 3))
-    jac_slab[idx, :, :, :, idx, :] = jac_slab[idx, :, :, :, idx, :] + upd
+    jac[tl, :, :, i, :] = jac[tl, :, :, i, :] + a.val[:, :, i, :].permute(2, 0, 1, 3) * bj
     return Jet(a.val * b_val, jac, a.lap * b_val + a.val * b_lap + 2.0 * cross)
 
 
@@ -302,12 +342,14 @@ def _det_scan_traces(a_inv, j2, t_dim, n, lead):
     return torch.cat(trbs, dim=0), lap2
 
 
-def slogdet_jet(mat: Jet) -> Tuple[torch.Tensor, Jet]:
+def slogdet_jet(mat: Jet, shard=None) -> Tuple[torch.Tensor, Jet]:
     """(sign, jet of log det A) for a jet of square matrices (..., n, n).
 
     d log det = tr(A^-1 dA);
     Lap log det = tr(A^-1 Lap A) - sum_t tr((A^-1 J_t)^2).
-    One factorization per matrix, through the Gauss-Jordan kernel.
+    One factorization per matrix, through the Gauss-Jordan kernel. With
+    a shard, mat.jac holds T_local tangents (the scan's chunk is picked
+    for T_local) and the sum over tangents is reduced once, over lap2.
     """
     a = mat.val
     a_inv, sign, logdet = det_factor(a)
@@ -316,10 +358,12 @@ def slogdet_jet(mat: Jet) -> Tuple[torch.Tensor, Jet]:
     j2 = torch.movedim(mat.jac, 0, -2).reshape(lead + (n, t_dim * n))
     lap1 = torch.sum(a_inv * mat.lap.transpose(-1, -2), dim=(-1, -2))
     jac, lap2 = _det_scan_traces(a_inv, j2, t_dim, n, lead)
+    if shard is not None:
+        lap2 = shard.all_sum(lap2)
     return sign, Jet(logdet, jac, lap1 - lap2)
 
 
-def logsumexp_det_jet(sign, l: Jet, w=None) -> Jet:
+def logsumexp_det_jet(sign, l: Jet, w=None, shard=None) -> Jet:
     """Jet of log|sum_d w_d s_d exp(l_d)| + i arg(...) over the last
     (determinant) axis of l, per walker. Matches ops/slogdet.logdet_matmul.
 
@@ -333,8 +377,8 @@ def logsumexp_det_jet(sign, l: Jet, w=None) -> Jet:
     s_tot = torch.sum(e, dim=-1)
     p = e / s_tot[..., None]
     jac = torch.sum(p[None] * l.jac, dim=-1)  # (T, B)
-    lap = (torch.sum(p * (l.lap + torch.sum(l.jac**2, dim=0)), dim=-1)
-           - torch.sum(jac**2, dim=0))
+    lap = (torch.sum(p * (l.lap + _tsum(l.jac**2, shard)), dim=-1)
+           - _tsum(jac**2, shard))
     val = torch.complex(torch.log(torch.abs(s_tot)) + lmax[..., 0],
                         torch.angle(s_tot))
     return Jet(val, jac, lap)

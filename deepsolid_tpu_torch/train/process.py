@@ -1,15 +1,23 @@
-"""Run driver, inference path (optim.optimizer = 'none').
+"""The run loop: inference (optim.optimizer = 'none') and adam training.
 
-Mirrors deepsolid_tpu/train/process.py for inference: restore a
-checkpoint (or initialize parameters and walkers), burn in, then per
-iteration run the Metropolis sampler, evaluate the batch local energy
-with the forward-Laplacian engine, write the train_stats CSV row and
-adapt the proposal width. Training (KFAC, adam, pretraining) is not
-ported yet.
+Mirrors deepsolid_tpu/train/process.py: restore a checkpoint (or
+initialize parameters and walkers), burn in, then per iteration run the
+Metropolis sampler, evaluate the batch local energy with the
+forward-Laplacian engine and, for 'adam', the gradient estimator and the
+update; write the train_stats CSV row, adapt the proposal width and save
+checkpoints. KFAC and pretraining are not ported yet.
+
+Several ranks (torch.distributed initialized by the caller, see
+parallel.run_ranks) run this same function, SPMD: `parallel.deriv_devices`
+consecutive ranks share one slice of the walker batch and split the 3N
+tangent columns of its local energy among them; the remaining factor of
+the world is the data axis, which splits `batch_size` and over which
+statistics and gradients are averaged. Only rank 0 writes files.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import logging
 import time
@@ -18,24 +26,28 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from deepsolid_tpu_torch import parallel
 from deepsolid_tpu_torch.device import resolve_device, set_full_precision
 from deepsolid_tpu_torch.models.network import (
     NetworkConfig,
     make_network,
     param_shapes,
     params_from_jax,
+    params_to_numpy,
 )
+from deepsolid_tpu_torch.optim import adam as adam_lib
 from deepsolid_tpu_torch.sampling.init import init_electrons
 from deepsolid_tpu_torch.sampling.mcmc import make_mcmc_step, update_mcmc_width
 from deepsolid_tpu_torch.scf.free_electron import free_electron_klist
 from deepsolid_tpu_torch.system.cell import Supercell
-from deepsolid_tpu_torch.train.loss import make_loss
+from deepsolid_tpu_torch.train.loss import chunk_batch_fn, make_loss
 from deepsolid_tpu_torch.utils import checkpoint as checkpoint_lib
 from deepsolid_tpu_torch.utils.writers import Writer
 
 TRAIN_SCHEMA = ["energy", "variance", "pmove", "imaginary", "kinetic", "ewald",
                 "nonfinite"]
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DATA_SEED_STRIDE = 1000003  # folds the data index into a rank's seed
 
 
 def resolve_klist(cfg, sc: Supercell):
@@ -53,27 +65,74 @@ def build_network(cfg, sc: Supercell):
     return make_network(sc, resolve_klist(cfg, sc), NetworkConfig(**detnet))
 
 
+def _same_structure(a, b) -> bool:
+    """Whether two optimizer states have the same tree and leaf shapes."""
+    if hasattr(a, "_fields") or hasattr(b, "_fields"):
+        return (getattr(a, "_fields", None) == getattr(b, "_fields", None)
+                and all(_same_structure(x, y) for x, y in zip(a, b)))
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_structure(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        return (isinstance(a, (list, tuple)) and isinstance(b, (list, tuple))
+                and len(a) == len(b)
+                and all(_same_structure(x, y) for x, y in zip(a, b)))
+    return np.shape(a) == np.shape(b)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def process(cfg, max_iterations: Optional[int] = None, device="cuda",
             on_iteration: Optional[Callable] = None):
-    """Run inference per `cfg` on `device`.
+    """Run inference or adam training per `cfg` on `device`.
 
     Returns (params, data, energy per primitive cell of the last
-    iteration). `on_iteration(t, row, seconds)` receives each iteration's
-    CSV row and its wall-clock split {'mcmc', 'local_energy', 'step'}.
+    iteration); `data` is this rank's walkers. `on_iteration(t, row,
+    seconds)` receives each iteration's CSV row, plus 'local_energy' (this
+    rank's per-walker E_L, a tensor) and, when training, 'grad_norm', and
+    the iteration's wall-clock split {'mcmc', 'local_energy', 'gradient',
+    'update', 'step'}.
     """
-    if cfg.optim.optimizer != "none":
+    optimizer_name = cfg.optim.optimizer
+    if optimizer_name == "kfac":
         raise NotImplementedError(
-            f"optim.optimizer={cfg.optim.optimizer!r}: only inference "
-            "('none') is ported; KFAC/adam training is the next slice")
+            "optim.optimizer='kfac' is not ported yet (the next slice of the "
+            "port); 'adam' and 'none' are")
+    if optimizer_name not in ("adam", "none"):
+        raise ValueError(f"Unknown optimizer: {optimizer_name}")
     device = resolve_device(device)
     set_full_precision()
     dtype = _DTYPES[cfg.precision]
     sc = cfg.system.cell
     if not isinstance(sc, Supercell):
         raise ValueError("cfg.system.cell must be a Supercell")
+
+    deriv_devices = int(cfg.get("parallel", {}).get("deriv_devices", 1))
+    if deriv_devices > 1:
+        if cfg.optim.laplacian_mode != "forward":
+            raise ValueError("parallel.deriv_devices > 1 requires "
+                             "optim.laplacian_mode='forward'")
+        n_tangents = 3 * sum(sc.nelec)
+        if n_tangents % deriv_devices != 0:
+            raise ValueError(
+                f"parallel.deriv_devices={deriv_devices} must divide the "
+                f"3N={n_tangents} Laplacian tangent columns")
+    mesh = parallel.make_mesh(deriv_devices)
+    if cfg.batch_size % mesh.num_data != 0:
+        raise ValueError(f"Batch size {cfg.batch_size} not divisible by the "
+                         f"{mesh.num_data}-way data axis")
+    local_batch = cfg.batch_size // mesh.num_data
+    writes = mesh.rank == 0
+    logging.info("Starting QMC on rank %d of %d (%d data x %d deriv ranks)",
+                 mesh.rank, mesh.world_size, mesh.num_data, deriv_devices)
+
     net = build_network(cfg, sc)
 
-    save_path = checkpoint_lib.create_save_path(cfg.log.save_path)
+    save_path = (checkpoint_lib.create_save_path(cfg.log.save_path) if writes
+                 else cfg.log.save_path)
     restore_file = (checkpoint_lib.find_last_checkpoint(save_path)
                     or checkpoint_lib.find_last_checkpoint(cfg.log.restore_path))
     if cfg.log.restore_path and not restore_file:
@@ -81,33 +140,56 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
                         "checkpoint; starting from scratch.", cfg.log.restore_path)
 
     seed = 666 if cfg.debug.deterministic else int(1e6 * time.time()) % (2**31)
+    seed = mesh.broadcast_int(seed)  # every rank agrees on rank 0's seed
+    # the deriv ranks of one data index draw the same walkers and moves
     gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen.manual_seed(seed + _DATA_SEED_STRIDE * mesh.data_index)
 
     width = cfg.mcmc.move_width
+    opt_state_ckpt = None
     if restore_file:
-        t_init, data, params, opt_state, ckpt_width = checkpoint_lib.restore(
+        t_init, data, params, opt_state_ckpt, ckpt_width = checkpoint_lib.restore(
             restore_file, cfg.batch_size)
         want = param_shapes(net.init(np.random.default_rng(0)))
         if param_shapes(params) != want:
             raise ValueError(
                 f"Checkpoint {restore_file} holds parameters for a different "
                 "network architecture than this config builds.")
-        data = torch.as_tensor(data, dtype=dtype, device=device)
+        lo = mesh.data_index * local_batch
+        data = torch.as_tensor(data[lo:lo + local_batch], dtype=dtype, device=device)
         if ckpt_width is not None:
             width = float(ckpt_width)
         logging.info("Restored checkpoint %s", restore_file)
     else:
-        t_init, opt_state = 0, None
-        data = init_electrons(gen, sc, sc.nelec, cfg.batch_size,
+        t_init = 0
+        data = init_electrons(gen, sc, sc.nelec, local_batch,
                               cfg.mcmc.init_width, dtype=dtype, device=device)
         params = net.init(np.random.default_rng(
             888 if cfg.debug.deterministic else seed))
     params = params_from_jax(params, device=device, dtype=dtype)
 
-    mcmc_step = make_mcmc_step(net.slogdet, sc.lattice, steps=cfg.mcmc.steps)
-    total_energy = make_loss(net, sc, el_chunk=cfg.optim.el_chunk,
-                             mode=cfg.optim.laplacian_mode)
+    psi_chunk = cfg.optim.get("psi_chunk", 0)
+    mcmc_step = make_mcmc_step(chunk_batch_fn(net.slogdet, psi_chunk),
+                               sc.lattice, steps=cfg.mcmc.steps)
+    total_energy = make_loss(
+        net, sc, el_chunk=cfg.optim.el_chunk, mode=cfg.optim.laplacian_mode,
+        clip_local_energy=cfg.optim.clip_el, clip_type=cfg.optim.clip_type,
+        psi_chunk=psi_chunk, shard=mesh.shard, all_mean=mesh.all_mean)
+
+    optimizer = opt_state = None
+    if optimizer_name == "adam":
+        optimizer = adam_lib.Adam.from_config(cfg)
+        opt_state = optimizer.init(params)
+        if opt_state_ckpt is not None:
+            restored = adam_lib.state_from_numpy(opt_state_ckpt, device, dtype)
+            if _same_structure(restored, opt_state):
+                opt_state = restored
+            else:
+                logging.warning(
+                    "Checkpoint %s holds the state of another optimizer; "
+                    "adam starts from a fresh state.", restore_file)
+    elif opt_state_ckpt is not None:
+        t_init = 0  # a restored inference run restarts its own clock
 
     iterations = cfg.optim.iterations
     if max_iterations is not None:
@@ -115,24 +197,33 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
     scale = sc.scale
     pmoves = np.zeros(cfg.mcmc.adapt_frequency)
     energy = None
+    time_of_last_ckpt = time.time()
+
+    def save_checkpoint(t):
+        global_data = mesh.gather_data(data)  # every rank takes part
+        if writes:
+            checkpoint_lib.save(
+                save_path, t, global_data.numpy(), params_to_numpy(params),
+                adam_lib.state_to_numpy(opt_state), np.asarray(width))
+
     with torch.no_grad():
         if t_init == 0 and cfg.mcmc.burn_in > 0:
             logging.info("Burning in MCMC chain for %d steps", cfg.mcmc.burn_in)
             for _ in range(cfg.mcmc.burn_in):
                 data, _ = mcmc_step(params, data, gen, width)
-        if opt_state is not None:
-            t_init = 0  # a restored inference run restarts its own clock
 
-        with Writer(name=cfg.log.stats_file_name, schema=TRAIN_SCHEMA,
-                    directory=save_path, iteration_key="step") as writer:
+        with (Writer(name=cfg.log.stats_file_name, schema=TRAIN_SCHEMA,
+                     directory=save_path, iteration_key="step")
+              if writes else contextlib.nullcontext()) as writer:
             for t in range(t_init, iterations):
+                seconds = {}
                 t0 = time.perf_counter()
                 data, pmove = mcmc_step(params, data, gen, width)
-                pmove = float(pmove)  # waits for the sampler
+                pmove = float(mesh.all_mean(pmove))  # waits for the sampler
                 t1 = time.perf_counter()
                 loss, aux = total_energy(params, data)
                 energy = float(loss) / scale
-                kinetic = float(torch.mean(aux.kinetic.real)) / scale
+                kinetic = float(mesh.all_mean(torch.mean(aux.kinetic.real))) / scale
                 row = {
                     "energy": energy,
                     "variance": float(aux.variance) / scale**2,
@@ -140,9 +231,22 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
                     "imaginary": float(aux.imaginary) / scale,
                     "kinetic": kinetic,
                     "ewald": energy - kinetic,
-                    "nonfinite": 1.0 - float(torch.mean(aux.finite)),
+                    "nonfinite": 1.0 - float(mesh.all_mean(torch.mean(aux.finite))),
                 }
                 t2 = time.perf_counter()
+                seconds.update(mcmc=t1 - t0, local_energy=t2 - t1)
+                extra = {"local_energy": aux.local_energy}
+                if optimizer is not None:
+                    grads = total_energy.gradient(params, data, loss, aux)
+                    grads = adam_lib.tree_map(mesh.all_mean, grads)
+                    extra["grad_norm"] = float(adam_lib.global_norm(grads))
+                    t3 = time.perf_counter()
+                    updates, opt_state = optimizer.update(grads, opt_state)
+                    params = adam_lib.apply_updates(params, updates)
+                    _sync(device)
+                    t4 = time.perf_counter()
+                    seconds.update(gradient=t3 - t2, update=t4 - t3)
+                seconds["step"] = time.perf_counter() - t0
                 if row["nonfinite"] > 0.01:
                     logging.warning(
                         "Step %d: %.1f%% of walkers had non-finite local "
@@ -153,11 +257,21 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
                         "imag=%.4f, kinetic=%.4f, ewald=%.4f",
                         datetime.datetime.now(), t, energy, row["variance"],
                         pmove, row["imaginary"], kinetic, row["ewald"])
-                    writer.write(t, **row)
+                    if writer is not None:
+                        writer.write(t, **row)
                 width, pmoves = update_mcmc_width(
                     t, width, pmoves, pmove, cfg.mcmc.adapt_frequency)
                 if on_iteration is not None:
-                    on_iteration(t, row, {"mcmc": t1 - t0,
-                                          "local_energy": t2 - t1,
-                                          "step": t2 - t0})
+                    on_iteration(t, {**row, **extra}, seconds)
+
+                # rank 0's clock decides, so every rank joins the gather
+                due = mesh.broadcast_int(int(
+                    time.time() - time_of_last_ckpt > cfg.log.save_frequency * 60
+                    or t >= iterations - 1
+                    or (cfg.log.save_frequency_in_step > 0
+                        and t % cfg.log.save_frequency_in_step == 0)))
+                if due:
+                    if optimizer is not None:
+                        save_checkpoint(t)
+                    time_of_last_ckpt = time.time()
     return params, data, energy

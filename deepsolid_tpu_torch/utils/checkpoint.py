@@ -1,9 +1,9 @@
-"""Checkpoint lookup and restore (npz with pickled parameter trees).
+"""Checkpoint save, lookup and restore (npz with pickled trees).
 
-Mirrors the read side of deepsolid_tpu/utils/checkpoint.py, numpy only,
-so the port restores the JAX package's checkpoints. Walker data is one
-global (batch, 3N) array; a restore onto another batch size tiles or
-truncates it (elastic resize).
+Mirrors deepsolid_tpu/utils/checkpoint.py, numpy only and in the same
+file layout, so either package restores the other's checkpoints. Walker
+data is one global (batch, 3N) array; a restore onto another batch size
+tiles or truncates it (elastic resize).
 """
 
 from __future__ import annotations
@@ -40,6 +40,30 @@ def create_save_path(save_path: Optional[str]) -> str:
         save_path = os.path.join(os.getcwd(), f"deepsolid_tpu_torch_{timestamp}")
     os.makedirs(save_path, exist_ok=True)
     return save_path
+
+
+def _as_object_scalar(tree):
+    """A tree of numpy arrays in a 0-d object array, so np.savez pickles
+    it whole (tuples of named tuples do not coerce to arrays)."""
+    out = np.empty((), dtype=object)
+    out[()] = tree
+    return out
+
+
+def save(save_path: str, t: int, data, params, opt_state, mcmc_width) -> str:
+    """Write qmcjax_ckpt_{t}.npz. `data` is the global walker batch;
+    `params` and `opt_state` are trees with numpy leaves."""
+    ckpt = os.path.join(save_path, f"qmcjax_ckpt_{t:06d}.npz")
+    with open(ckpt, "wb") as f:
+        np.savez(
+            f,
+            t=t,
+            data=np.asarray(data),
+            params=_as_object_scalar(params),
+            opt_state=_as_object_scalar(opt_state),
+            mcmc_width=np.asarray(mcmc_width) if mcmc_width is not None else None,
+        )
+    return ckpt
 
 
 def restore(restore_filename: str, batch_size: Optional[int] = None):

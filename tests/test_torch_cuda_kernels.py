@@ -76,3 +76,54 @@ def test_dense_tanh_jet_mix_kernel_matches_plain(cuda_device, t_dim, groups, n,
     for x, y in zip(tjk.fused_dense_tanh_jet_mix(*mix),
                     tjk.fused_dense_tanh_jet_mix_plain(*mix)):
         torch.testing.assert_close(x, y, **TOL)
+
+
+# ---- the open ("partial") forms: tangent sum left to the caller -------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_dim,rows,d_in,d_out", [
+    (3, 300, 32, 32),    # narrow variant, ragged row tile
+    (7, 300, 20, 64),    # wide variant, ragged row tile, T_local of no round size
+    (1, 130, 8, 128),    # wide, one tangent: fewer slices than the card wants
+])
+def test_dense_tanh_jet_partial_kernel_matches_plain(cuda_device, t_dim, rows,
+                                                     d_in, d_out):
+    rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(3), cuda_device)
+    case = (rnd(rows, d_in), rnd(t_dim, rows, d_in), rnd(rows, d_in),
+            rnd(d_in, d_out) / d_in**0.5, rnd(d_out))
+    before = tjk.LAUNCHES["fused_dense_tanh_jet_partial"]
+    got = tjk.fused_dense_tanh_jet_partial(*case)
+    assert tjk.LAUNCHES["fused_dense_tanh_jet_partial"] == before + 1
+    assert len(got) == 4
+    for x, y in zip(got, tjk.fused_dense_tanh_jet_partial_plain(*case)):
+        torch.testing.assert_close(x, y, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_dim,groups,n,d_in,d_out", [
+    (20, 3, 96, 40, 256),   # wide variant
+    (9, 3, 10, 20, 40),     # narrow variant
+])
+def test_dense_tanh_jet_mix_partial_recombines(cuda_device, t_dim, groups, n,
+                                               d_in, d_out):
+    """Open launches on uneven pieces of the tangent axis, s summed, the
+    Laplacian closed: equal to the closed kernel on the whole axis."""
+    rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(4), cuda_device)
+    val, jac, lap = rnd(groups, n, d_in), rnd(t_dim, groups, n, d_in), rnd(groups, n, d_in)
+    zbc, lbc, jbc = rnd(groups, d_out), rnd(groups, d_out), rnd(t_dim, groups, d_out)
+    w, b = rnd(d_in, d_out) / d_in**0.5, rnd(d_out)
+    cut = t_dim // 3
+    parts = [tjk.fused_dense_tanh_jet_mix_partial(
+        val, jac[sl], lap, zbc, lbc, jbc[sl], w, b)
+        for sl in (slice(0, cut), slice(cut, t_dim))]
+    for part, sl in zip(parts, (slice(0, cut), slice(cut, t_dim))):
+        want = tjk.fused_dense_tanh_jet_mix_partial_plain(
+            val, jac[sl], lap, zbc, lbc, jbc[sl], w, b)
+        for x, y in zip(part, want):
+            torch.testing.assert_close(x, y, **TOL)
+    v, j, l = tjk.fused_dense_tanh_jet_mix(val, jac, lap, zbc, lbc, jbc, w, b)
+    torch.testing.assert_close(parts[0][0], v, rtol=0, atol=0)
+    torch.testing.assert_close(torch.cat([p[1] for p in parts]), j, rtol=0, atol=0)
+    closed = tjk.close_laplacian(parts[0][0], parts[0][2], parts[0][3] + parts[1][3])
+    torch.testing.assert_close(closed, l, **TOL)

@@ -28,6 +28,9 @@ names = [m.name for m in pkgutil.walk_packages(deepsolid_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
+for needed in ("deepsolid_tpu_torch.parallel", "deepsolid_tpu_torch.optim",
+               "deepsolid_tpu_torch.optim.adam"):
+    assert needed in names, needed
 print(len(names))
 """
 
@@ -43,7 +46,7 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, cwd=REPO, env=_env(),
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 23
 
 
 def test_sources_name_no_jax_package():
@@ -52,6 +55,31 @@ def test_sources_name_no_jax_package():
     files = list(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
+
+
+def test_no_kernel_wrapper_catches_an_exception_around_a_launch():
+    """On a CUDA tensor a wrapper launches its kernel or raises: the
+    wrapper modules of ops/cuda hold no `try` at all, so nothing can catch
+    a failed launch and fall back, and every call of a plain version sits
+    in a branch taken for CPU tensors only."""
+    import ast
+
+    modules = sorted((PACKAGE / "ops" / "cuda").glob("*_kernels.py"))
+    assert len(modules) >= 2
+    for path in modules:
+        tree = ast.parse(path.read_text())
+        assert "_launch" in path.read_text(), f"{path.name} launches no kernel"
+        tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
+        assert not tries, f"{path.name}: try/except at lines {tries}"
+        guarded = {id(call) for branch in ast.walk(tree)
+                   if isinstance(branch, ast.If) and "cpu" in ast.unparse(branch.test)
+                   for stmt in branch.body for call in ast.walk(stmt)}
+        for call in ast.walk(tree):
+            if (isinstance(call, ast.Call) and isinstance(call.func, ast.Name)
+                    and call.func.id.endswith("_plain")):
+                assert id(call) in guarded, (
+                    f"{path.name}:{call.lineno} calls {call.func.id} outside "
+                    "a CPU-tensor branch")
 
 
 def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):

@@ -146,6 +146,76 @@ def test_dense_tanh_jet_mix_plain_groups_are_walkers():
                                        rtol=1e-12, atol=1e-12)
 
 
+# ---- B4a/B4b: the open ("partial") forms -------------------------------------
+
+
+def _mix_case(t_dim, n, d_in, d_out, seed):
+    val, jac, lap, w, b = _jet_case(t_dim, n, d_in, d_out, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    return (val, jac, lap, rng.randn(d_out), rng.randn(d_out),
+            rng.randn(t_dim, d_out), w, b)
+
+
+def _batched_mix(args):
+    """The JAX kernel's one-walker mix layout as the port's (G=1, ...)."""
+    val, jac, lap, zbc, lbc, jbc, w, b = map(torch.from_numpy, args)
+    return (val[None], jac[:, None], lap[None], zbc[None], lbc[None],
+            jbc[:, None], w, b)
+
+
+@pytest.mark.parametrize("shape", [(12, 10, 20, 12), (7, 4, 132, 256)])
+def test_dense_tanh_jet_partial_plain_matches_jax_kernel(shape, interpret_pallas):
+    # the JAX kernel keeps float32 scratch, so it runs in float32 only:
+    # 2e-5, the f32 rounding of sums taken in another order (as for B2/B3).
+    # The identity the open form exists for is held to 1e-12 in float64
+    # below (test_partial_forms_recombine_to_the_closed_rule).
+    case = [a.astype(np.float32) for a in _jet_case(*shape, seed=5)]
+    want = jjk.fused_dense_tanh_jet_partial(*map(jnp.asarray, case), block_n=8,
+                                            block_c=128, block_t=4)
+    got = tjk.fused_dense_tanh_jet_partial_plain(*map(torch.from_numpy, case))
+    assert len(got) == len(want) == 4
+    for g, w, name in zip(got, want, ("val", "jac", "lap_part", "s_local")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
+                                   atol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [(12, 10, 20, 12), (9, 16, 40, 130)])
+def test_dense_tanh_jet_mix_partial_plain_matches_jax_kernel(shape, interpret_pallas):
+    args = [a.astype(np.float32) for a in _mix_case(*shape, seed=6)]  # as above
+    want = jjk.fused_dense_tanh_jet_mix_partial(*map(jnp.asarray, args), block_n=8,
+                                                block_c=128, block_t=4)
+    got = tjk.fused_dense_tanh_jet_mix_partial_plain(*_batched_mix(args))
+    for g, wnt, name in zip(got, want, ("val", "jac", "lap_part", "s_local")):
+        np.testing.assert_allclose(g.numpy()[:, 0] if name == "jac" else g.numpy()[0],
+                                   np.asarray(wnt), rtol=2e-5, atol=2e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("pieces", [(6, 6), (5, 7), (1, 4, 7)])
+def test_partial_forms_recombine_to_the_closed_rule(pieces):
+    """Open form on each piece of the tangent axis (T_local of no round
+    size), s summed over the pieces, the Laplacian closed: the closed
+    rule on the whole axis, for both rules. rtol 1e-12 (float64)."""
+    args = _batched_mix(_mix_case(12, 10, 20, 12, seed=7))
+    val, jac, lap, zbc, lbc, jbc, w, b = args
+    bounds = np.cumsum((0,) + pieces)
+    cuts = [slice(lo, hi) for lo, hi in zip(bounds[:-1], bounds[1:])]
+    for closed, parts in [
+        (tjk.fused_dense_tanh_jet_mix(*args),
+         [tjk.fused_dense_tanh_jet_mix_partial(val, jac[c], lap, zbc, lbc, jbc[c], w, b)
+          for c in cuts]),
+        (tjk.fused_dense_tanh_jet(val[0], jac[:, 0], lap[0], w, b),
+         [tjk.fused_dense_tanh_jet_partial(val[0], jac[c, 0], lap[0], w, b)
+          for c in cuts]),
+    ]:
+        v, j, l = closed
+        torch.testing.assert_close(parts[0][0], v, rtol=0, atol=0)
+        torch.testing.assert_close(torch.cat([p[1] for p in parts]), j,
+                                   rtol=1e-12, atol=1e-12)
+        got = tjk.close_laplacian(v, parts[0][2], sum(p[3] for p in parts))
+        torch.testing.assert_close(got, l, rtol=1e-12, atol=1e-12)
+
+
 # ---- wrapper dispatch -------------------------------------------------------
 
 
@@ -174,6 +244,8 @@ def test_wrappers_never_fall_back_for_non_cpu_tensors(monkeypatch):
     _forbid(monkeypatch, tdk, "gj_inverse_slogdet_plain")
     _forbid(monkeypatch, tjk, "fused_dense_tanh_jet_plain")
     _forbid(monkeypatch, tjk, "fused_dense_tanh_jet_mix_plain")
+    _forbid(monkeypatch, tjk, "fused_dense_tanh_jet_partial_plain")
+    _forbid(monkeypatch, tjk, "fused_dense_tanh_jet_mix_partial_plain")
     meta = dict(device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tdk.gj_inverse_slogdet(torch.empty(2, 4, 4, dtype=torch.complex64, **meta))
@@ -184,6 +256,14 @@ def test_wrappers_never_fall_back_for_non_cpu_tensors(monkeypatch):
         tjk.fused_dense_tanh_jet_mix(*(torch.empty(s, **meta) for s in
                                        [(2, 5, 4), (3, 2, 5, 4), (2, 5, 4), (2, 6),
                                         (2, 6), (3, 2, 6), (4, 6), (6,)]))
+    with pytest.raises(ValueError, match="CUDA"):
+        tjk.fused_dense_tanh_jet_partial(*(torch.empty(s, **meta) for s in
+                                           [(5, 4), (3, 5, 4), (5, 4), (4, 6), (6,)]))
+    with pytest.raises(ValueError, match="CUDA"):
+        tjk.fused_dense_tanh_jet_mix_partial(
+            *(torch.empty(s, **meta) for s in
+              [(2, 5, 4), (3, 2, 5, 4), (2, 5, 4), (2, 6), (2, 6), (3, 2, 6),
+               (4, 6), (6,)]))
 
 
 def test_trunk_rules_without_bias_still_reach_the_kernel(monkeypatch):
@@ -208,10 +288,38 @@ def test_trunk_rules_without_bias_still_reach_the_kernel(monkeypatch):
                            torch.empty(3, 6, device="meta"), None)
 
 
+def test_sharded_trunk_rules_reach_the_open_kernels(monkeypatch):
+    """With a shard, dense_tanh and dense_tanh_mix go to the open kernels'
+    wrappers (which raise for a tensor that is neither CPU nor CUDA), not
+    to the closed ones and not to a plain rule."""
+    from deepsolid_tpu_torch.ops import fwdlap as tfl
+    from deepsolid_tpu_torch.parallel import TangentShard
+
+    for name in ("fused_dense_tanh_jet", "fused_dense_tanh_jet_mix",
+                 "fused_dense_tanh_jet_partial_plain",
+                 "fused_dense_tanh_jet_mix_partial_plain"):
+        _forbid(monkeypatch, tjk, name)
+
+    def jet(*shape):
+        return tfl.Jet(torch.empty(shape, device="meta"),
+                       torch.empty((3,) + shape, device="meta"),
+                       torch.empty(shape, device="meta"))
+
+    w, b = torch.empty(4, 6, device="meta"), torch.empty(6, device="meta")
+    shard = TangentShard(0, 2)
+    with pytest.raises(ValueError, match="fused_dense_tanh_jet_partial kernel needs CUDA"):
+        tfl.dense_tanh(jet(2, 5, 5, 4), w, b, shard=shard)
+    with pytest.raises(ValueError, match="fused_dense_tanh_jet_mix_partial kernel needs CUDA"):
+        tfl.dense_tanh_mix(jet(2, 5, 4), jet(2, 1, 3), w,
+                           torch.empty(3, 6, device="meta"), b, shard=shard)
+
+
 @pytest.mark.parametrize("shape,sms,slices", [
     ((6, 64 * 96 * 96, 32, 32), 132, 0),   # two-electron layers: narrow
     ((288, 6144, 320, 256), 132, 6),       # one-electron layers: 192 blocks per slice
     ((288, 6144, 16, 256), 132, 6),
+    ((144, 6144, 320, 256), 132, 6),       # a rank's half of the tangents
+    ((3, 64 * 96 * 96, 32, 32), 132, 0),   # open form at the pair shape
     ((4, 6144, 320, 256), 132, 4),         # never more slices than tangents
     ((288, 10 ** 6, 320, 256), 132, 1),    # a full grid needs no slicing
     ((288, 6144, 318, 256), 132, 0),       # d_in not a multiple of 4
