@@ -5,11 +5,15 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 
 Phases, one JSON line each; any failure exits non-zero:
   1. device   - the card, its power limit, full-f32 matmul policy;
-  2. build    - nvcc builds every CUDA kernel from deepsolid_tpu_torch/ops/cuda/csrc;
+  2. build    - nvcc builds every CUDA kernel from deepsolid_tpu_torch/ops/cuda/csrc
+                and a `kernel_resources` line gives each kernel's registers,
+                spills and static shared memory as ptxas reports them;
   3. kernels  - each of the five kernels at the main paths' shapes against
                 its plain PyTorch version on the card, timed with CUDA
                 events (and a library yardstick where one PyTorch call
-                computes the same); the open ("partial") jet kernels also
+                computes the same); the Gauss-Jordan kernel at both of its
+                launch shapes and on edge-case matrices; the jet kernels
+                also at a ragged shape; the open ("partial") jet kernels
                 recombined against the closed one;
   4. main     - 3 inference iterations of the committed C-diamond 2x2x2
                 checkpoint (96 electrons, 1024 walkers, full width) through
@@ -105,6 +109,52 @@ def max_errs(got, want):
     return err, err / scale
 
 
+def gj_edge_cases(dev, gen, errs):
+    """The Gauss-Jordan kernel against its plain version on matrices that
+    exercise the pivot rule: `errs(a)` gives (inverse, sign, log|det|)
+    errors. One record per case."""
+    import torch
+    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+
+    def rnd_c(nb, n):
+        return torch.complex(torch.randn((nb, n, n), generator=gen, device=dev),
+                             torch.randn((nb, n, n), generator=gen, device=dev))
+
+    n = 48
+    eye = torch.eye(n, device=dev).to(torch.complex64)
+    tie = rnd_c(4, n)
+    tie[:, 3, 0], tie[:, 7, 0] = 5.0, 5.0j   # equal |.|^2 in the first pivot column
+    tie[:, 20, 9], tie[:, 40, 9] = -9.0, 9.0
+    cases = {
+        "anti_diagonal": torch.flip(eye, [1])[None],      # a swap at every step
+        "permutation": torch.roll(eye, 5, 0)[None],
+        "tie": tie,
+        "generic_13": rnd_c(16, 13) / math.sqrt(26),       # the shared-memory kernel
+        "generic_96": rnd_c(16, 96) / math.sqrt(192),
+    }
+    out = []
+    for name, a in cases.items():
+        inv, sg, ld = errs(a)
+        out.append({"case": name, "max_rel_err_inverse": inv, "max_abs_err_sign": sg,
+                    "max_abs_err_logdet": ld,
+                    "ok": inv <= 5e-3 and sg <= 5e-3 and ld <= 5e-3})
+    # a zero pivot: log 0 = -inf on both, no fault; a NaN entry: NaN on both
+    zero = rnd_c(2, n)
+    zero[:, :, 7] = 0
+    nan = rnd_c(2, n)
+    nan[0, 3, 4] = float("nan")
+    for name, a in (("zero_pivot", zero), ("nan_entry", nan)):
+        got, want = dk.gj_inverse_slogdet(a)[2], dk.gj_inverse_slogdet_plain(a)[2]
+        same = bool(torch.equal(torch.isfinite(got), torch.isfinite(want))
+                    and not torch.isfinite(got[0]))
+        if name == "nan_entry":  # the matrix without the NaN is untouched by it
+            same = same and abs(float(got[1] - want[1])) <= 5e-3
+        out.append({"case": name, "logdet": got.tolist(), "logdet_plain": want.tolist(),
+                    "ok": same})
+    torch.cuda.synchronize()
+    return out
+
+
 def kernel_phase(dev, gen):
     """Each kernel at the main path's shapes against its plain version."""
     import torch
@@ -115,36 +165,43 @@ def kernel_phase(dev, gen):
         return torch.randn(shape, generator=gen, device=dev)
 
     rows = []
-    # B1: MCMC log|psi| of 1024 walkers x 8 determinants, one spin channel
-    n, nb = 48, BATCH * 8
-    a = torch.complex(rnd(nb, n, n), rnd(nb, n, n)) / math.sqrt(2 * n)
-    got, want = dk.gj_inverse_slogdet(a), dk.gj_inverse_slogdet_plain(a)
-    inv_err = float((got[0] - want[0]).abs().amax(dim=(-1, -2)).div(
-        want[0].abs().amax(dim=(-1, -2))).max())
-    ld_err = float((got[2] - want[2]).abs().max())
-    sg_err = float((got[1] - want[1]).abs().max())
-    # Gaussian matrices: the worst-conditioned of 8192 amplifies f32
-    # rounding-order differences to ~1e-3 of the inverse's scale
-    ok = inv_err <= 5e-3 and ld_err <= 5e-3 and sg_err <= 5e-3
+    # B1: log|psi| of 1024 walkers x 8 determinants, one spin channel, as the
+    # sampler launches it, and of one 64-walker chunk (E_L, and every sampler
+    # sweep when psi_chunk is set): a launch too small to fill the card
+    n = 48
+
+    def gj_errs(a):
+        got, want = dk.gj_inverse_slogdet(a), dk.gj_inverse_slogdet_plain(a)
+        inv = float((got[0] - want[0]).abs().amax(dim=(-1, -2)).div(
+            want[0].abs().amax(dim=(-1, -2))).max())
+        return inv, float((got[1] - want[1]).abs().max()), float((got[2] - want[2]).abs().max())
+
+    edge = gj_edge_cases(dev, gen, gj_errs)
     sing = torch.diag(torch.tensor([1.0, 2.0, 0.0], device=dev)).to(torch.complex64)
     sing_ld = float(dk.gj_inverse_slogdet(sing[None])[2][0])
-    ok = ok and sing_ld == -math.inf
-    b1_bytes = 2 * a.numel() * 8 + nb * (8 + 4)
-    b1_flops = 8.0 * n**3 * nb  # n^3 complex multiply-adds
-    bnd, by = bound_ms(b1_bytes, b1_flops)
-    rows.append({
-        "name": "gj_inverse_slogdet", "route": "cuda",
-        "source": "deepsolid_tpu_torch/ops/cuda/csrc/gj_inverse.cu",
-        "replaces": "deepsolid_tpu/ops/pallas/det_kernels.py:172",
-        "per": "one launch on (8192, 48, 48) complex64",
-        "max_abs_err": ld_err, "max_rel_err_inverse": inv_err,
-        "max_abs_err_sign": sg_err, "singular_logdet": sing_ld,
-        "tolerance": 5e-3, "ok": ok,
-        "ms": time_ms(lambda: dk.gj_inverse_slogdet(a)),
-        "plain_ms": time_ms(lambda: dk.gj_inverse_slogdet_plain(a)),
-        "library_ms": time_ms(lambda: (torch.linalg.inv(a), torch.linalg.slogdet(a))),
-        "bound_ms": bnd, "bound_by": by,
-    })
+    for nb in (BATCH * 8, EL_CHUNK * 8):
+        a = torch.complex(rnd(nb, n, n), rnd(nb, n, n)) / math.sqrt(2 * n)
+        inv_err, sg_err, ld_err = gj_errs(a)
+        # Gaussian matrices: the worst-conditioned of 8192 amplifies f32
+        # rounding-order differences to ~1e-3 of the inverse's scale
+        ok = (inv_err <= 5e-3 and ld_err <= 5e-3 and sg_err <= 5e-3
+              and sing_ld == -math.inf and all(c["ok"] for c in edge))
+        b1_bytes = 2 * a.numel() * 8 + nb * (8 + 4)
+        b1_flops = 8.0 * n**3 * nb  # n^3 complex multiply-adds
+        bnd, by = bound_ms(b1_bytes, b1_flops)
+        rows.append({
+            "name": "gj_inverse_slogdet", "route": "cuda",
+            "source": "deepsolid_tpu_torch/ops/cuda/csrc/gj_inverse.cu",
+            "replaces": "deepsolid_tpu/ops/pallas/det_kernels.py:172",
+            "per": f"one launch on ({nb}, 48, 48) complex64",
+            "max_abs_err": ld_err, "max_rel_err_inverse": inv_err,
+            "max_abs_err_sign": sg_err, "singular_logdet": sing_ld,
+            "edge_cases": edge, "tolerance": 5e-3, "ok": ok,
+            "ms": time_ms(lambda: dk.gj_inverse_slogdet(a)),
+            "plain_ms": time_ms(lambda: dk.gj_inverse_slogdet_plain(a), reps=5),
+            "library_ms": time_ms(lambda: (torch.linalg.inv(a), torch.linalg.slogdet(a))),
+            "bound_ms": bnd, "bound_by": by,
+        })
 
     def jet_bytes_flops(t, r, k, c, mix_groups=0):
         nbytes = 4 * ((t + 2) * r * k + k * c + c + (t + 2) * r * c
@@ -197,13 +254,21 @@ def kernel_phase(dev, gen):
         b_, f_ = jet_bytes_flops(t3, EL_CHUNK * 96, k, c3, EL_CHUNK)
         nbytes, flops = nbytes + count * b_, flops + count * f_
         del args
+    # a ragged shape: 385 rows (no multiple of the row tile), 50 tangents
+    # (no multiple of the slices), d_in 40 (no multiple of the k-slice)
+    ragged = (rnd(5, 77, 40), rnd(50, 5, 77, 40), rnd(5, 77, 40), rnd(5, c3),
+              rnd(5, c3), rnd(50, 5, c3), rnd(40, c3) / math.sqrt(40), rnd(c3))
+    _, ragged_rel = max_errs(jk.fused_dense_tanh_jet_mix(*ragged),
+                             jk.fused_dense_tanh_jet_mix_plain(*ragged))
+    rel = max(rel, ragged_rel)
     bnd, by = bound_ms(nbytes, flops)
     rows.append({
         "name": "fused_dense_tanh_jet_mix", "route": "cuda",
         "source": "deepsolid_tpu_torch/ops/cuda/csrc/dense_tanh_jet.cu",
         "replaces": "deepsolid_tpu/ops/pallas/jet_kernels.py:534",
         "per": "the three one-electron layers of one 64-walker chunk (T=288, 6144 rows, 16->256, 2x 320->256)",
-        "max_abs_err": err, "max_rel_err": rel, "tolerance": 1e-5, "ok": rel <= 1e-5,
+        "max_abs_err": err, "max_rel_err": rel, "ragged_max_rel_err": ragged_rel,
+        "tolerance": 1e-5, "ok": rel <= 1e-5,
         "ms": total, "ms_per_shape": ms, "plain_ms": plain,
         "library_ms": None, "matmul_ms": mm, "bound_ms": bnd, "bound_by": by,
     })
@@ -276,13 +341,17 @@ def kernel_phase(dev, gen):
         nbytes += count * (b_ + open_extra_bytes(EL_CHUNK * 96, c3))
         flops += count * f_
         del args, full
+    _, ragged_rel = max_errs(jk.fused_dense_tanh_jet_mix_partial(*ragged),
+                             jk.fused_dense_tanh_jet_mix_partial_plain(*ragged))
+    rel = max(rel, ragged_rel)
     bnd, by = bound_ms(nbytes, flops)
     rows.append({
         "name": "fused_dense_tanh_jet_mix_partial", "route": "cuda",
         "source": "deepsolid_tpu_torch/ops/cuda/csrc/dense_tanh_jet.cu",
         "replaces": "deepsolid_tpu/ops/pallas/jet_kernels.py:555",
         "per": "the three one-electron layers of one 64-walker chunk on one of two deriv ranks (T_local=144, 6144 rows, 16->256, 2x 320->256)",
-        "max_abs_err": err, "max_rel_err": rel, "recombined_max_rel_err": recombine,
+        "max_abs_err": err, "max_rel_err": rel, "ragged_max_rel_err": ragged_rel,
+        "recombined_max_rel_err": recombine,
         "tolerance": 1e-5, "ok": rel <= 1e-5 and recombine <= 1e-5,
         "ms": total, "ms_per_shape": ms, "plain_ms": plain,
         "library_ms": None, "bound_ms": bnd, "bound_by": by,
@@ -709,8 +778,9 @@ def main() -> int:
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    seconds, _ = build.build()
+    seconds, log = build.build(ptxas_verbose=True)
     emit({"phase": "build", "seconds": seconds, "sources": list(build.SOURCES)})
+    emit({"kernel_resources": build.resources(log)})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)

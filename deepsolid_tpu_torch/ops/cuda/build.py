@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -91,6 +92,34 @@ def build(names: Iterable[str] = SOURCES, ptxas_verbose: bool = False
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
     return time.perf_counter() - start, log
+
+
+def resources(log: str) -> list:
+    """Registers, spills and shared memory of every kernel in the output
+    of a build made with `ptxas_verbose`: one dict per compiled entry
+    function, named by the kernel and its template arguments as mangled."""
+    out = []
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            k = re.search(r"\d+([a-z_]+_kernel)(\w*?)E(?:v|PK)", mangled)
+            entry = {"kernel": k.group(1) + k.group(2) if k else mangled}
+            out.append(entry)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry["spill_store_bytes"] = int(m.group(1))
+            entry["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            entry["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:

@@ -21,33 +21,41 @@
 //           (the caller closes lap = lap_o - 2 t_ d * sum over ranks of sq_o)
 //
 // What bounds it on this card: the main path's one-electron layers
-// (T = 288, 6144 rows per 64-walker chunk, 320 -> 256) do 290 GFLOP on
+// (T = 288, 6144 rows per 64-walker chunk, 320 -> 256) do 292 GFLOP on
 // 4.1 GB; in full FP32 (no TF32: the reference measured a kinetic bias
 // with reduced-precision products) the operations, not the bytes, set the
-// bound. The two-electron layers (T = 6, 64 * 9216 rows, 32 -> 32) are
-// bound by their bytes.
+// bound, and the tensor cores are out. An FP32 FMA kernel reaches that
+// bound only with an FMA in nearly every instruction slot, and an 8 x 8 register
+// tile already draws its operands from shared memory at about the rate
+// the load path returns them (16 128-bit loads per 256 FMAs of a warp,
+// four schedulers sharing one path), so every load, barrier and epilogue
+// instruction beyond that comes out of the rate. The two-electron layers
+// (T = 6, 64 * 9216 rows, 32 -> 32) are bound by their bytes.
 //
 // Design: register-tiled FP32 FMA matrix products; walkers ride the row
 // axis (rows are independent and w is shared). The TPU kernel carried the
 // tangent square sum across a sequential grid axis in scratch memory;
 // blocks on Hopper run in no order, so the sum is carried in registers by
 // a loop over tangents inside the block, and jac @ w is written once,
-// scaled by d, and never read back. Two variants:
+// scaled by d, and never read back. Two variants, chosen by shape alone
+// (jet_kernels.wide_slices):
 //   * narrow (any other shape, such as the 32-wide two-electron layers):
 //     a block owns 64 rows x 32 columns, each thread a 4 x 2 sub-tile, and
-//     loops over all tangents.
-//   * wide (the 256-wide one-electron layers): a block owns 128 rows x 64
-//     columns and a slice of the tangents; each thread an 8 x 4 sub-tile
-//     read as 128-bit shared-memory loads (3 loads per 32 FMAs, where the
-//     narrow variant issues 1 load per 2 FMAs). Slicing the tangents over
-//     the grid fills the card several times over at one 64-walker chunk;
+//     loops over all tangents; k-slices of the rows and of w are staged
+//     in shared memory.
+//   * wide (the 256-wide one-electron layers, d_in up to 384): w is the
+//     same for all T + 2 products of a block, so its column slice stays
+//     in shared memory for the block's life and only the row tiles stream,
+//     through a ring filled by asynchronous copies that run ahead of the
+//     multiply; see the note above dense_tanh_jet_wide_kernel. Tangents
+//     are sliced over the grid to fill the card from one 64-walker chunk;
 //     each slice writes its partial square sums to scratch the wrapper
-//     allocates, and a small second kernel closes the Laplacian.
+//     allocates, and a small second kernel closes the Laplacian in a fixed
+//     order (no atomics: two launches on the same inputs agree bit for bit).
 // The open form changes no product: the narrow variant stores the square
 // sum it holds in registers instead of folding it into lap_o (a
 // compile-time flag), and the wide variant runs a second finishing kernel
 // that sums the slices into sq_o and scales lap_o's linear part by d.
-// k-slices of the input rows and of w are staged in shared memory.
 
 #include <cuda_runtime.h>
 
@@ -206,77 +214,72 @@ __global__ void __launch_bounds__(kThreads) dense_tanh_jet_kernel(
 
 // ---- the wide variant: 256-wide layers (d_out a multiple of 64) ----------
 //
-// A block owns 128 rows x 64 columns and a slice of the tangents; each of
-// its 256 threads holds an 8 x 4 sub-tile and reads its operands as 128-bit
-// shared-memory loads (3 loads per 32 FMAs). tanh z of the tile lives in
-// shared memory. Tangent slices ride the grid's z axis so a 64-walker
-// chunk fills the card several times over; each slice writes its jac_o
-// rows and its partial square sum, slice 0 also val_o and the Laplacian's
-// linear part, and finish_lap_kernel closes lap_o from the partial sums.
+// A block of 256 threads owns 256 rows x 64 columns and a slice of the
+// tangents. Its column slice of w (d_in x 64) is copied to shared memory
+// once and serves every product of the block: the value, each tangent of
+// the slice and (slice 0) the Laplacian. Only the row tiles stream: a ring
+// of tiles of 256 rows x 16 or 32 k, filled with 16-byte cp.async
+// copies that run ahead of the multiply across k-slices and across
+// products, so a tangent's epilogue overlaps the next tangent's loads.
+// One __syncthreads() per k-slice. A thread holds an 8 x 8 accumulator
+// (rows ty + 4 i of its warp's 32, columns 4 tx .. 4 tx + 3 and 32 + 4 tx
+// ..): 16 128-bit shared loads per 256 FMAs, the row tile read row-major
+// as it was copied (the four row groups of a warp hit disjoint banks, the
+// eight column groups are a broadcast). tanh z of the tile lives in shared
+// memory, each thread reading back only what it wrote. Tangent slices
+// ride the grid's z axis so that one 64-walker chunk fills the card for
+// about three waves; each slice writes its jac_o rows and its partial
+// square sum, slice 0 also val_o and the Laplacian's linear part, and a
+// finishing kernel sums the partial sums in a fixed order.
 
-constexpr int kWM = 128;  // rows per block
-constexpr int kWN = 64;   // columns per block
-constexpr int kWK = 16;   // k-slice staged in shared memory
-constexpr int kWPad = 4;  // keeps the transposed row tile 16-byte aligned
+constexpr int kWM = 256;      // rows per block
+constexpr int kWN = 64;       // columns per block
+constexpr int kWMaxK = 384;   // largest d_in whose w slice stays resident
+constexpr size_t kWMaxSmem = 232448;  // dynamic shared memory of one block
 
-struct WideTiles {
-  float a[kWK][kWM + kWPad];  // k-major: a thread's 8 rows are contiguous
-  float w[kWK][kWN];
+// The ring of row tiles for a k-slice of BK: three stages of 16 or two of
+// 32 (a deeper slice halves the barriers; the launcher takes it when it
+// pads d_in no further). The row stride BK + 4 keeps rows 16-byte aligned
+// and puts the four row groups of a warp on disjoint banks.
+template <int BK>
+struct Ring {
+  static constexpr int kStride = BK + 4;
+  static constexpr int kStages = BK == 16 ? 3 : 2;
+  static constexpr int kFloats = kStages * kWM * kStride;
 };
 
-__device__ __forceinline__ void wide_product(
-    const float* __restrict__ A, const float* __restrict__ w, int R, int K,
-    int C, int row0, int col0, WideTiles& s, float (&acc)[8][4]) {
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kWK) {
-    for (int e = tid; e < kWM * kWK / 4; e += kThreads) {
-      const int rr = e >> 2;
-      const int k4 = (e & 3) * 4;
-      const int gr = row0 + rr;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gr < R && k0 + k4 < K) {  // K % 4 == 0: a float4 is all in or out
-        v = *reinterpret_cast<const float4*>(A + static_cast<size_t>(gr) * K + k0 + k4);
-      }
-      s.a[k4 + 0][rr] = v.x;
-      s.a[k4 + 1][rr] = v.y;
-      s.a[k4 + 2][rr] = v.z;
-      s.a[k4 + 3][rr] = v.w;
-    }
-    {
-      const int kk = tid >> 4;
-      const int c4 = (tid & 15) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + kk < K) {
-        v = *reinterpret_cast<const float4*>(w + static_cast<size_t>(k0 + kk) * C + col0 + c4);
-      }
-      *reinterpret_cast<float4*>(&s.w[kk][c4]) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kWK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&s.a[kk][ty * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&s.a[kk][ty * 8 + 4]);
-      const float4 wv = *reinterpret_cast<const float4*>(&s.w[kk][tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+__host__ __device__ constexpr int wide_k_pad(int K, int BK) {
+  return (K + BK - 1) / BK * BK;
 }
 
-template <bool MIX>
-__global__ void __launch_bounds__(kThreads, 2) dense_tanh_jet_wide_kernel(
+// Dynamic shared memory of the wide kernel: w slice, tanh tile, ring.
+template <int BK>
+constexpr size_t wide_smem_bytes(int K) {
+  return sizeof(float) * (static_cast<size_t>(wide_k_pad(K, BK)) * kWN +
+                          kWM * kWN + Ring<BK>::kFloats);
+}
+
+// 16-byte asynchronous copy; copies nothing and zero-fills when !valid.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <bool MIX, int kWK>
+__global__ void __launch_bounds__(kThreads, 1) dense_tanh_jet_wide_kernel(
     const float* __restrict__ val, const float* __restrict__ lap,
     const float* __restrict__ jac, const float* __restrict__ w,
     const float* __restrict__ b, const float* __restrict__ zbc,
@@ -284,86 +287,222 @@ __global__ void __launch_bounds__(kThreads, 2) dense_tanh_jet_wide_kernel(
     float* __restrict__ val_o, float* __restrict__ lap_o,
     float* __restrict__ jac_o, float* __restrict__ sq_part, int T, int R,
     int K, int C, int rows_per_group, int groups, int t_per_slice) {
-  __shared__ __align__(16) WideTiles s;
-  __shared__ __align__(16) float tanh_tile[kWM][kWN];
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int row0 = blockIdx.x * kWM;
-  const int col0 = blockIdx.y * kWN;
-  const int slice = blockIdx.z;
-  const int t_begin = slice * t_per_slice;
-  const int t_end = min(T, t_begin + t_per_slice);
-  const int c = col0 + tx * 4;  // this thread's 4 columns: c .. c + 3
+  constexpr int kWKP = Ring<kWK>::kStride;
+  constexpr int kWStages = Ring<kWK>::kStages;
+  extern __shared__ __align__(16) float wide_smem[];
+  const int k_pad = wide_k_pad(K, kWK);
+  float* w_s = wide_smem;                 // [k_pad][kWN]
+  float* tanh_s = w_s + k_pad * kWN;      // [kWM][kWN]
+  float* a_s = tanh_s + kWM * kWN;        // [kWStages][kWM][kWKP]
 
-  float acc[8][4];
-  wide_product(val, w, R, K, C, row0, col0, s, acc);
-  const float4 bias = *reinterpret_cast<const float4*>(b + c);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int tx = lane & 7;
+  const int ty = lane >> 3;
+  const int row_l = (tid >> 5) * 32 + ty;  // this thread's rows: row_l + 4 i
+  const int col0 = blockIdx.x * kWN;       // columns ride x: the blocks that
+  const int row0 = blockIdx.y * kWM;       // share a row tile run together
+  const int slice = blockIdx.z;
+  const int t_begin = min(T, slice * t_per_slice);
+  const int t_end = min(T, t_begin + t_per_slice);
+  const int c_lo = col0 + tx * 4;          // this thread's columns:
+  const int c_hi = c_lo + 32;              // c_lo .. + 3 and c_hi .. + 3
+
+  // products of this block: the value, its tangents, (slice 0) the Laplacian
+  const int n_prod = 1 + (t_end - t_begin) + (slice == 0 ? 1 : 0);
+  const int nk = k_pad / kWK;
+  const int total = n_prod * nk;
+  const size_t rk = static_cast<size_t>(R) * K;
+
+  // ---- the producer side: every thread copies its chunks of each tile ----
+  constexpr int kChunks = kWK / 4;             // 16-byte chunks of a tile row
+  constexpr int kLdRows = kThreads / kChunks;  // tile rows copied in one pass
+  const int ld_row = tid / kChunks;            // rows ld_row + kLdRows q
+  const int ld_k = (tid % kChunks) * 4;
+  int fetched = 0, f_stage = 0, f_prod = 0, f_kt = 0;
+  const float* f_base = val;
+  auto fetch_tile = [&]() {
+    if (fetched < total) {
+      float* dst = a_s + f_stage * (kWM * kWKP) + ld_row * kWKP + ld_k;
+      const int gk = f_kt * kWK + ld_k;
+#pragma unroll
+      for (int q = 0; q < kWM / kLdRows; ++q) {
+        const int gr = row0 + ld_row + kLdRows * q;
+        const bool ok = gr < R && gk < K;  // K % 4 == 0: all in or all out
+        cp_async16(dst + q * kLdRows * kWKP,
+                   ok ? f_base + static_cast<size_t>(gr) * K + gk : f_base,
+                   ok);
+      }
+      if (++f_kt == nk) {
+        f_kt = 0;
+        ++f_prod;
+        const int t = t_begin + f_prod - 1;
+        f_base = t < t_end ? jac + static_cast<size_t>(t) * rk : lap;
+      }
+    }
+    ++fetched;
+    if (++f_stage == kWStages) f_stage = 0;
+    cp_async_commit();  // one group per call, empty past the last tile
+  };
+
+  // the resident w slice rides the first group
+  for (int e = tid; e < k_pad * (kWN / 4); e += kThreads) {
+    const int kk = e / (kWN / 4);
+    const int c4 = (e - kk * (kWN / 4)) * 4;
+    const bool ok = kk < K;
+    cp_async16(w_s + kk * kWN + c4,
+               ok ? w + static_cast<size_t>(kk) * C + col0 + c4 : w, ok);
+  }
+#pragma unroll
+  for (int s = 0; s < kWStages - 1; ++s) fetch_tile();
+
+  int grp[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int r = row0 + ty * 8 + i;
-    float4 z = make_float4(acc[i][0] + bias.x, acc[i][1] + bias.y,
-                           acc[i][2] + bias.z, acc[i][3] + bias.w);
-    if (MIX && r < R) {
-      const float4 zb = *reinterpret_cast<const float4*>(
-          zbc + static_cast<size_t>(r / rows_per_group) * C + c);
-      z.x += zb.x; z.y += zb.y; z.z += zb.z; z.w += zb.w;
-    }
-    const float4 t = make_float4(tanhf(z.x), tanhf(z.y), tanhf(z.z), tanhf(z.w));
-    *reinterpret_cast<float4*>(&tanh_tile[ty * 8 + i][tx * 4]) = t;
-    if (slice == 0 && r < R) {
-      *reinterpret_cast<float4*>(val_o + static_cast<size_t>(r) * C + c) = t;
-    }
+    const int r = row0 + row_l + 4 * i;
+    grp[i] = (MIX && r < R) ? r / rows_per_group : 0;
   }
 
-  float sq[8][4];
+  float acc[8][8];
+  float sq[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) sq[i][j] = 0.f;
-  for (int t = t_begin; t < t_end; ++t) {
-    wide_product(jac + static_cast<size_t>(t) * R * K, w, R, K, C, row0, col0,
-                 s, acc);
+    for (int j = 0; j < 8; ++j) sq[i][j] = 0.f;
+
+  int stage = 0;
+  for (int p = 0; p < n_prod; ++p) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = row0 + ty * 8 + i;
-      if (r >= R) continue;
-      float y[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
-      if (MIX) {
-        const float4 jb = *reinterpret_cast<const float4*>(
-            jbc + (static_cast<size_t>(t) * groups + r / rows_per_group) * C + c);
-        y[0] += jb.x; y[1] += jb.y; y[2] += jb.z; y[3] += jb.w;
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<kWStages - 2>();  // this thread's share of the tile landed
+      __syncthreads();                // everyone's did; the last one is consumed
+      fetch_tile();                   // refills the last tile's stage
+      const float* as = a_s + stage * (kWM * kWKP) + row_l * kWKP;
+      if (++stage == kWStages) stage = 0;
+      const float* ws = w_s + kt * kWK * kWN + tx * 4;
+#pragma unroll
+      for (int k4 = 0; k4 < kWK; k4 += 4) {
+        float4 a[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          a[i] = *reinterpret_cast<const float4*>(as + i * 4 * kWKP + k4);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 w0 =
+              *reinterpret_cast<const float4*>(ws + (k4 + kk) * kWN);
+          const float4 w1 =
+              *reinterpret_cast<const float4*>(ws + (k4 + kk) * kWN + 32);
+          const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float av = kk == 0   ? a[i].x
+                             : kk == 1 ? a[i].y
+                             : kk == 2 ? a[i].z
+                                       : a[i].w;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, wv[j], acc[i][j]);
+          }
+        }
       }
-      const float4 tv = *reinterpret_cast<const float4*>(&tanh_tile[ty * 8 + i][tx * 4]);
-      const float4 out = make_float4((1.f - tv.x * tv.x) * y[0], (1.f - tv.y * tv.y) * y[1],
-                                     (1.f - tv.z * tv.z) * y[2], (1.f - tv.w * tv.w) * y[3]);
-      *reinterpret_cast<float4*>(jac_o + (static_cast<size_t>(t) * R + r) * C + c) = out;
+    }
+
+    // ---- epilogue of product p; the next tiles are already in flight ----
+    if (p == 0) {  // the value: tanh z into shared memory (and val_o)
+      const float4 b_lo = *reinterpret_cast<const float4*>(b + c_lo);
+      const float4 b_hi = *reinterpret_cast<const float4*>(b + c_hi);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sq[i][j] = fmaf(y[j], y[j], sq[i][j]);
+      for (int i = 0; i < 8; ++i) {
+        const int r = row0 + row_l + 4 * i;
+        float z[8] = {acc[i][0] + b_lo.x, acc[i][1] + b_lo.y,
+                      acc[i][2] + b_lo.z, acc[i][3] + b_lo.w,
+                      acc[i][4] + b_hi.x, acc[i][5] + b_hi.y,
+                      acc[i][6] + b_hi.z, acc[i][7] + b_hi.w};
+        if (MIX && r < R) {
+          const float* zp = zbc + static_cast<size_t>(grp[i]) * C;
+          const float4 z_lo = *reinterpret_cast<const float4*>(zp + c_lo);
+          const float4 z_hi = *reinterpret_cast<const float4*>(zp + c_hi);
+          z[0] += z_lo.x; z[1] += z_lo.y; z[2] += z_lo.z; z[3] += z_lo.w;
+          z[4] += z_hi.x; z[5] += z_hi.y; z[6] += z_hi.z; z[7] += z_hi.w;
+        }
+        const float4 t_lo = make_float4(tanhf(z[0]), tanhf(z[1]), tanhf(z[2]),
+                                        tanhf(z[3]));
+        const float4 t_hi = make_float4(tanhf(z[4]), tanhf(z[5]), tanhf(z[6]),
+                                        tanhf(z[7]));
+        float* ts = tanh_s + (row_l + 4 * i) * kWN + tx * 4;
+        *reinterpret_cast<float4*>(ts) = t_lo;
+        *reinterpret_cast<float4*>(ts + 32) = t_hi;
+        if (slice == 0 && r < R) {
+          float* vo = val_o + static_cast<size_t>(r) * C;
+          *reinterpret_cast<float4*>(vo + c_lo) = t_lo;
+          *reinterpret_cast<float4*>(vo + c_hi) = t_hi;
+        }
+      }
+    } else if (p <= t_end - t_begin) {  // a tangent
+      const int t = t_begin + p - 1;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = row0 + row_l + 4 * i;
+        if (r >= R) continue;
+        float y[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) y[j] = acc[i][j];
+        if (MIX) {
+          const float* jp =
+              jbc + (static_cast<size_t>(t) * groups + grp[i]) * C;
+          const float4 j_lo = *reinterpret_cast<const float4*>(jp + c_lo);
+          const float4 j_hi = *reinterpret_cast<const float4*>(jp + c_hi);
+          y[0] += j_lo.x; y[1] += j_lo.y; y[2] += j_lo.z; y[3] += j_lo.w;
+          y[4] += j_hi.x; y[5] += j_hi.y; y[6] += j_hi.z; y[7] += j_hi.w;
+        }
+        const float* ts = tanh_s + (row_l + 4 * i) * kWN + tx * 4;
+        const float4 t_lo = *reinterpret_cast<const float4*>(ts);
+        const float4 t_hi = *reinterpret_cast<const float4*>(ts + 32);
+        float* jo = jac_o + (static_cast<size_t>(t) * R + r) * C;
+        *reinterpret_cast<float4*>(jo + c_lo) = make_float4(
+            (1.f - t_lo.x * t_lo.x) * y[0], (1.f - t_lo.y * t_lo.y) * y[1],
+            (1.f - t_lo.z * t_lo.z) * y[2], (1.f - t_lo.w * t_lo.w) * y[3]);
+        *reinterpret_cast<float4*>(jo + c_hi) = make_float4(
+            (1.f - t_hi.x * t_hi.x) * y[4], (1.f - t_hi.y * t_hi.y) * y[5],
+            (1.f - t_hi.z * t_hi.z) * y[6], (1.f - t_hi.w * t_hi.w) * y[7]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sq[i][j] = fmaf(y[j], y[j], sq[i][j]);
+      }
+    } else {  // slice 0: the Laplacian's linear part; a finishing kernel closes it
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = row0 + row_l + 4 * i;
+        if (r >= R) continue;
+        float4 l_lo = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        float4 l_hi = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        if (MIX) {
+          const float* lp = lbc + static_cast<size_t>(grp[i]) * C;
+          const float4 a_lo = *reinterpret_cast<const float4*>(lp + c_lo);
+          const float4 a_hi = *reinterpret_cast<const float4*>(lp + c_hi);
+          l_lo.x += a_lo.x; l_lo.y += a_lo.y; l_lo.z += a_lo.z; l_lo.w += a_lo.w;
+          l_hi.x += a_hi.x; l_hi.y += a_hi.y; l_hi.z += a_hi.z; l_hi.w += a_hi.w;
+        }
+        float* lo = lap_o + static_cast<size_t>(r) * C;
+        *reinterpret_cast<float4*>(lo + c_lo) = l_lo;
+        *reinterpret_cast<float4*>(lo + c_hi) = l_hi;
+      }
     }
   }
+  cp_async_wait<0>();  // only empty groups are left
+
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int r = row0 + ty * 8 + i;
+    const int r = row0 + row_l + 4 * i;
     if (r < R) {
-      *reinterpret_cast<float4*>(
-          sq_part + (static_cast<size_t>(slice) * R + r) * C + c) =
+      float* sp = sq_part + (static_cast<size_t>(slice) * R + r) * C;
+      *reinterpret_cast<float4*>(sp + c_lo) =
           make_float4(sq[i][0], sq[i][1], sq[i][2], sq[i][3]);
-    }
-  }
-
-  if (slice == 0) {  // the Laplacian's linear part; finish_lap_kernel closes it
-    wide_product(lap, w, R, K, C, row0, col0, s, acc);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = row0 + ty * 8 + i;
-      if (r >= R) continue;
-      float4 yl = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      if (MIX) {
-        const float4 lb = *reinterpret_cast<const float4*>(
-            lbc + static_cast<size_t>(r / rows_per_group) * C + c);
-        yl.x += lb.x; yl.y += lb.y; yl.z += lb.z; yl.w += lb.w;
-      }
-      *reinterpret_cast<float4*>(lap_o + static_cast<size_t>(r) * C + c) = yl;
+      *reinterpret_cast<float4*>(sp + c_hi) =
+          make_float4(sq[i][4], sq[i][5], sq[i][6], sq[i][7]);
     }
   }
 }
@@ -399,6 +538,27 @@ __global__ void finish_open_kernel(const float* __restrict__ val_o,
   }
 }
 
+template <bool MIX, int BK>
+cudaError_t launch_wide_main(const float* val, const float* lap,
+                             const float* jac, const float* w, const float* b,
+                             const float* zbc, const float* lbc,
+                             const float* jbc, float* val_o, float* lap_o,
+                             float* jac_o, float* sq_part, int slices, int T,
+                             int R, int K, int C, int rows_per_group,
+                             int groups, cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes<BK>(K);
+  const cudaError_t err = cudaFuncSetAttribute(
+      dense_tanh_jet_wide_kernel<MIX, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int t_per_slice = (T + slices - 1) / slices;
+  const dim3 grid(C / kWN, (R + kWM - 1) / kWM, slices);
+  dense_tanh_jet_wide_kernel<MIX, BK><<<grid, kThreads, smem, stream>>>(
+      val, lap, jac, w, b, zbc, lbc, jbc, val_o, lap_o, jac_o, sq_part, T, R,
+      K, C, rows_per_group, groups, t_per_slice);
+  return cudaGetLastError();
+}
+
 template <bool MIX>
 int launch_wide(const float* val, const float* lap, const float* jac,
                 const float* w, const float* b, const float* zbc,
@@ -406,12 +566,20 @@ int launch_wide(const float* val, const float* lap, const float* jac,
                 float* jac_o, float* sq_part, float* sq_o, int slices, int T,
                 int R, int K, int C, int rows_per_group, int groups,
                 cudaStream_t stream) {
-  const int t_per_slice = (T + slices - 1) / slices;
-  const dim3 grid((R + kWM - 1) / kWM, C / kWN, slices);
-  dense_tanh_jet_wide_kernel<MIX><<<grid, kThreads, 0, stream>>>(
-      val, lap, jac, w, b, zbc, lbc, jbc, val_o, lap_o, jac_o, sq_part, T, R,
-      K, C, rows_per_group, groups, t_per_slice);
-  cudaError_t err = cudaGetLastError();
+  if (K > kWMaxK || K % 4 != 0 || C % kWN != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the deeper k-slice when it pads d_in no further and its ring fits
+  // beside the w slice in the 227 KB a block may use
+  const cudaError_t err =
+      (wide_k_pad(K, 32) == wide_k_pad(K, 16) &&
+       wide_smem_bytes<32>(K) <= kWMaxSmem)
+          ? launch_wide_main<MIX, 32>(val, lap, jac, w, b, zbc, lbc, jbc, val_o,
+                                      lap_o, jac_o, sq_part, slices, T, R, K,
+                                      C, rows_per_group, groups, stream)
+          : launch_wide_main<MIX, 16>(val, lap, jac, w, b, zbc, lbc, jbc, val_o,
+                                      lap_o, jac_o, sq_part, slices, T, R, K,
+                                      C, rows_per_group, groups, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n = static_cast<size_t>(R) * C;
   const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
@@ -456,9 +624,10 @@ extern "C" {
 // square sum and lap_o keeps d * (lap @ w (+ lbc)) only; null closes the
 // Laplacian in the kernel.
 // The caller chooses the variant (jet_kernels.wide_slices): slices > 0
-// runs the wide one, which needs C % 64 == 0, K % 4 == 0, every pointer
-// 16-byte aligned and `slices` * R * C floats of scratch; slices = 0 runs
-// the narrow one (scratch unused). Returns the cudaError_t of the launches.
+// runs the wide one, which needs C % 64 == 0, K % 4 == 0, K <= 384, every
+// pointer 16-byte aligned and `slices` * R * C floats of scratch (it
+// returns cudaErrorInvalidValue for another shape); slices = 0 runs the
+// narrow one (scratch unused). Returns the cudaError_t of the launches.
 int dense_tanh_jet_launch(const void* val, const void* lap, const void* jac,
                           const void* w, const void* b, const void* zbc,
                           const void* lbc, const void* jbc, void* val_o,

@@ -1,11 +1,14 @@
 """Batched complex Gauss-Jordan inverse + slogdet: CUDA kernel and plain version.
 
-Counterpart of deepsolid_tpu/ops/pallas/det_kernels.py. The kernel
-(csrc/gj_inverse.cu) runs one thread block per matrix on the card; every
-leading batch axis (walkers x determinants) goes into one launch. The
-plain PyTorch version performs the same elimination with the same pivot
-rule, vectorised over the batch; the wrapper takes it only for tensors
-on the CPU.
+Counterpart of deepsolid_tpu/ops/pallas/det_kernels.py. The source
+(csrc/gj_inverse.cu) holds two kernels, chosen by the matrix size alone
+(`variant`): one that keeps a matrix in the registers of one warp, for
+the sizes it is instantiated for, and one that keeps it in the shared
+memory of one block, for any other size up to the card's shared-memory
+limit. Every leading batch axis (walkers x determinants) goes into one
+launch. The plain PyTorch version performs the same elimination with the
+same pivot rule, vectorised over the batch; the wrapper takes it only
+for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "gj_inverse_slogdet_launch": (
         ctypes.c_int, [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]),
+    "gj_uses_registers": (ctypes.c_int, [ctypes.c_int]),
     "gj_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
     "gj_max_smem_optin": (ctypes.c_int, [ctypes.c_int]),
 }
@@ -75,9 +79,19 @@ def _lib():
     return build.library("gj_inverse", _SIGNATURES)
 
 
-def smem_limit(device: torch.device) -> int:
-    """Dynamic shared memory one block may use on `device`."""
-    return _lib().gj_max_smem_optin(device.index or 0)
+def variant(lib, n: int, device: torch.device) -> str:
+    """Which kernel serves n x n matrices, by n alone: "registers" for a
+    size the register kernel is instantiated for, else "shared", which
+    raises for a matrix that does not fit the card's shared memory."""
+    if lib.gj_uses_registers(n):
+        return "registers"
+    need = lib.gj_smem_bytes(n)
+    limit = lib.gj_max_smem_optin(device.index or 0)
+    if need > limit:
+        raise ValueError(
+            f"{n}x{n} matrices need {need} bytes of shared memory per block; "
+            f"this card allows {limit}. Larger matrices are not supported.")
+    return "shared"
 
 
 def _gj_cuda(a: torch.Tensor):
@@ -90,12 +104,7 @@ def _gj_cuda(a: torch.Tensor):
         raise ValueError(f"expected (..., n, n) matrices, got {tuple(a.shape)}")
     lib = _lib()
     n = a.shape[-1]
-    need = lib.gj_smem_bytes(n)
-    limit = smem_limit(a.device)
-    if need > limit:
-        raise ValueError(
-            f"{n}x{n} matrices need {need} bytes of shared memory per block; "
-            f"this card allows {limit}. Larger matrices are not supported.")
+    variant(lib, n, a.device)  # the launcher takes the same branch by n
     lead = a.shape[:-2]
     a2 = a.reshape(-1, n, n).contiguous()  # copies only a strided input
     nb = a2.shape[0]

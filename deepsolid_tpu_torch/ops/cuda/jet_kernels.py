@@ -33,20 +33,42 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "dense_tanh_jet_launch": (_I, [_P] * 13 + [_I] * 7 + [_P]),
 }
-# the wide variant's block tile (kWM x kWN in csrc/dense_tanh_jet.cu)
-WIDE_ROWS, WIDE_COLS = 128, 64
+# the wide variant's block tile and the largest d_in whose column slice of
+# w stays resident in shared memory (kWM, kWN, kWMaxK in csrc/dense_tanh_jet.cu)
+WIDE_ROWS, WIDE_COLS, WIDE_MAX_D_IN = 256, 64, 384
+# what a block of the wide variant does once whatever its slice, counted in
+# tangents' worth of work: it loads its slice of w and forms the value
+WIDE_BLOCK_OVERHEAD = 2
+
+
+def slice_tangents(t_dim, slices):
+    """Tangents per slice, as the launcher cuts them (the last may be short)."""
+    return -(-t_dim // slices)
 
 
 def wide_slices(t_dim, rows, d_in, d_out, sms):
     """Tangent slices of the wide variant for this shape, 0 for the narrow
-    one. The wide variant reads 128-bit vectors, so it takes layers whose
-    d_out is a multiple of its 64-column tile and whose d_in is a multiple
-    of 4 (the 256-wide one-electron layers); it slices the tangents over
-    the grid to run about four waves of two resident blocks per SM."""
-    if d_out % WIDE_COLS or d_in % 4 or t_dim < 1 or rows < 1:
+    one. The wide variant reads 128-bit vectors and keeps a d_in x 64 slice
+    of w in shared memory, so it takes layers whose d_out is a multiple of
+    its 64-column tile and whose d_in is a multiple of 4 and at most
+    WIDE_MAX_D_IN (the 256-wide one-electron layers). One block runs per
+    SM; the tangents are sliced over the grid so that the waves of blocks
+    times a block's work (its tangents plus the fixed part) come out least,
+    the fewest slices on a tie: no slice is empty."""
+    if (d_out % WIDE_COLS or d_in % 4 or d_in > WIDE_MAX_D_IN or t_dim < 1
+            or rows < 1):
         return 0
-    per_slice = -(-rows // WIDE_ROWS) * (d_out // WIDE_COLS)
-    return max(1, min(-(-8 * sms // per_slice), t_dim))
+    tiles = -(-rows // WIDE_ROWS) * (d_out // WIDE_COLS)
+    best, best_cost = 1, None
+    for want in range(1, t_dim + 1):
+        per = slice_tangents(t_dim, want)
+        slices = -(-t_dim // per)
+        cost = -(-tiles * slices // sms) * (per + WIDE_BLOCK_OVERHEAD)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = slices, cost
+        if tiles * slices >= 16 * sms:  # finer slices only add fixed parts
+            break
+    return best
 
 
 def _dense(x):
@@ -130,11 +152,12 @@ def _launch(name, val, jac, lap, w, b, mix, rows_per_group, groups,
     sq_o = torch.empty_like(val_o) if open_sum else None
     if rows and d_out:
         lib = _lib()
-        # the one place the variant is chosen: the wide variant splits the
-        # tangents across blocks, whose partial square sums need
-        # slices * rows * d_out floats of scratch; 0 slices is the narrow
-        # one. t_dim is this call's own (a rank's T_local in the open form),
-        # so scratch and the finishing grid follow `slices`
+        # the one place the variant is chosen, by shape alone: the wide
+        # variant splits the tangents across blocks, whose partial square
+        # sums need slices * rows * d_out floats of scratch; 0 slices is
+        # the narrow one (also for a d_in whose slice of w does not fit in
+        # shared memory). t_dim is this call's own (a rank's T_local in the
+        # open form), so scratch and the finishing grid follow `slices`
         sms = torch.cuda.get_device_properties(val.device).multi_processor_count
         slices = wide_slices(t_dim, rows, d_in, d_out, sms)
         scratch = (torch.empty((slices, rows, d_out), dtype=val.dtype,

@@ -1,0 +1,183 @@
+"""Times the kernels' launchers alone, beside another design's, on a CUDA machine.
+
+    python -m deepsolid_tpu_torch.ops.cuda.time_kernels
+    python -m deepsolid_tpu_torch.ops.cuda.time_kernels \\
+        --baseline DIR [--baseline-slices N] [--slices 2,4,8]
+
+A kernel's time moves by up to ~30% between machines and runs, so two
+designs are compared inside one process, in turns (baseline, current,
+current, baseline). DIR holds gj_inverse.cu and dense_tanh_jet.cu of the
+other design with the same C interface (an earlier commit's csrc/, or a
+copy of the present one with a constant changed); they are built there
+with build.py's flags. The launchers are called directly, on buffers
+allocated once: no wrapper, no allocation in the timed region.
+
+Shapes are those of the C-diamond 2x2x2 main path: the Gauss-Jordan
+kernel on (8192, 48, 48) and (512, 48, 48) complex64; the jet kernels on
+6144 rows, d_out 256, T = 288 (closed) or 144 (open), d_in 16, 320 or
+256. For the wide jet variant the current design is timed at each slice
+count of --slices beside the one jet_kernels.wide_slices chooses;
+--baseline-slices is the slice count the other design is handed (6 for
+the 128 x 64-tile design). One JSON line per shape.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import statistics
+import subprocess
+from pathlib import Path
+
+from deepsolid_tpu_torch.ops.cuda import build
+from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
+
+ROWS, D_OUT, WALKERS = 64 * 96, 256, 64
+# (T, d_in, mix rule, open form)
+JET_SHAPES = ((288, 16, True, False), (288, 320, True, False),
+              (144, 16, True, True), (144, 320, True, True),
+              (144, 256, False, True))
+
+
+def baseline_library(directory: Path, name: str, signatures) -> ctypes.CDLL:
+    out = directory / f"lib{name}.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                    str(directory / f"{name}.cu")], check=True)
+    lib = ctypes.CDLL(str(out))
+    for fn, (restype, argtypes) in signatures.items():
+        if hasattr(lib, fn):  # an older design may export fewer functions
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+    return lib
+
+
+def time_ms(fn, warmup: int = 3, reps: int = 15) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def gj_launcher(lib, a):
+    import torch
+
+    ainv = torch.empty_like(a)
+    sign = torch.empty(a.shape[0], dtype=torch.complex64, device=a.device)
+    logdet = torch.empty(a.shape[0], dtype=torch.float32, device=a.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        code = lib.gj_inverse_slogdet_launch(
+            a.data_ptr(), ainv.data_ptr(), sign.data_ptr(), logdet.data_ptr(),
+            a.shape[0], a.shape[1], stream)
+        build.check(lib, code, "gj_inverse_slogdet")
+    return run
+
+
+def jet_launcher(lib, slices, val, jac, lap, w, b, mix, open_sum):
+    import torch
+
+    t_dim, rows, d_in = jac.shape
+    d_out = w.shape[1]
+    val_o = torch.empty(rows, d_out, device=val.device)
+    lap_o, jac_o = torch.empty_like(val_o), torch.empty(t_dim, rows, d_out, device=val.device)
+    sq_o = torch.empty_like(val_o) if open_sum else None
+    scratch = torch.empty(max(slices, 1), rows, d_out, device=val.device)
+    zbc, lbc, jbc = mix if mix else (None,) * 3
+    groups = zbc.shape[0] if mix else 1
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    def run():
+        code = lib.dense_tanh_jet_launch(
+            ptr(val), ptr(lap), ptr(jac), ptr(w), ptr(b), ptr(zbc), ptr(lbc),
+            ptr(jbc), ptr(val_o), ptr(lap_o), ptr(jac_o), ptr(scratch),
+            ptr(sq_o), slices, t_dim, rows, d_in, d_out, rows // groups,
+            groups, stream)
+        build.check(lib, code, "dense_tanh_jet")
+    return run
+
+
+def main() -> None:
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--baseline", type=Path, default=None)
+    parser.add_argument("--baseline-slices", type=int, default=None)
+    parser.add_argument("--slices", default="2,4,8")
+    args = parser.parse_args()
+    sweep = [int(s) for s in args.slices.split(",") if s]
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"card": smi, "baseline": str(args.baseline)}), flush=True)
+
+    gj, jet = dk._lib(), jk._lib()
+    gj_base = jet_base = None
+    if args.baseline:
+        gj_base = baseline_library(args.baseline, "gj_inverse", dk._SIGNATURES)
+        jet_base = baseline_library(args.baseline, "dense_tanh_jet", jk._SIGNATURES)
+
+    def in_turns(current, base):
+        """Milliseconds as baseline, current, current, baseline."""
+        first = time_ms(base) if base else None
+        ms = [time_ms(current), time_ms(current)]
+        return ms, ([first, time_ms(base)] if base else None)
+
+    for nb in (8192, 512):
+        a = torch.complex(rnd(nb, 48, 48), rnd(nb, 48, 48)) / math.sqrt(96)
+        ms, base = in_turns(gj_launcher(gj, a),
+                            gj_launcher(gj_base, a) if gj_base else None)
+        print(json.dumps({"kernel": "gj_inverse_slogdet", "shape": [nb, 48, 48],
+                          "ms": ms, "baseline_ms": base,
+                          "wrapper_ms": time_ms(lambda: dk.gj_inverse_slogdet(a))}),
+              flush=True)
+
+    for t_dim, d_in, mixed, open_sum in JET_SHAPES:
+        val, jac, lap = rnd(ROWS, d_in), rnd(t_dim, ROWS, d_in), rnd(ROWS, d_in)
+        w, b = rnd(d_in, D_OUT) / math.sqrt(d_in), rnd(D_OUT)
+        mix = ((rnd(WALKERS, D_OUT), rnd(WALKERS, D_OUT), rnd(t_dim, WALKERS, D_OUT))
+               if mixed else None)
+        chosen = jk.wide_slices(t_dim, ROWS, d_in, D_OUT, sms)
+
+        def launcher(lib, slices):
+            return jet_launcher(lib, slices, val, jac, lap, w, b, mix, open_sum)
+
+        base_slices = args.baseline_slices or chosen
+        ms, base = in_turns(launcher(jet, chosen),
+                            launcher(jet_base, base_slices) if jet_base else None)
+        print(json.dumps({
+            "kernel": "dense_tanh_jet", "T": t_dim, "rows": ROWS, "d_in": d_in,
+            "d_out": D_OUT, "mix": mixed, "open": open_sum, "slices": chosen,
+            "ms": ms, "baseline_slices": base_slices if jet_base else None,
+            "baseline_ms": base,
+            "ms_by_slices": {s: time_ms(launcher(jet, s)) for s in sweep},
+            "matmul_ms": time_ms(lambda: torch.matmul(jac, w))}), flush=True)
+        del val, jac, lap, mix
+
+
+if __name__ == "__main__":
+    main()

@@ -31,7 +31,9 @@ def _rnd(gen, dev):
 @pytest.mark.cuda
 def test_gj_kernel_matches_plain(cuda_device):
     rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
-    for n in (5, 48, 100):  # 100: above 48 KB of shared memory (opt-in)
+    # 48: the register kernel; the others the shared-memory one (100: above
+    # 48 KB of shared memory, by opt-in)
+    for n in (5, 13, 48, 96, 100):
         a = torch.complex(rnd(64, n, n), rnd(64, n, n)) + 4.0 * torch.eye(n, device=cuda_device)
         before = tdk.LAUNCHES["gj_inverse_slogdet"]
         got = tdk.gj_inverse_slogdet(a)
@@ -49,8 +51,54 @@ def test_gj_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 512])  # 1, 3: a block's second warp idle
+def test_gj_register_kernel_batches(cuda_device, batch):
+    rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(5), cuda_device)
+    a = torch.complex(rnd(batch, 48, 48), rnd(batch, 48, 48)) / 96**0.5
+    for x, y in zip(tdk.gj_inverse_slogdet(a), tdk.gj_inverse_slogdet_plain(a)):
+        torch.testing.assert_close(x, y, rtol=5e-3, atol=5e-3)  # conditioning
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [48, 12])  # the register and the shared-memory kernel
+@pytest.mark.parametrize("case", ["anti_diagonal", "permutation", "tie",
+                                  "zero_pivot", "nan_entry"])
+def test_gj_kernel_edge_matrices(cuda_device, n, case):
+    """The pivot rule's corner cases against the plain version."""
+    dev = cuda_device
+    rnd = _rnd(torch.Generator(device=dev).manual_seed(6), dev)
+    eye = torch.eye(n, device=dev).to(torch.complex64)
+    a = torch.complex(rnd(2, n, n), rnd(2, n, n))
+    if case == "anti_diagonal":      # a swap at every step
+        a = torch.flip(eye, [1])[None]
+    elif case == "permutation":
+        a = torch.roll(eye, 5, 0)[None]
+    elif case == "tie":              # equal |.|^2 in the first pivot column
+        a[:, 3, 0], a[:, 7, 0] = 5.0, 5.0j
+    elif case == "zero_pivot":
+        a[:, :, 7] = 0
+    else:
+        a[0, 3, 4] = float("nan")
+    got, want = tdk.gj_inverse_slogdet(a), tdk.gj_inverse_slogdet_plain(a)
+    torch.cuda.synchronize()
+    if case in ("zero_pivot", "nan_entry"):  # no fault; non-finite where plain is
+        assert torch.equal(torch.isfinite(got[2]), torch.isfinite(want[2]))
+        assert not torch.isfinite(got[2][0])
+        if case == "nan_entry":  # the batch's other matrix is untouched
+            torch.testing.assert_close(got[2][1], want[2][1], rtol=2e-3, atol=2e-3)
+        return
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=2e-3, atol=2e-3)
+    if case != "tie":  # exact arithmetic on 0 and 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1].real, want[1].real)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("t_dim,rows,d_in,d_out", [
     (6, 300, 32, 32),   # narrow variant, ragged row tile
+    (50, 385, 40, 256), # wide, ragged rows, tangents and k-slice (16-deep ring)
+    (9, 600, 64, 128),  # wide, the 32-deep ring
+    (5, 100, 388, 64),  # d_in whose slice of w is not kept resident: narrow
     (7, 300, 20, 64),   # wide variant, ragged row tile
     (3, 50, 7, 40),     # narrow, d_in not a multiple of 4
 ])
@@ -103,6 +151,7 @@ def test_dense_tanh_jet_partial_kernel_matches_plain(cuda_device, t_dim, rows,
 @pytest.mark.cuda
 @pytest.mark.parametrize("t_dim,groups,n,d_in,d_out", [
     (20, 3, 96, 40, 256),   # wide variant
+    (50, 5, 77, 320, 256),  # wide, ragged rows and tangents, 32-deep ring
     (9, 3, 10, 20, 40),     # narrow variant
 ])
 def test_dense_tanh_jet_mix_partial_recombines(cuda_device, t_dim, groups, n,
@@ -127,3 +176,5 @@ def test_dense_tanh_jet_mix_partial_recombines(cuda_device, t_dim, groups, n,
     torch.testing.assert_close(torch.cat([p[1] for p in parts]), j, rtol=0, atol=0)
     closed = tjk.close_laplacian(parts[0][0], parts[0][2], parts[0][3] + parts[1][3])
     torch.testing.assert_close(closed, l, **TOL)
+    # 1e-5 of the Laplacian's scale: the same products, partial sums in another order
+    assert float((closed - l).abs().max()) <= 1e-5 * float(l.abs().max())

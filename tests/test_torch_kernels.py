@@ -87,6 +87,96 @@ def test_gj_plain_batch_axes_and_float64():
     np.testing.assert_allclose(logabs.numpy(), rl, atol=1e-12)
 
 
+def _gj_edge_matrices():
+    """Matrices that exercise the pivot rule, by name."""
+    rng = np.random.RandomState(11)
+    eye = np.eye(12)
+    tie = rng.randn(12, 12) + 1j * rng.randn(12, 12)
+    tie[3, 0], tie[7, 0] = 5.0, 5.0j       # equal |.|^2 in the first pivot column
+    nan_col = rng.randn(12, 12) + 1j * rng.randn(12, 12)
+    nan_col[:, 4] = np.nan
+    return {"anti_diagonal": np.fliplr(eye),   # a swap at every step
+            "permutation": np.roll(eye, 5, axis=0),
+            "tie": tie, "nan_column": nan_col}
+
+
+@pytest.mark.parametrize("name", ["anti_diagonal", "permutation", "tie"])
+def test_gj_plain_edge_matrices_match_numpy_float64(name):
+    """What the card's kernel is compared with is itself held: the plain
+    version in complex128 against numpy.linalg on the pivot-rule cases."""
+    a = _gj_edge_matrices()[name].astype(np.complex128)[None]
+    ainv, sign, logabs = tdk.gj_inverse_slogdet_plain(torch.from_numpy(a))
+    rs, rl = np.linalg.slogdet(a)
+    np.testing.assert_allclose(ainv.numpy(), np.linalg.inv(a), rtol=1e-11, atol=1e-11)
+    np.testing.assert_allclose(sign.numpy(), rs, atol=1e-12)
+    np.testing.assert_allclose(logabs.numpy(), rl, atol=1e-11)
+
+
+@pytest.mark.parametrize("name", ["anti_diagonal", "permutation", "tie", "nan_column"])
+def test_gj_plain_edge_matrices_match_jax_kernel(name):
+    a = _gj_edge_matrices()[name].astype(np.complex64)[None]
+    got = tdk.gj_inverse_slogdet_plain(torch.from_numpy(a))
+    want = gj_inverse_slogdet_interpret(jnp.asarray(a))
+    if name == "nan_column":
+        # no candidate wins the column: the plain version pivots on a NaN
+        # (log|det| NaN), the JAX kernel on no row at all (a zero pivot,
+        # log|det| -inf); neither faults and neither answer is finite
+        assert not np.isfinite(got[2].numpy()).any()
+        assert not np.isfinite(np.asarray(want[2])).any()
+        assert not np.isfinite(got[1].numpy()).any()
+        assert not np.isfinite(np.asarray(want[1])).any()
+        return
+    # complex64 on both sides; the same pivots, so only f32 rounding order
+    _assert_gj_close(got, want, inv_tol=2e-5)
+
+
+class _FakeGjLibrary:
+    """Stands in for the built library: the size rule of csrc/gj_inverse.cu
+    and a card with 227 KB of shared memory per block."""
+
+    def gj_uses_registers(self, n):
+        return 1 if n == 48 else 0
+
+    def gj_smem_bytes(self, n):
+        return n * n * 8 + 3 * n * 8 + n * 4
+
+    def gj_max_smem_optin(self, device):
+        return 232448
+
+
+@pytest.mark.parametrize("n,want", [(48, "registers"), (13, "shared"), (96, "shared"),
+                                    (47, "shared"), (168, "shared"), (169, None),
+                                    (400, None)])
+def test_gj_variant_is_chosen_by_size_alone(n, want):
+    lib, dev = _FakeGjLibrary(), torch.device("cuda", 0)
+    if want is None:  # beyond the shared-memory guard: raises, no fallback
+        with pytest.raises(ValueError, match="shared memory"):
+            tdk.variant(lib, n, dev)
+    else:
+        assert tdk.variant(lib, n, dev) == want
+
+
+def test_gj_wrapper_asks_the_size_rule_before_it_launches(monkeypatch):
+    """The CUDA path consults `variant` (and so raises beyond the guard)
+    for every tensor it is handed, and never reaches the plain version."""
+    _forbid(monkeypatch, tdk, "gj_inverse_slogdet_plain")
+    monkeypatch.setattr(tdk, "_lib", lambda: _FakeGjLibrary())
+    seen = []
+    real = tdk.variant
+    monkeypatch.setattr(tdk, "variant",
+                        lambda lib, n, dev: seen.append(n) or real(lib, n, dev))
+
+    class _OnCard:  # a tensor's face, as far as the checks before the launch look
+        device = torch.device("cuda", 0)
+        dtype = torch.complex64
+        ndim = 3
+        shape = (2, 400, 400)
+
+    with pytest.raises(ValueError, match="shared memory"):
+        tdk._gj_cuda(_OnCard())
+    assert seen == [400]
+
+
 # ---- B2/B3: fused dense + tanh jet ------------------------------------------
 
 
@@ -316,17 +406,63 @@ def test_sharded_trunk_rules_reach_the_open_kernels(monkeypatch):
 
 @pytest.mark.parametrize("shape,sms,slices", [
     ((6, 64 * 96 * 96, 32, 32), 132, 0),   # two-electron layers: narrow
-    ((288, 6144, 320, 256), 132, 6),       # one-electron layers: 192 blocks per slice
-    ((288, 6144, 16, 256), 132, 6),
-    ((144, 6144, 320, 256), 132, 6),       # a rank's half of the tangents
+    ((288, 6144, 320, 256), 132, 4),       # one-electron layers: 96 blocks per
+    ((288, 6144, 16, 256), 132, 4),        # slice, 2.9 waves of one block per SM
+    ((144, 6144, 320, 256), 132, 4),       # a rank's half of the tangents
+    ((144, 6144, 16, 256), 132, 4),
+    ((144, 6144, 256, 256), 132, 4),       # the open plain rule at 256 -> 256
     ((3, 64 * 96 * 96, 32, 32), 132, 0),   # open form at the pair shape
-    ((4, 6144, 320, 256), 132, 4),         # never more slices than tangents
+    ((4, 6144, 320, 256), 132, 1),         # under one wave: slicing buys nothing
+    ((1, 130, 8, 128), 132, 1),            # T smaller than any slicing
     ((288, 10 ** 6, 320, 256), 132, 1),    # a full grid needs no slicing
+    ((50, 385, 40, 256), 132, 13),         # ragged rows, T no multiple of the slices
+    ((288, 6144, 384, 256), 132, 4),       # the largest resident slice of w
+    ((288, 6144, 388, 256), 132, 0),       # w's slice does not fit: narrow
+    ((288, 6144, 512, 256), 132, 0),
     ((288, 6144, 318, 256), 132, 0),       # d_in not a multiple of 4
     ((288, 6144, 320, 200), 132, 0),       # d_out not a multiple of 64
 ])
 def test_variant_is_chosen_by_shape(shape, sms, slices):
+    t_dim, rows, d_in, d_out = shape
     assert tjk.wide_slices(*shape, sms) == slices
+    if slices:
+        # what the launcher is handed: `slices` partial sums of rows x d_out,
+        # every slice holding at least one tangent under its ceil rule
+        assert 1 <= slices <= t_dim
+        per = tjk.slice_tangents(t_dim, slices)
+        assert (slices - 1) * per < t_dim <= slices * per
+        assert d_in <= tjk.WIDE_MAX_D_IN and d_out % tjk.WIDE_COLS == 0
+
+
+def test_wide_tiling_constants_match_the_source():
+    text = (build.CSRC / "dense_tanh_jet.cu").read_text()
+    assert f"constexpr int kWM = {tjk.WIDE_ROWS};" in text
+    assert f"constexpr int kWN = {tjk.WIDE_COLS};" in text
+    assert f"constexpr int kWMaxK = {tjk.WIDE_MAX_D_IN};" in text
+    # the resident slice of w, the tanh tile and either ring fit the 227 KB
+    # a block may use at the largest d_in each ring is taken for
+    k16 = -(-tjk.WIDE_MAX_D_IN // 16) * 16
+    assert 4 * (k16 * 64 + 256 * 64 + 3 * 256 * 20) <= 232448
+    assert 4 * (320 * 64 + 256 * 64 + 2 * 256 * 36) <= 232448
+
+
+def test_ptxas_resources_are_parsed():
+    log = """[gj_inverse] ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN58_GLOBAL__N__8a1b2c3d_13_gj_inverse_cu_1234567819gj_registers_kernelILi48EEEvPK6float2PS1_S4_Pfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN58_GLOBAL__N__x19gj_registers_kernelILi48EEEvPK6float2PS1_S4_Pfi
+    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 186 registers, used 1 barriers, 39936 bytes smem, 388 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN58_GLOBAL__N__8a1b2c3d_13_gj_inverse_cu_1234567816gj_shared_kernelEPK6float2PS1_S4_Pfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN58_GLOBAL__N__x16gj_shared_kernelEPK6float2PS1_S4_Pfi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers
+"""
+    assert build.resources(log) == [
+        {"kernel": "gj_registers_kernelILi48EE", "spill_store_bytes": 8,
+         "spill_load_bytes": 12, "registers": 186, "static_smem_bytes": 39936},
+        {"kernel": "gj_shared_kernel", "spill_store_bytes": 0,
+         "spill_load_bytes": 0, "registers": 32, "static_smem_bytes": 0}]
+    assert build.resources("") == []
 
 
 def test_kernel_inputs_are_dense_and_16_byte_aligned():
@@ -356,7 +492,12 @@ def test_missing_toolchain_raises(monkeypatch, tmp_path):
 
 def test_kernel_sources_target_hopper():
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    for name in build.SOURCES:
-        text = (build.CSRC / f"{name}.cu").read_text()
+    sources = sorted(p for p in build.CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+    assert {p.stem for p in sources if p.suffix == ".cu"} == set(build.SOURCES)
+    for path in sources:
+        text = path.read_text()
         assert "deepsolid_tpu/ops/pallas/" in text  # names the TPU kernel it replaces
-        assert 'extern "C"' in text
+        assert "What bounds it on this card" in text
+        assert "torch/extension.h" not in text and "cublas" not in text.lower()
+        if path.suffix == ".cu":
+            assert 'extern "C"' in text
