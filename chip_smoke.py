@@ -13,8 +13,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 events (and a library yardstick where one PyTorch call
                 computes the same); the Gauss-Jordan kernel at both of its
                 launch shapes and on edge-case matrices; the jet kernels
-                also at a ragged shape; the open ("partial") jet kernels
-                recombined against the closed one;
+                also at ragged shapes (the pair body's too) and at a pair
+                shape that falls to the general kernel; the open
+                ("partial") jet kernels recombined against the closed one;
   4. main     - 3 inference iterations of the committed C-diamond 2x2x2
                 checkpoint (96 electrons, 1024 walkers, full width) through
                 deepsolid_tpu_torch.train.process.process(device='cuda'),
@@ -25,13 +26,18 @@ Phases, one JSON line each; any failure exits non-zero:
                 iterations), against the unsharded port on the same seed;
                 the ranks also drive the sharded jet algebra's dense_tanh
                 on a pair-shaped jet through the same group;
-  6. training - 3 adam iterations at 1024 walkers from the checkpoint,
+  6. training - 2 adam iterations at 1024 walkers from the checkpoint,
                 with the checkpoint written and restored;
-  7. reference - E_L and the energy gradient of 8 checkpoint walkers on the
-                card (f32, kernels) against the port's plain path on the
-                CPU in float64, and E_L with TF32 matmuls as a control the
-                check must catch;
-  8. profile  - torch.profiler over one 64-walker local-energy chunk:
+  7. kfac     - 3 KFAC fisher_exact iterations at 1024 walkers with the
+                production run's settings (adaptive damping, here adapting
+                every 2 optimizer steps), continuing the checkpoint's KFAC
+                state at optimizer step 582: the split of an iteration,
+                damping and rho, and the checkpoint written and restored;
+  8. reference - E_L, the energy gradient and the KFAC update of 8
+                checkpoint walkers on the card (f32, kernels) against the
+                port's plain path on the CPU in float64, and E_L with TF32
+                matmuls as a control the check must catch;
+  9. profile  - torch.profiler over one 64-walker local-energy chunk:
                 kernels by device time and the device's idle share.
 Launch counts are set to 0 just before each driven path and read just
 after it. The last lines are the card as nvidia-smi reports it, the
@@ -57,14 +63,20 @@ ITERATIONS = 3
 SHARD_BATCH = 256          # walkers of the sharded phase (4 chunks of EL_CHUNK)
 SHARD_ITERATIONS = 2
 SHARD_EL_TOLERANCE = 5e-4  # Ha/cell, sharded against unsharded E_L per walker
-TRAIN_ITERATIONS = 3
+TRAIN_ITERATIONS = 2
 TRAIN_LR = 1e-4            # a fine-tuning rate: the checkpoint is a trained state
+KFAC_ITERATIONS = 3
+KFAC_ADAPT_EVERY = 2       # production adapts every 10 steps; 2 fits 3 iterations
+# relative error in the global norm of the card's f32 KFAC update (curvature
+# update from the checkpoint's state, then the preconditioned step) against
+# the CPU float64 one, same 8 walkers: ~10x the reading on an H100 (PERF.md)
+KFAC_UPDATE_TOLERANCE = 3e-4
 # relative error in the global norm of the card's f32 energy gradient
 # against the CPU float64 one, 8 walkers: ~10x the reading of 2.9e-5 on
 # an H100 (PERF.md)
 GRADIENT_TOLERANCE = 3e-4
 REFERENCE_ENERGY = -66.0  # Ha/cell, runs/ckpt_diamond/train_stats_r5_latest.csv
-ENERGY_WINDOW = 1.5       # Ha/cell, a sanity bound; phase 5 is the exact check
+ENERGY_WINDOW = 1.5       # Ha/cell, a sanity bound; the reference phase is the exact check
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
@@ -223,13 +235,28 @@ def kernel_phase(dev, gen):
         mm += time_ms(lambda: torch.matmul(args[1], args[3]))
         b_, f_ = jet_bytes_flops(6, rows_b2, k, c)
         nbytes, flops = nbytes + b_, flops + f_
+    # the pair body at a ragged shape (rows no multiple of its 32-row tile)
+    # and a pair-like shape that falls to the general kernel (d_in 8)
+    def pair_extra(fn, plain, t):
+        out = {}
+        for label, r, k in (("ragged", 32 * 1000 + 13, 32), ("ragged_k4", 333, 4),
+                            ("fallthrough", 4099, 8)):
+            assert jk.pair_body(k, 32, False) == (label != "fallthrough")
+            args = (rnd(r, k), rnd(t, r, k), rnd(r, k), rnd(k, 32) / math.sqrt(k),
+                    rnd(32))
+            out[label + "_max_rel_err"] = max_errs(fn(*args), plain(*args))[1]
+        return out
+
+    b2_extra = pair_extra(jk.fused_dense_tanh_jet, jk.fused_dense_tanh_jet_plain, 6)
+    rel = max(rel, *b2_extra.values())
     bnd, by = bound_ms(nbytes, flops)
     rows.append({
         "name": "fused_dense_tanh_jet", "route": "cuda",
         "source": "deepsolid_tpu_torch/ops/cuda/csrc/dense_tanh_jet.cu",
         "replaces": "deepsolid_tpu/ops/pallas/jet_kernels.py:263",
         "per": "both two-electron layers of one 64-walker chunk (T=6, 589824 rows, 4->32 and 32->32)",
-        "max_abs_err": err, "max_rel_err": rel, "tolerance": 1e-5, "ok": rel <= 1e-5,
+        "max_abs_err": err, "max_rel_err": rel, **b2_extra,
+        "tolerance": 1e-5, "ok": rel <= 1e-5,
         "ms": sum(ms), "ms_per_shape": ms, "plain_ms": plain,
         "library_ms": None, "matmul_ms": mm, "bound_ms": bnd, "bound_by": by,
     })
@@ -296,13 +323,17 @@ def kernel_phase(dev, gen):
         b_, f_ = jet_bytes_flops(t, r, k, c)
         nbytes, flops = nbytes + b_ + open_extra_bytes(r, c), flops + f_
         del args
+    b4a_extra = pair_extra(jk.fused_dense_tanh_jet_partial,
+                           jk.fused_dense_tanh_jet_partial_plain, 3)
+    rel = max(rel, *b4a_extra.values())
     bnd, by = bound_ms(nbytes, flops)
     rows.append({
         "name": "fused_dense_tanh_jet_partial", "route": "cuda",
         "source": "deepsolid_tpu_torch/ops/cuda/csrc/dense_tanh_jet.cu",
         "replaces": "deepsolid_tpu/ops/pallas/jet_kernels.py:166",
         "per": "T_local=144, 6144 rows, 256->256, and both pair layers at T_local=3 (589824 rows, 4->32 and 32->32)",
-        "max_abs_err": err, "max_rel_err": rel, "tolerance": 1e-5, "ok": rel <= 1e-5,
+        "max_abs_err": err, "max_rel_err": rel, **b4a_extra,
+        "tolerance": 1e-5, "ok": rel <= 1e-5,
         "ms": total, "ms_per_shape": ms, "plain_ms": plain,
         "library_ms": None, "bound_ms": bnd, "bound_by": by,
     })
@@ -546,7 +577,7 @@ def sharded_phase(dev):
 
 
 def training_phase(dev):
-    """3 adam iterations at 1024 walkers from the checkpoint."""
+    """Adam iterations at 1024 walkers from the checkpoint."""
     import numpy as np
     import torch
     from deepsolid_tpu_torch.models.network import param_shapes, params_from_jax
@@ -634,15 +665,130 @@ def training_phase(dev):
     return result
 
 
+def production_kfac(cfg):
+    """The production run's optimizer settings (runs/diamond_run.py) on
+    `cfg`, adapting the damping every KFAC_ADAPT_EVERY optimizer steps."""
+    cfg.optim.optimizer = "kfac"
+    cfg.optim.kfac.adaptive_damping = True
+    cfg.optim.kfac.damping_adaptation_interval = KFAC_ADAPT_EVERY
+    return cfg
+
+
+def kfac_phase(dev):
+    """KFAC fisher_exact iterations at 1024 walkers, continuing the
+    checkpoint's KFAC state."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.optim import kfac as kfac_lib
+    from deepsolid_tpu_torch.optim.adam import tree_leaves
+    from deepsolid_tpu_torch.train.process import process
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    cfg = production_kfac(diamond_cfg("kfac", BATCH, "chip_smoke_kfac"))
+    cfg.optim.psi_chunk = EL_CHUNK
+    shutil.rmtree(cfg.log.save_path, ignore_errors=True)
+    t_start, _, _, start_state, _ = restore(find_last_checkpoint(cfg.log.restore_path))
+    start_step = int(start_state["step"])
+
+    iters = []
+
+    def on_iteration(t, row, seconds):
+        row.pop("local_energy")
+        rec = {"phase": "kfac_iteration", "step": t, **row, "seconds": seconds,
+               "adapted": "adapt" in seconds, "launches_so_far": read_launches()}
+        iters.append(rec)
+        emit(rec)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    start = time.perf_counter()
+    params, _, energy = process(cfg, t_start + KFAC_ITERATIONS, device="cuda",
+                                on_iteration=on_iteration)
+    wall = time.perf_counter() - start
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # the state was restored: the optimizer's own counter continues the
+    # checkpoint's, and the damping starts from the checkpoint's, not the
+    # configuration's
+    omega = cfg.optim.kfac.damping_adaptation_decay ** KFAC_ADAPT_EVERY
+    first_damping = float(start_state["damping"])
+    restored = (
+        [r["optimizer_step"] for r in iters]
+        == list(range(start_step, start_step + KFAC_ITERATIONS))
+        and first_damping != cfg.optim.kfac.damping
+        and any(abs(iters[0]["damping"] - d) <= 1e-6 * d for d in
+                (first_damping, min(first_damping / omega, cfg.optim.kfac.max_damping),
+                 first_damping * omega)))
+    params_finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+
+    ckpt = find_last_checkpoint(cfg.log.save_path)
+    ckpt_ok = factors_finite = False
+    if ckpt:
+        t_next, data, ck_params, raw, _ = restore(ckpt)
+        state = kfac_lib.state_from_numpy(raw, dev, torch.float32)
+        again = kfac_lib.state_to_numpy(state)
+        factors_finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(
+            [state["blocks"], state["diag"], state["velocities"]]))
+        ckpt_ok = (
+            t_next == t_start + KFAC_ITERATIONS and data.shape == (BATCH, 288)
+            and int(state["step"]) == start_step + KFAC_ITERATIONS
+            and float(state["damping"]) == np.float32(iters[-1]["damping"])
+            and float(state["rho"]) == np.float32(iters[-1]["rho"])
+            and all(np.array_equal(a, b) for a, b in
+                    zip(tree_leaves(again), tree_leaves(raw)))
+            and all(np.array_equal(a, b.cpu().numpy()) for a, b in
+                    zip(tree_leaves(ck_params), tree_leaves(params))))
+
+    keys = ("mcmc", "local_energy", "gradient", "curvature", "update", "step")
+    plain = [r for r in iters if not r["adapted"]] or iters
+
+    def med(key, recs):
+        return statistics.median(r["seconds"][key] for r in recs)
+
+    result = {
+        "phase": "kfac", "optimizer": "kfac fisher_exact", "batch": BATCH,
+        "el_chunk": EL_CHUNK, "psi_chunk": EL_CHUNK, "iterations": len(iters),
+        "damping_adaptation_interval": KFAC_ADAPT_EVERY,
+        "seconds": wall, "energy_per_cell": energy,
+        "loss_per_cell": [r["energy"] for r in iters],
+        "optimizer_steps": [r["optimizer_step"] for r in iters],
+        "damping": [r["damping"] for r in iters], "rho": [r["rho"] for r in iters],
+        "adapted": [r["adapted"] for r in iters],
+        "seconds_per_iteration": {k: med(k, iters) for k in keys},
+        "seconds_adapt": [r["seconds"].get("adapt") for r in iters],
+        "walkers_per_s_local_energy": BATCH / med("local_energy", iters),
+        "walkers_per_s_iteration_without_adaptation": BATCH / med("step", plain),
+        "walkers_per_s_iteration_all": BATCH / med("step", iters),
+        "peak_memory_bytes": peak, "launches": launches,
+        "state_restored": restored, "checkpoint": os.path.basename(ckpt or ""),
+        "checkpoint_restores": ckpt_ok, "parameters_finite": params_finite,
+        "factors_finite": factors_finite,
+    }
+    result["ok"] = (
+        len(iters) == KFAC_ITERATIONS and restored and ckpt_ok and params_finite
+        and factors_finite and any(r["adapted"] for r in iters)
+        and all(math.isfinite(r["energy"]) and math.isfinite(r["grad_norm"])
+                and math.isfinite(r["rho"]) and r["damping"] > 0 for r in iters)
+        and abs(energy - REFERENCE_ENERGY) <= ENERGY_WINDOW
+        and launches["gj_inverse_slogdet"] > 0
+        and launches["fused_dense_tanh_jet"] > 0
+        and launches["fused_dense_tanh_jet_mix"] > 0)
+    emit(result)
+    return result
+
+
 def reference_phase(dev):
-    """E_L and the energy gradient of 8 checkpoint walkers: the card's f32
-    kernel path against the port's plain path on the CPU in float64."""
+    """E_L, the energy gradient and the KFAC update of 8 checkpoint
+    walkers: the card's f32 kernel path against the port's plain path on
+    the CPU in float64."""
     import numpy as np
     import torch
     from deepsolid_tpu_torch.configs import diamond
     from deepsolid_tpu_torch.device import set_full_precision
     from deepsolid_tpu_torch.models.network import params_from_jax
-    from deepsolid_tpu_torch.optim.adam import tree_leaves
+    from deepsolid_tpu_torch.optim import kfac as kfac_lib
+    from deepsolid_tpu_torch.optim.adam import learning_rate_schedule, tree_leaves
     from deepsolid_tpu_torch.train.loss import make_loss
     from deepsolid_tpu_torch.train.process import build_network
     from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
@@ -650,7 +796,7 @@ def reference_phase(dev):
     cfg = diamond.get_config(CONFIG)
     sc = cfg.system.cell
     net = build_network(cfg, sc)
-    _, data, params, _, _ = restore(
+    _, data, params, opt_state, _ = restore(
         find_last_checkpoint(os.path.join(REPO, "runs", "ckpt_diamond")))
     x = np.asarray(data[:8], np.float64)
     total_energy = make_loss(net, sc, clip_local_energy=cfg.optim.clip_el,
@@ -673,6 +819,25 @@ def reference_phase(dev):
                 for g, c in zip(tree_leaves(gpu_grad), tree_leaves(cpu_grad)))
     norm2 = sum(float((c ** 2).sum()) for c in tree_leaves(cpu_grad))
     grad_rel = math.sqrt(diff2 / norm2)
+
+    # the KFAC update of the same walkers and gradients: the checkpoint's
+    # state takes one curvature update, then the preconditioned step; the
+    # update is the step's velocities
+    def kfac_update(p, walkers, grads, device, dtype):
+        opt = kfac_lib.KfacOptimizer.from_config(
+            production_kfac(cfg), net, learning_rate_schedule(cfg))
+        state = kfac_lib.state_from_numpy(opt_state, device, dtype)
+        state = opt.update_curvature(state, p, walkers)
+        return opt.step_fn(p, state, grads, state["damping"])[1]["velocities"]
+
+    gpu_upd = kfac_update(gpu_params, gpu_x, gpu_grad, dev, torch.float32)
+    cpu_upd = kfac_update(params_from_jax(params, "cpu", torch.float64),
+                          torch.as_tensor(x, dtype=torch.float64), cpu_grad,
+                          "cpu", torch.float64)
+    upd_diff2 = sum(float(((g.cpu().double() - c) ** 2).sum())
+                    for g, c in zip(tree_leaves(gpu_upd), tree_leaves(cpu_upd)))
+    upd_norm2 = sum(float((c ** 2).sum()) for c in tree_leaves(cpu_upd))
+    upd_rel = math.sqrt(upd_diff2 / upd_norm2)
 
     def diffs(el):
         d = ((el - cpu).abs() / sc.scale).numpy()
@@ -703,11 +868,15 @@ def reference_phase(dev):
         "gradient_rel_err_global_norm": grad_rel,
         "gradient_global_norm_cpu_f64": math.sqrt(norm2),
         "gradient_tolerance": GRADIENT_TOLERANCE,
+        "kfac_update_rel_err_global_norm": upd_rel,
+        "kfac_update_global_norm_cpu_f64": math.sqrt(upd_norm2),
+        "kfac_update_tolerance": KFAC_UPDATE_TOLERANCE,
     }
     # a check the TF32 control passes could not guard the precision flags
     result["ok"] = (median <= tol_median and worst <= tol_max
                     and result["tf32_control_fails_check"]
-                    and grad_rel <= GRADIENT_TOLERANCE)
+                    and grad_rel <= GRADIENT_TOLERANCE
+                    and math.isfinite(upd_rel) and upd_rel <= KFAC_UPDATE_TOLERANCE)
     emit(result)
     return result
 
@@ -823,9 +992,15 @@ def main() -> int:
     if not training_phase(dev)["ok"]:
         return fail("the training phase failed its checks")
 
+    if not kfac_phase(dev)["ok"]:
+        return fail("the KFAC phase failed its checks (state not restored, a "
+                    "non-finite parameter or factor, no damping adaptation, "
+                    "the checkpoint, or the energy window)")
+
     if not reference_phase(dev)["ok"]:
-        return fail("card E_L or its gradient disagrees with the CPU float64 "
-                    "reference, or the TF32 control passed the check")
+        return fail("card E_L, its gradient or the KFAC update disagrees with "
+                    "the CPU float64 reference, or the TF32 control passed the "
+                    "check")
     profile_phase(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -40,8 +40,8 @@ def default() -> ConfigDict:
             "precision": "float32",  # 'float32' | 'float64'
             "optim": {
                 "iterations": 1000000,
-                # 'adam' and 'none' (inference: MCMC + local energy, no
-                # update) are ported; 'kfac' is the next slice
+                # 'kfac' (production), 'adam', or 'none' (inference: MCMC +
+                # local energy, no update)
                 "optimizer": "kfac",
                 "lr": {
                     "rate": 5.0e-2,
@@ -57,12 +57,37 @@ def default() -> ConfigDict:
                     "eps": 1.0e-8,
                     "eps_root": 0.0,
                 },
+                "kfac": {
+                    "invert_every": 1,
+                    "cov_update_every": 1,
+                    "damping": 0.001,
+                    "cov_ema_decay": 0.95,
+                    "momentum": 0.0,
+                    "min_damping": 1.0e-4,
+                    "norm_constraint": 0.001,
+                    "l2_reg": 0.0,
+                    # Levenberg-Marquardt adaptive damping: every
+                    # `damping_adaptation_interval` steps the loss is
+                    # evaluated again on the same walkers after the update
+                    # and compared with the quadratic model's prediction,
+                    # rho = dl / (g.d + d.F.d/2 + damping |d|^2/2); damping
+                    # shrinks by decay^interval when rho > 3/4 and grows
+                    # when rho < 1/4
+                    "adaptive_damping": False,
+                    "damping_adaptation_interval": 5,
+                    "damping_adaptation_decay": 0.9,
+                    "max_damping": 1.0,
+                    # 'fisher_exact' (two backward passes, on Re and Im of
+                    # log psi) is the only estimation mode ported
+                    "estimation_mode": "fisher_exact",
+                },
                 "ministeps": 1,
                 "laplacian_mode": "forward",  # the port's only engine
                 # walkers per local-energy sweep (0 = whole batch at once)
                 "el_chunk": 0,
-                # walkers per sweep of the log psi gradient and of the
-                # sampler's log|psi| evaluations (0 = whole batch)
+                # walkers per sweep of the log psi gradient, of KFAC's
+                # curvature capture and of the sampler's log|psi|
+                # evaluations (0 = whole batch)
                 "psi_chunk": 0,
             },
             "log": {

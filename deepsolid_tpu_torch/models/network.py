@@ -1,7 +1,8 @@
 """Periodic complex FermiNet-style wavefunction for solids.
 
-Mirrors deepsolid_tpu/models/network.py (value path and its first-order
-gradient with respect to the parameters):
+Mirrors deepsolid_tpu/models/network.py (value path, its first-order
+gradient with respect to the parameters, and the KFAC tap hooks of the
+dense layers):
   periodic nu/tri input features -> two-stream permutation-equivariant MLP
   -> per-spin complex orbital heads -> multiplicative envelopes -> Bloch
   phase factors e^{i k.r} from the occupied k-list -> log-sum-exp over
@@ -15,7 +16,7 @@ the JAX package's tree (dicts and lists) with torch tensors as leaves;
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -166,10 +167,22 @@ def param_shapes(tree) -> ParamTree:
 # ---------------------------------------------------------------------------
 
 
-def dense(x: torch.Tensor, layer_params: Dict[str, torch.Tensor]) -> torch.Tensor:
+def dense(x: torch.Tensor, layer_params: Dict[str, torch.Tensor],
+          name: Optional[str] = None,
+          eps: Optional[Dict[str, torch.Tensor]] = None,
+          taps: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """A named dense layer with KFAC tap and perturbation hooks.
+
+    y = x @ w (+ b) (+ eps[name]); records taps[name] = x when capturing.
+    x, eps[name] and the tap carry the walker axis in front.
+    """
     y = x @ layer_params["w"]
     if "b" in layer_params:
         y = y + layer_params["b"]
+    if eps is not None and name in eps:
+        y = y + eps[name]
+    if taps is not None:
+        taps[name] = x
     return y
 
 
@@ -214,7 +227,10 @@ def eval_phases(x: torch.Tensor, klist, spins: Tuple[int, int],
 
 
 def orbital_matrices(params: ParamTree, x: torch.Tensor, spec: SystemSpec,
-                     cfg: NetworkConfig) -> List[torch.Tensor]:
+                     cfg: NetworkConfig,
+                     eps: Optional[Dict[str, torch.Tensor]] = None,
+                     taps: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> List[torch.Tensor]:
     """Orbital matrices with envelopes and Bloch phases applied.
 
     One (B, ndet, n, n) matrix when full_det, else one (B, ndet, n_s,
@@ -244,14 +260,18 @@ def orbital_matrices(params: ParamTree, x: torch.Tensor, spec: SystemSpec,
     n_double = len(params["double"])
     for i in range(n_double):
         h_one_in = construct_symmetric_features(h_one, h_two, spins)
-        h_one_next = torch.tanh(dense(h_one_in, params["single"][i]))
-        h_two_next = torch.tanh(dense(h_two, params["double"][i]))
+        h_one_next = torch.tanh(
+            dense(h_one_in, params["single"][i], f"single_{i}", eps, taps))
+        h_two_next = torch.tanh(
+            dense(h_two, params["double"][i], f"double_{i}", eps, taps))
         h_one = residual(h_one, h_one_next)
         h_two = residual(h_two, h_two_next)
 
     if n_double != len(params["single"]):
         h_one_in = construct_symmetric_features(h_one, h_two, spins)
-        h_one_next = torch.tanh(dense(h_one_in, params["single"][-1]))
+        i = len(params["single"]) - 1
+        h_one_next = torch.tanh(
+            dense(h_one_in, params["single"][i], f"single_{i}", eps, taps))
         h_to_orbitals = residual(h_one, h_one_next)
     else:
         h_to_orbitals = construct_symmetric_features(h_one, h_two, spins)
@@ -259,7 +279,8 @@ def orbital_matrices(params: ParamTree, x: torch.Tensor, spec: SystemSpec,
     orbitals = []
     for i, (lo, hi) in enumerate(_channels(spins)):
         spin = hi - lo
-        raw = dense(h_to_orbitals[:, lo:hi], params["orbital"][i])
+        raw = dense(h_to_orbitals[:, lo:hi], params["orbital"][i],
+                    f"orbital_{i}", eps, taps)
         nparam = raw.shape[-1] // 2
         orb = torch.complex(raw[..., :nparam], raw[..., nparam:])
         orb = envelope_fn(to_env[:, lo:hi], params["envelope"][i]) * orb
@@ -275,7 +296,9 @@ def orbital_matrices(params: ParamTree, x: torch.Tensor, spec: SystemSpec,
 
 
 def apply_network(params: ParamTree, x: torch.Tensor, spec: SystemSpec,
-                  cfg: NetworkConfig, method: str = "slogdet"):
+                  cfg: NetworkConfig, method: str = "slogdet",
+                  eps: Optional[Dict[str, torch.Tensor]] = None,
+                  taps: Optional[Dict[str, torch.Tensor]] = None):
     """Evaluate the wavefunction head `method` on a walker batch.
 
       'slogdet'           -> log|psi| (B,)
@@ -283,7 +306,7 @@ def apply_network(params: ParamTree, x: torch.Tensor, spec: SystemSpec,
       'phase_and_slogdet' -> (psi/|psi|, log|psi|)
       'mats'              -> orbital matrices
     """
-    orbitals = orbital_matrices(params, x, spec, cfg)
+    orbitals = orbital_matrices(params, x, spec, cfg, eps=eps, taps=taps)
     if method == "mats":
         return orbitals
     phase, slog = logdet_matmul(orbitals)
@@ -319,6 +342,31 @@ class Network:
 
     def orbitals(self, params, x):
         return apply_network(params, x, self.spec, self.cfg, "mats")
+
+    # KFAC hooks ---------------------------------------------------------------
+    def logdet_with_taps(self, params, x, eps=None):
+        """(log psi (B,), taps) for a walker batch, with the output
+        perturbations eps[name] (walker axis in front) added to the named
+        dense layers; taps[name] is that layer's input."""
+        taps: Dict[str, torch.Tensor] = {}
+        out = apply_network(params, x, self.spec, self.cfg, "logdet",
+                            eps=eps, taps=taps)
+        return out, taps
+
+    def layer_registry(self, params) -> Dict[str, Dict[str, Any]]:
+        """name -> {'path': tree path, 'has_bias': bool} of every dense
+        layer, for KFAC's Kronecker blocks."""
+        reg = {}
+        for group in ("single", "double", "orbital"):
+            for i, layer in enumerate(params[group]):
+                reg[f"{group}_{i}"] = {"path": (group, i), "has_bias": "b" in layer}
+        return reg
+
+    def envelope_registry(self, params) -> Dict[str, Dict[str, Any]]:
+        """Per-atom Kronecker blocks of the full envelope's sigma: not
+        ported, so no envelope has one (its parameters take diagonal
+        blocks) and KFAC refuses envelope_type='full'."""
+        return {}
 
 
 def make_network(supercell: Supercell, klist, cfg: NetworkConfig = None,

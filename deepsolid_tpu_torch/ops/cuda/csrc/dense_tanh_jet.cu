@@ -37,12 +37,22 @@
 // tangent square sum across a sequential grid axis in scratch memory;
 // blocks on Hopper run in no order, so the sum is carried in registers by
 // a loop over tangents inside the block, and jac @ w is written once,
-// scaled by d, and never read back. Two variants, chosen by shape alone
-// (jet_kernels.wide_slices):
-//   * narrow (any other shape, such as the 32-wide two-electron layers):
-//     a block owns 64 rows x 32 columns, each thread a 4 x 2 sub-tile, and
-//     loops over all tangents; k-slices of the rows and of w are staged
-//     in shared memory.
+// scaled by d, and never read back. Three variants, chosen by shape alone
+// (jet_kernels.kernel_variant):
+//   * pair (the two-electron layers: d_out = 32, d_in = 4 or 32, plain
+//     rule): a streaming pass, not a matrix product. With d_out = 32 a
+//     tile of rows is one contiguous run of every plane (val, each
+//     jac[t], lap) on the way in and on the way out, w is 4 KB, and the
+//     bytes bound the work. w and b stay in shared memory for the block's
+//     life; each warp is a pipeline of its own that copies its 32-row
+//     tiles of all T + 2 planes into a ring of shared-memory stages with
+//     16-byte cp.async copies running ahead across planes and across row
+//     tiles, and every output plane leaves through a staging tile as full
+//     128-byte lines. One block barrier in all; see the note above
+//     dense_tanh_jet_pair_kernel.
+//   * general (any other shape that is not wide): a block owns 64 rows x
+//     32 columns, each thread a 4 x 2 sub-tile, and loops over all
+//     tangents; k-slices of the rows and of w are staged in shared memory.
 //   * wide (the 256-wide one-electron layers, d_in up to 384): w is the
 //     same for all T + 2 products of a block, so its column slice stays
 //     in shared memory for the block's life and only the row tiles stream,
@@ -52,16 +62,18 @@
 //     each slice writes its partial square sums to scratch the wrapper
 //     allocates, and a small second kernel closes the Laplacian in a fixed
 //     order (no atomics: two launches on the same inputs agree bit for bit).
-// The open form changes no product: the narrow variant stores the square
-// sum it holds in registers instead of folding it into lap_o (a
-// compile-time flag), and the wide variant runs a second finishing kernel
-// that sums the slices into sq_o and scales lap_o's linear part by d.
+// The open form changes no product: the pair and general variants store
+// the square sum they hold in registers instead of folding it into lap_o
+// (a compile-time flag), and the wide variant runs a second finishing
+// kernel that sums the slices into sq_o and scales lap_o's linear part by d.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
 
 namespace {
+
+// ---- the general variant --------------------------------------------------
 
 constexpr int kBM = 64;        // rows per block
 constexpr int kBK = 16;        // k-slice staged in shared memory
@@ -538,6 +550,260 @@ __global__ void finish_open_kernel(const float* __restrict__ val_o,
   }
 }
 
+// ---- the pair variant: d_out = 32, d_in = 4 or 32, plain rule -------------
+//
+// The two-electron layers move 1.9 GB per 64-walker chunk for 20 GFLOP:
+// the bytes bound them, and what a block has to do is keep loads in
+// flight and write full lines. w (4 KB at most) and b are copied to shared
+// memory once and stay for the block's life. Every warp is then a pipeline
+// of its own over tiles of 32 rows, tile after tile (a persistent grid,
+// tiles dealt out warp by warp): the tile's T + 2 input planes (val,
+// jac[0..T), lap) are each one contiguous run of 32 * d_in floats, copied
+// with 16-byte cp.async into a three-stage ring that belongs to the warp
+// and runs ahead across planes and across tiles, so a plane's arithmetic
+// and stores overlap the next planes' loads and only __syncwarp() orders
+// anything after the one barrier behind the copy of w. A lane owns 4 rows
+// x 8 columns of the tile (rows 4 rg + i, columns 4 cg .. + 3 and 16 + 4 cg
+// ..): 12 shared-memory values feed 32 FMAs, where a lane per row would
+// draw a value per FMA and wait on the load path; the ring's row stride of
+// d_in + 4 floats (d_in = 4: no padding, one 16-byte load is a row) keeps
+// the 128-bit loads conflict-free. tanh z and the tangent square sum stay
+// in registers across the tangent loop, and each output plane goes through
+// a staging tile from which the warp writes 512 contiguous bytes per store
+// instruction.
+
+constexpr int kPC = 32;                // d_out
+constexpr int kPRows = 32;             // rows of a warp's tile
+constexpr int kPWarps = 6;             // independent pipelines of a block:
+                                       // two blocks (12 warps) fill an SM's
+                                       // shared memory at d_in = 32
+constexpr int kPThreads = 32 * kPWarps;
+constexpr int kPStages = 3;            // ring stages of one input plane tile
+constexpr int kPOutStride = kPC + 4;   // staging rows, 16-byte aligned
+
+template <int K>
+struct PairTile {
+  static constexpr int kStride = K == 4 ? 4 : K + 4;  // floats of a ring row
+  static constexpr int kStage = kPRows * kStride;
+  static constexpr int kWarpFloats = kPStages * kStage + kPRows * kPOutStride;
+  static constexpr int kWFloats = (K + 1) * kPC;  // w, then b
+  static constexpr size_t kSmem =
+      sizeof(float) * (kWFloats + kPWarps * kWarpFloats);
+};
+
+template <int K, bool OPEN>
+__global__ void __launch_bounds__(kPThreads, 2) dense_tanh_jet_pair_kernel(
+    const float* __restrict__ val, const float* __restrict__ lap,
+    const float* __restrict__ jac, const float* __restrict__ w,
+    const float* __restrict__ b, float* __restrict__ val_o,
+    float* __restrict__ lap_o, float* __restrict__ jac_o,
+    float* __restrict__ sq_o, int T, int R) {
+  using Tile = PairTile<K>;
+  extern __shared__ __align__(16) float pair_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rg = lane >> 2;  // rows 4 rg + i of the tile
+  const int cg = lane & 3;   // columns 4 cg .. + 3 and 16 + 4 cg .. + 3
+  float* w_s = pair_smem;                  // [K][32]
+  const float* b_s = w_s + K * kPC;        // [32]
+  float* ring = pair_smem + Tile::kWFloats + warp * Tile::kWarpFloats;
+  float* out_s = ring + kPStages * Tile::kStage;
+
+  const int n_tiles = (R + kPRows - 1) / kPRows;
+  const int n_warps = gridDim.x * kPWarps;
+  const int first = blockIdx.x * kPWarps + warp;  // tiles first + i * n_warps
+  const int my_tiles =
+      first < n_tiles ? (n_tiles - first + n_warps - 1) / n_warps : 0;
+  const int n_planes = T + 2;
+  const int total = my_tiles * n_planes;
+  const size_t plane_in = static_cast<size_t>(R) * K;
+  const size_t plane_out = static_cast<size_t>(R) * kPC;
+
+  // ---- the producer side: the warp copies one plane tile per call ----
+  constexpr int kChunks = K / 4;  // 16-byte chunks of a row
+  int fetched = 0, f_stage = 0, f_plane = 0, f_tile = first;
+  auto fetch = [&]() {
+    if (fetched < total) {
+      const float* base =
+          f_plane == 0 ? val
+          : f_plane <= T ? jac + static_cast<size_t>(f_plane - 1) * plane_in
+                         : lap;
+      const int row0 = f_tile * kPRows;
+      float* dst = ring + f_stage * Tile::kStage;
+#pragma unroll
+      for (int q = 0; q < kChunks; ++q) {
+        const int e = lane + 32 * q;  // consecutive lanes, consecutive chunks
+        const int r = e / kChunks;
+        const int kc = (e % kChunks) * 4;
+        const bool ok = row0 + r < R;
+        cp_async16(dst + r * Tile::kStride + kc,
+                   ok ? base + static_cast<size_t>(row0 + r) * K + kc : base,
+                   ok);
+      }
+      if (++f_plane == n_planes) {
+        f_plane = 0;
+        f_tile += n_warps;
+      }
+    }
+    ++fetched;
+    if (++f_stage == kPStages) f_stage = 0;
+    cp_async_commit();  // one group per call, empty past the last tile
+  };
+
+  // one output plane of the tile: the lane's 4 x 8 values into the staging
+  // tile, then the warp writes four whole rows (512 contiguous bytes) per
+  // instruction
+  auto store_plane = [&](float* __restrict__ dst, const float (&v)[4][8],
+                         int row0) {
+    __syncwarp();  // the last plane's read-back is done
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* mine = out_s + (4 * rg + i) * kPOutStride + 4 * cg;
+      *reinterpret_cast<float4*>(mine) =
+          make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+      *reinterpret_cast<float4*>(mine + 16) =
+          make_float4(v[i][4], v[i][5], v[i][6], v[i][7]);
+    }
+    __syncwarp();
+    const int r = lane >> 3;
+    const int c = (lane & 7) * 4;
+#pragma unroll
+    for (int m = 0; m < kPRows / 4; ++m) {
+      const int rr = 4 * m + r;
+      const float4 x =
+          *reinterpret_cast<const float4*>(out_s + rr * kPOutStride + c);
+      if (row0 + rr < R) {
+        *reinterpret_cast<float4*>(
+            dst + static_cast<size_t>(row0 + rr) * kPC + c) = x;
+      }
+    }
+  };
+
+  // the ring starts filling while w and b are copied
+#pragma unroll
+  for (int s = 0; s < kPStages - 1; ++s) fetch();
+  for (int e = threadIdx.x; e < K * kPC; e += kPThreads) w_s[e] = w[e];
+  if (threadIdx.x < kPC) w_s[K * kPC + threadIdx.x] = b[threadIdx.x];
+  __syncthreads();  // the block's only barrier
+
+  float tv[4][8];  // tanh z of the lane's sub-tile; d = 1 - t^2 is recomputed
+  float sq[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) tv[i][j] = sq[i][j] = 0.f;
+
+  int stage = 0;
+  for (int it = 0; it < my_tiles; ++it) {
+    const int row0 = (first + it * n_warps) * kPRows;
+    for (int p = 0; p < n_planes; ++p) {
+      cp_async_wait<kPStages - 2>();  // this lane's share of the plane landed
+      __syncwarp();                   // every lane's did; the last is consumed
+      fetch();                        // refills the last plane's stage
+      const float* as =
+          ring + stage * Tile::kStage + 4 * rg * Tile::kStride;
+      if (++stage == kPStages) stage = 0;
+
+      float acc[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+      for (int k4 = 0; k4 < K; k4 += 4) {
+        float4 a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[i] = *reinterpret_cast<const float4*>(as + i * Tile::kStride + k4);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* wr = w_s + (k4 + kk) * kPC + 4 * cg;
+          const float4 w0 = *reinterpret_cast<const float4*>(wr);
+          const float4 w1 = *reinterpret_cast<const float4*>(wr + 16);
+          const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float av = kk == 0   ? a[i].x
+                             : kk == 1 ? a[i].y
+                             : kk == 2 ? a[i].z
+                                       : a[i].w;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, wv[j], acc[i][j]);
+          }
+        }
+      }
+
+      if (p == 0) {  // the value
+        const float4 b0 = *reinterpret_cast<const float4*>(b_s + 4 * cg);
+        const float4 b1 = *reinterpret_cast<const float4*>(b_s + 16 + 4 * cg);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float t = tanhf(acc[i][j] + bv[j]);
+            tv[i][j] = t;
+            sq[i][j] = 0.f;
+            acc[i][j] = t;
+          }
+        store_plane(val_o, acc, row0);
+      } else if (p <= T) {  // a tangent
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float y = acc[i][j];
+            sq[i][j] = fmaf(y, y, sq[i][j]);
+            acc[i][j] = (1.f - tv[i][j] * tv[i][j]) * y;
+          }
+        store_plane(jac_o + static_cast<size_t>(p - 1) * plane_out, acc, row0);
+      } else {  // the Laplacian, closed here or left open with sq_o
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float t = tv[i][j];
+            const float d = 1.f - t * t;
+            acc[i][j] = OPEN ? d * acc[i][j]
+                             : d * acc[i][j] + (-2.f * t * d) * sq[i][j];
+          }
+        store_plane(lap_o, acc, row0);
+        if (OPEN) store_plane(sq_o, sq, row0);
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups are left
+}
+
+template <int K>
+int launch_pair(const float* val, const float* lap, const float* jac,
+                const float* w, const float* b, float* val_o, float* lap_o,
+                float* jac_o, float* sq_o, int T, int R, cudaStream_t stream) {
+  auto kernel = sq_o != nullptr ? dense_tanh_jet_pair_kernel<K, true>
+                                : dense_tanh_jet_pair_kernel<K, false>;
+  const size_t smem = PairTile<K>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a persistent grid: as many blocks as the card holds at once
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kPThreads,
+                                                      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_tiles = (R + kPRows - 1) / kPRows;
+  const int blocks = std::max(
+      1, std::min((n_tiles + kPWarps - 1) / kPWarps, sms * std::max(per_sm, 1)));
+  kernel<<<blocks, kPThreads, smem, stream>>>(val, lap, jac, w, b, val_o, lap_o,
+                                              jac_o, sq_o, T, R);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool MIX, int BK>
 cudaError_t launch_wide_main(const float* val, const float* lap,
                              const float* jac, const float* w, const float* b,
@@ -623,11 +889,13 @@ extern "C" {
 // A non-null sq_out (R, C) selects the open form: it receives the tangent
 // square sum and lap_o keeps d * (lap @ w (+ lbc)) only; null closes the
 // Laplacian in the kernel.
-// The caller chooses the variant (jet_kernels.wide_slices): slices > 0
+// The caller chooses the variant (jet_kernels.kernel_variant): slices > 0
 // runs the wide one, which needs C % 64 == 0, K % 4 == 0, K <= 384, every
-// pointer 16-byte aligned and `slices` * R * C floats of scratch (it
-// returns cudaErrorInvalidValue for another shape); slices = 0 runs the
-// narrow one (scratch unused). Returns the cudaError_t of the launches.
+// pointer 16-byte aligned and `slices` * R * C floats of scratch;
+// slices < 0 runs the pair one, which needs the plain rule, C == 32, K ==
+// 4 or 32 and every pointer 16-byte aligned (either returns
+// cudaErrorInvalidValue for another shape); slices = 0 runs the general
+// one (scratch unused). Returns the cudaError_t of the launches.
 int dense_tanh_jet_launch(const void* val, const void* lap, const void* jac,
                           const void* w, const void* b, const void* zbc,
                           const void* lbc, const void* jbc, void* val_o,
@@ -648,6 +916,13 @@ int dense_tanh_jet_launch(const void* val, const void* lap, const void* jac,
   auto* so = static_cast<float*>(sq_out);
   auto st = static_cast<cudaStream_t>(stream);
   const bool mix = zbc != nullptr;
+  if (slices < 0) {
+    if (mix || C != kPC || (K != 4 && K != 32)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return K == 4 ? launch_pair<4>(v, l, jc, wp, bp, vo, lo, jo, so, T, R, st)
+                  : launch_pair<32>(v, l, jc, wp, bp, vo, lo, jo, so, T, R, st);
+  }
   if (slices > 0) {
     auto* sp = static_cast<float*>(scratch);
     return mix ? launch_wide<true>(v, l, jc, wp, bp, zp, lp, jp, vo, lo, jo,

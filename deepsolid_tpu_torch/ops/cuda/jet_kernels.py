@@ -71,6 +71,28 @@ def wide_slices(t_dim, rows, d_in, d_out, sms):
     return best
 
 
+# the pair variant's shapes: the two-electron layers (d_out, d_in choices
+# kPC and the launch_pair instantiations in csrc/dense_tanh_jet.cu)
+PAIR_D_OUT, PAIR_D_IN = 32, (4, 32)
+PAIR = -1  # what `kernel_variant` returns for the pair variant
+
+
+def pair_body(d_in, d_out, mixed):
+    """Whether the pair variant takes this layer: the plain rule at the
+    two-electron layers' widths, where a row of the output is one 128-byte
+    line and the work is a streaming pass."""
+    return not mixed and d_out == PAIR_D_OUT and d_in in PAIR_D_IN
+
+
+def kernel_variant(t_dim, rows, d_in, d_out, mixed, sms):
+    """Which kernel body a launch runs, by shape alone: PAIR for the pair
+    variant, a positive count of tangent slices for the wide variant, 0
+    for the general one."""
+    if pair_body(d_in, d_out, mixed):
+        return PAIR
+    return wide_slices(t_dim, rows, d_in, d_out, sms)
+
+
 def _dense(x):
     """x as a contiguous tensor whose data starts on a 16-byte boundary
     (the kernels read rows as 128-bit vectors): a strided input or a view
@@ -152,16 +174,17 @@ def _launch(name, val, jac, lap, w, b, mix, rows_per_group, groups,
     sq_o = torch.empty_like(val_o) if open_sum else None
     if rows and d_out:
         lib = _lib()
-        # the one place the variant is chosen, by shape alone: the wide
+        # the one place the variant is chosen, by shape alone. The wide
         # variant splits the tangents across blocks, whose partial square
-        # sums need slices * rows * d_out floats of scratch; 0 slices is
-        # the narrow one (also for a d_in whose slice of w does not fit in
+        # sums need slices * rows * d_out floats of scratch; PAIR is the
+        # streaming body of the two-electron layers; 0 slices is the
+        # general one (also for a d_in whose slice of w does not fit in
         # shared memory). t_dim is this call's own (a rank's T_local in the
         # open form), so scratch and the finishing grid follow `slices`
         sms = torch.cuda.get_device_properties(val.device).multi_processor_count
-        slices = wide_slices(t_dim, rows, d_in, d_out, sms)
+        slices = kernel_variant(t_dim, rows, d_in, d_out, mix is not None, sms)
         scratch = (torch.empty((slices, rows, d_out), dtype=val.dtype,
-                               device=val.device) if slices else None)
+                               device=val.device) if slices > 0 else None)
         ptr = (lambda x: None if x is None else x.data_ptr())
         with torch.cuda.device(val.device):
             stream = torch.cuda.current_stream(val.device).cuda_stream

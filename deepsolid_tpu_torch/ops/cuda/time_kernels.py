@@ -2,7 +2,7 @@
 
     python -m deepsolid_tpu_torch.ops.cuda.time_kernels
     python -m deepsolid_tpu_torch.ops.cuda.time_kernels \\
-        --baseline DIR [--baseline-slices N] [--slices 2,4,8]
+        --baseline DIR [--baseline-slices N] [--baseline-pair] [--slices 2,4,8]
 
 A kernel's time moves by up to ~30% between machines and runs, so two
 designs are compared inside one process, in turns (baseline, current,
@@ -13,12 +13,16 @@ with build.py's flags. The launchers are called directly, on buffers
 allocated once: no wrapper, no allocation in the timed region.
 
 Shapes are those of the C-diamond 2x2x2 main path: the Gauss-Jordan
-kernel on (8192, 48, 48) and (512, 48, 48) complex64; the jet kernels on
-6144 rows, d_out 256, T = 288 (closed) or 144 (open), d_in 16, 320 or
-256. For the wide jet variant the current design is timed at each slice
-count of --slices beside the one jet_kernels.wide_slices chooses;
---baseline-slices is the slice count the other design is handed (6 for
-the 128 x 64-tile design). One JSON line per shape.
+kernel on (8192, 48, 48) and (512, 48, 48) complex64; the one-electron jet
+kernels on 6144 rows, d_out 256, T = 288 (closed) or 144 (open), d_in 16,
+320 or 256; the two-electron (pair) jet kernels on 589,824 rows, d_out 32,
+d_in 4 and 32, T = 6 (closed) and 3 (open). For the wide jet variant the
+current design is timed at each slice count of --slices beside the one
+jet_kernels.kernel_variant chooses; --baseline-slices is the slice count
+the other design is handed at the wide shapes (6 for the 128 x 64-tile
+design); at the pair shapes the other design runs its general kernel
+(slices 0) unless --baseline-pair says it has a pair body of its own. One
+JSON line per shape, with the bytes bound beside the times.
 """
 
 from __future__ import annotations
@@ -35,11 +39,21 @@ from deepsolid_tpu_torch.ops.cuda import build
 from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
 from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
 
-ROWS, D_OUT, WALKERS = 64 * 96, 256, 64
-# (T, d_in, mix rule, open form)
-JET_SHAPES = ((288, 16, True, False), (288, 320, True, False),
-              (144, 16, True, True), (144, 320, True, True),
-              (144, 256, False, True))
+WALKERS = 64
+ROWS, D_OUT = WALKERS * 96, 256          # one-electron stream
+PAIR_ROWS, PAIR_D_OUT = WALKERS * 96 * 96, 32  # two-electron stream
+PEAK_BYTES = 3.35e12  # H100 SXM HBM bytes/s (NVIDIA data sheet, 700 W)
+# (T, rows, d_in, d_out, mix rule, open form)
+JET_SHAPES = ((288, ROWS, 16, D_OUT, True, False),
+              (288, ROWS, 320, D_OUT, True, False),
+              (144, ROWS, 16, D_OUT, True, True),
+              (144, ROWS, 320, D_OUT, True, True),
+              (144, ROWS, 256, D_OUT, False, True),
+              (6, PAIR_ROWS, 4, PAIR_D_OUT, False, False),
+              (6, PAIR_ROWS, 32, PAIR_D_OUT, False, False),
+              (3, PAIR_ROWS, 4, PAIR_D_OUT, False, True),
+              (3, PAIR_ROWS, 32, PAIR_D_OUT, False, True),
+              (6, PAIR_ROWS - 13, 32, PAIR_D_OUT, False, False))
 
 
 def baseline_library(directory: Path, name: str, signatures) -> ctypes.CDLL:
@@ -119,6 +133,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", type=Path, default=None)
     parser.add_argument("--baseline-slices", type=int, default=None)
+    parser.add_argument("--baseline-pair", action="store_true")
     parser.add_argument("--slices", default="2,4,8")
     args = parser.parse_args()
     sweep = [int(s) for s in args.slices.split(",") if s]
@@ -156,28 +171,32 @@ def main() -> None:
                           "wrapper_ms": time_ms(lambda: dk.gj_inverse_slogdet(a))}),
               flush=True)
 
-    for t_dim, d_in, mixed, open_sum in JET_SHAPES:
-        val, jac, lap = rnd(ROWS, d_in), rnd(t_dim, ROWS, d_in), rnd(ROWS, d_in)
-        w, b = rnd(d_in, D_OUT) / math.sqrt(d_in), rnd(D_OUT)
-        mix = ((rnd(WALKERS, D_OUT), rnd(WALKERS, D_OUT), rnd(t_dim, WALKERS, D_OUT))
+    for t_dim, rows, d_in, d_out, mixed, open_sum in JET_SHAPES:
+        val, jac, lap = rnd(rows, d_in), rnd(t_dim, rows, d_in), rnd(rows, d_in)
+        w, b = rnd(d_in, d_out) / math.sqrt(d_in), rnd(d_out)
+        mix = ((rnd(WALKERS, d_out), rnd(WALKERS, d_out), rnd(t_dim, WALKERS, d_out))
                if mixed else None)
-        chosen = jk.wide_slices(t_dim, ROWS, d_in, D_OUT, sms)
+        chosen = jk.kernel_variant(t_dim, rows, d_in, d_out, mixed, sms)
+        wide = chosen > 0
 
         def launcher(lib, slices):
             return jet_launcher(lib, slices, val, jac, lap, w, b, mix, open_sum)
 
-        base_slices = args.baseline_slices or chosen
+        base_slices = ((args.baseline_slices or chosen) if wide
+                       else chosen if args.baseline_pair else 0)
         ms, base = in_turns(launcher(jet, chosen),
                             launcher(jet_base, base_slices) if jet_base else None)
+        nbytes = 4 * ((t_dim + 2) * rows * (d_in + d_out) + d_in * d_out + d_out
+                      + (rows * d_out if open_sum else 0))
         print(json.dumps({
-            "kernel": "dense_tanh_jet", "T": t_dim, "rows": ROWS, "d_in": d_in,
-            "d_out": D_OUT, "mix": mixed, "open": open_sum, "slices": chosen,
+            "kernel": "dense_tanh_jet", "T": t_dim, "rows": rows, "d_in": d_in,
+            "d_out": d_out, "mix": mixed, "open": open_sum, "slices": chosen,
             "ms": ms, "baseline_slices": base_slices if jet_base else None,
             "baseline_ms": base,
-            "ms_by_slices": {s: time_ms(launcher(jet, s)) for s in sweep},
+            "ms_by_slices": {s: time_ms(launcher(jet, s)) for s in sweep} if wide else {},
+            "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
             "matmul_ms": time_ms(lambda: torch.matmul(jac, w))}), flush=True)
         del val, jac, lap, mix
-
 
 if __name__ == "__main__":
     main()

@@ -1,11 +1,13 @@
-"""The run loop: inference (optim.optimizer = 'none') and adam training.
+"""The run loop: inference (optim.optimizer = 'none'), KFAC and adam training.
 
 Mirrors deepsolid_tpu/train/process.py: restore a checkpoint (or
 initialize parameters and walkers), burn in, then per iteration run the
 Metropolis sampler, evaluate the batch local energy with the
-forward-Laplacian engine and, for 'adam', the gradient estimator and the
-update; write the train_stats CSV row, adapt the proposal width and save
-checkpoints. KFAC and pretraining are not ported yet.
+forward-Laplacian engine and, when training, the gradient estimator and
+the update ('kfac': curvature update, natural-gradient step and, under
+adaptive damping, the loss again on the same walkers; 'adam': the optax
+chain); write the train_stats CSV row, adapt the proposal width and save
+checkpoints. Pretraining is not ported yet.
 
 Several ranks (torch.distributed initialized by the caller, see
 parallel.run_ranks) run this same function, SPMD: `parallel.deriv_devices`
@@ -36,6 +38,7 @@ from deepsolid_tpu_torch.models.network import (
     params_to_numpy,
 )
 from deepsolid_tpu_torch.optim import adam as adam_lib
+from deepsolid_tpu_torch.optim import kfac as kfac_lib
 from deepsolid_tpu_torch.sampling.init import init_electrons
 from deepsolid_tpu_torch.sampling.mcmc import make_mcmc_step, update_mcmc_width
 from deepsolid_tpu_torch.scf.free_electron import free_electron_klist
@@ -87,21 +90,19 @@ def _sync(device: torch.device) -> None:
 
 def process(cfg, max_iterations: Optional[int] = None, device="cuda",
             on_iteration: Optional[Callable] = None):
-    """Run inference or adam training per `cfg` on `device`.
+    """Run inference, KFAC or adam training per `cfg` on `device`.
 
     Returns (params, data, energy per primitive cell of the last
     iteration); `data` is this rank's walkers. `on_iteration(t, row,
     seconds)` receives each iteration's CSV row, plus 'local_energy' (this
-    rank's per-walker E_L, a tensor) and, when training, 'grad_norm', and
-    the iteration's wall-clock split {'mcmc', 'local_energy', 'gradient',
-    'update', 'step'}.
+    rank's per-walker E_L, a tensor) and, when training, 'grad_norm' (and
+    for KFAC 'damping', 'rho' and 'optimizer_step'), and the iteration's
+    wall-clock split {'mcmc', 'local_energy', 'gradient', 'update',
+    'step'}, for KFAC also 'curvature' and, on an iteration whose damping
+    is adapted, 'adapt' (the loss on the same walkers again).
     """
     optimizer_name = cfg.optim.optimizer
-    if optimizer_name == "kfac":
-        raise NotImplementedError(
-            "optim.optimizer='kfac' is not ported yet (the next slice of the "
-            "port); 'adam' and 'none' are")
-    if optimizer_name not in ("adam", "none"):
+    if optimizer_name not in ("kfac", "adam", "none"):
         raise ValueError(f"Unknown optimizer: {optimizer_name}")
     device = resolve_device(device)
     set_full_precision()
@@ -177,6 +178,7 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
         psi_chunk=psi_chunk, shard=mesh.shard, all_mean=mesh.all_mean)
 
     optimizer = opt_state = None
+    state_to_numpy = adam_lib.state_to_numpy
     if optimizer_name == "adam":
         optimizer = adam_lib.Adam.from_config(cfg)
         opt_state = optimizer.init(params)
@@ -188,8 +190,29 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
                 logging.warning(
                     "Checkpoint %s holds the state of another optimizer; "
                     "adam starts from a fresh state.", restore_file)
+    elif optimizer_name == "kfac":
+        optimizer = kfac_lib.KfacOptimizer.from_config(
+            cfg, net, adam_lib.learning_rate_schedule(cfg), mesh)
+        opt_state = optimizer.init(params, data)
+        state_to_numpy = kfac_lib.state_to_numpy
+        if kfac_lib.is_kfac_state(opt_state_ckpt):
+            # top-level merge, so a checkpoint written before the state
+            # gained a key (the adaptive damping's) still restores
+            opt_state = kfac_lib.merge_restored(
+                opt_state, kfac_lib.state_from_numpy(opt_state_ckpt, device, dtype))
+            logging.info("Restored the KFAC state at optimizer step %d",
+                         int(opt_state["step"]))
+        elif opt_state_ckpt is not None:
+            logging.warning(
+                "Checkpoint %s holds the state of another optimizer; "
+                "kfac starts from a fresh state.", restore_file)
     elif opt_state_ckpt is not None:
         t_init = 0  # a restored inference run restarts its own clock
+    schema = list(TRAIN_SCHEMA)
+    log_damping = (optimizer_name == "kfac"
+                   and cfg.optim.kfac.get("adaptive_damping", False))
+    if log_damping:
+        schema.append("damping")
 
     iterations = cfg.optim.iterations
     if max_iterations is not None:
@@ -204,7 +227,7 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
         if writes:
             checkpoint_lib.save(
                 save_path, t, global_data.numpy(), params_to_numpy(params),
-                adam_lib.state_to_numpy(opt_state), np.asarray(width))
+                state_to_numpy(opt_state), np.asarray(width))
 
     with torch.no_grad():
         if t_init == 0 and cfg.mcmc.burn_in > 0:
@@ -212,7 +235,7 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
             for _ in range(cfg.mcmc.burn_in):
                 data, _ = mcmc_step(params, data, gen, width)
 
-        with (Writer(name=cfg.log.stats_file_name, schema=TRAIN_SCHEMA,
+        with (Writer(name=cfg.log.stats_file_name, schema=schema,
                      directory=save_path, iteration_key="step")
               if writes else contextlib.nullcontext()) as writer:
             for t in range(t_init, iterations):
@@ -241,11 +264,32 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
                     grads = adam_lib.tree_map(mesh.all_mean, grads)
                     extra["grad_norm"] = float(adam_lib.global_norm(grads))
                     t3 = time.perf_counter()
+                    seconds["gradient"] = t3 - t2
+                if optimizer_name == "adam":
                     updates, opt_state = optimizer.update(grads, opt_state)
                     params = adam_lib.apply_updates(params, updates)
                     _sync(device)
-                    t4 = time.perf_counter()
-                    seconds.update(gradient=t3 - t2, update=t4 - t3)
+                    seconds["update"] = time.perf_counter() - t3
+                elif optimizer_name == "kfac":
+                    # the state's own step counter (not t) schedules the
+                    # learning rate, the curvature and inverse refreshes and
+                    # the damping adaptation: it continues a restored state's
+                    kfac_step = int(opt_state["step"])
+                    mark = [t3]
+
+                    def lap(name):
+                        _sync(device)
+                        now = time.perf_counter()
+                        seconds[name], mark[0] = now - mark[0], now
+
+                    params, opt_state = optimizer.step(
+                        params, opt_state, grads, data, loss=loss,
+                        loss_fn=total_energy, lap=lap)
+                    extra.update(optimizer_step=kfac_step,
+                                 damping=float(opt_state["damping"]),
+                                 rho=float(opt_state["rho"]))
+                    if log_damping:
+                        row["damping"] = extra["damping"]
                 seconds["step"] = time.perf_counter() - t0
                 if row["nonfinite"] > 0.01:
                     logging.warning(

@@ -95,12 +95,13 @@ def test_gj_kernel_edge_matrices(cuda_device, n, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t_dim,rows,d_in,d_out", [
-    (6, 300, 32, 32),   # narrow variant, ragged row tile
+    (6, 300, 32, 32),   # pair variant, ragged row tile
+    (6, 300, 32, 40),   # general variant (d_out off the pair width), ragged
     (50, 385, 40, 256), # wide, ragged rows, tangents and k-slice (16-deep ring)
     (9, 600, 64, 128),  # wide, the 32-deep ring
-    (5, 100, 388, 64),  # d_in whose slice of w is not kept resident: narrow
+    (5, 100, 388, 64),  # d_in whose slice of w is not kept resident: general
     (7, 300, 20, 64),   # wide variant, ragged row tile
-    (3, 50, 7, 40),     # narrow, d_in not a multiple of 4
+    (3, 50, 7, 40),     # general, d_in not a multiple of 4
 ])
 def test_dense_tanh_jet_kernel_matches_plain(cuda_device, t_dim, rows, d_in, d_out):
     rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(1), cuda_device)
@@ -113,7 +114,7 @@ def test_dense_tanh_jet_kernel_matches_plain(cuda_device, t_dim, rows, d_in, d_o
 @pytest.mark.cuda
 @pytest.mark.parametrize("t_dim,groups,n,d_in,d_out", [
     (20, 3, 96, 40, 256),   # wide variant
-    (9, 3, 10, 20, 40),     # narrow variant
+    (9, 3, 10, 20, 40),     # general variant
 ])
 def test_dense_tanh_jet_mix_kernel_matches_plain(cuda_device, t_dim, groups, n,
                                                  d_in, d_out):
@@ -126,12 +127,41 @@ def test_dense_tanh_jet_mix_kernel_matches_plain(cuda_device, t_dim, groups, n,
         torch.testing.assert_close(x, y, **TOL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("open_sum", [False, True], ids=["closed", "open"])
+@pytest.mark.parametrize("t_dim,rows,d_in", [
+    (6, 9216, 4), (6, 9216, 32),    # one walker's pair rows, both layers
+    (3, 9216, 4), (3, 9216, 32),    # T_local of a 2-way deriv axis
+    (6, 333, 4), (3, 333, 32),      # ragged: no multiple of the 32-row tile
+    (6, 120013, 32), (0, 77, 4),    # several tiles per warp; no tangent at all
+])
+def test_pair_variant_matches_plain(cuda_device, t_dim, rows, d_in, open_sum):
+    """The streaming body of the two-electron layers against the plain
+    version, within 1e-5 of each output's scale (f32 sums in another order)."""
+    assert tjk.pair_body(d_in, 32, mixed=False)
+    rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(7), cuda_device)
+    case = (rnd(rows, d_in), rnd(t_dim, rows, d_in), rnd(rows, d_in),
+            rnd(d_in, 32) / d_in**0.5, rnd(32))
+    name = "fused_dense_tanh_jet" + ("_partial" if open_sum else "")
+    before = tjk.LAUNCHES[name]
+    got = getattr(tjk, name)(*case)
+    torch.cuda.synchronize()
+    assert tjk.LAUNCHES[name] == before + 1
+    want = getattr(tjk, name + "_plain")(*case)
+    assert len(got) == len(want) == (4 if open_sum else 3)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape
+        if y.numel():
+            assert float((x - y).abs().max()) <= 1e-5 * max(float(y.abs().max()), 1.0)
+
+
 # ---- the open ("partial") forms: tangent sum left to the caller -------------
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t_dim,rows,d_in,d_out", [
-    (3, 300, 32, 32),    # narrow variant, ragged row tile
+    (3, 300, 32, 32),    # pair variant, ragged row tile
+    (3, 300, 8, 32),     # general variant (d_in neither 4 nor 32)
     (7, 300, 20, 64),    # wide variant, ragged row tile, T_local of no round size
     (1, 130, 8, 128),    # wide, one tangent: fewer slices than the card wants
 ])
@@ -152,7 +182,7 @@ def test_dense_tanh_jet_partial_kernel_matches_plain(cuda_device, t_dim, rows,
 @pytest.mark.parametrize("t_dim,groups,n,d_in,d_out", [
     (20, 3, 96, 40, 256),   # wide variant
     (50, 5, 77, 320, 256),  # wide, ragged rows and tangents, 32-deep ring
-    (9, 3, 10, 20, 40),     # narrow variant
+    (9, 3, 10, 20, 40),     # general variant
 ])
 def test_dense_tanh_jet_mix_partial_recombines(cuda_device, t_dim, groups, n,
                                                d_in, d_out):

@@ -29,7 +29,7 @@ for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
 for needed in ("deepsolid_tpu_torch.parallel", "deepsolid_tpu_torch.optim",
-               "deepsolid_tpu_torch.optim.adam"):
+               "deepsolid_tpu_torch.optim.adam", "deepsolid_tpu_torch.optim.kfac"):
     assert needed in names, needed
 print(len(names))
 """

@@ -405,7 +405,7 @@ def test_sharded_trunk_rules_reach_the_open_kernels(monkeypatch):
 
 
 @pytest.mark.parametrize("shape,sms,slices", [
-    ((6, 64 * 96 * 96, 32, 32), 132, 0),   # two-electron layers: narrow
+    ((6, 64 * 96 * 96, 32, 32), 132, 0),   # two-electron layers: never wide
     ((288, 6144, 320, 256), 132, 4),       # one-electron layers: 96 blocks per
     ((288, 6144, 16, 256), 132, 4),        # slice, 2.9 waves of one block per SM
     ((144, 6144, 320, 256), 132, 4),       # a rank's half of the tangents
@@ -417,7 +417,7 @@ def test_sharded_trunk_rules_reach_the_open_kernels(monkeypatch):
     ((288, 10 ** 6, 320, 256), 132, 1),    # a full grid needs no slicing
     ((50, 385, 40, 256), 132, 13),         # ragged rows, T no multiple of the slices
     ((288, 6144, 384, 256), 132, 4),       # the largest resident slice of w
-    ((288, 6144, 388, 256), 132, 0),       # w's slice does not fit: narrow
+    ((288, 6144, 388, 256), 132, 0),       # w's slice does not fit: general
     ((288, 6144, 512, 256), 132, 0),
     ((288, 6144, 318, 256), 132, 0),       # d_in not a multiple of 4
     ((288, 6144, 320, 200), 132, 0),       # d_out not a multiple of 64
@@ -432,6 +432,62 @@ def test_variant_is_chosen_by_shape(shape, sms, slices):
         per = tjk.slice_tangents(t_dim, slices)
         assert (slices - 1) * per < t_dim <= slices * per
         assert d_in <= tjk.WIDE_MAX_D_IN and d_out % tjk.WIDE_COLS == 0
+
+
+@pytest.mark.parametrize("d_in,d_out,mixed,pair", [
+    (4, 32, False, True),     # the first two-electron layer
+    (32, 32, False, True),    # the second
+    (4, 32, True, False),     # the mix rule has no pair body
+    (32, 32, True, False),
+    (8, 32, False, False),    # d_in neither 4 nor 32
+    (16, 32, False, False),
+    (32, 64, False, False),   # d_out off the pair width: wide
+    (32, 40, False, False),   # general
+    (4, 16, False, False),
+])
+def test_pair_body_is_chosen_by_shape(d_in, d_out, mixed, pair):
+    """Which (d_in, d_out, rule) take the streaming pair body; every other
+    shape falls to the wide or the general kernel, whatever T and rows."""
+    assert tjk.pair_body(d_in, d_out, mixed) is pair
+    for t_dim, rows in ((6, 64 * 96 * 96), (3, 333), (0, 5)):
+        got = tjk.kernel_variant(t_dim, rows, d_in, d_out, mixed, 132)
+        assert (got == tjk.PAIR) is pair
+        if not pair:
+            assert got == tjk.wide_slices(t_dim, rows, d_in, d_out, 132) >= 0
+
+
+def test_pair_constants_match_the_source():
+    text = (build.CSRC / "dense_tanh_jet.cu").read_text()
+    assert f"constexpr int kPC = {tjk.PAIR_D_OUT};" in text
+    for d_in in tjk.PAIR_D_IN:
+        assert f"launch_pair<{d_in}>" in text
+    assert "if (slices < 0)" in text and tjk.PAIR < 0
+    # w and b, and per warp three ring stages of 32 rows x (d_in + 4) floats
+    # and the staging tile: two blocks of six warps fit an SM's 228 KB with
+    # the 1 KB the system keeps per block
+    assert "constexpr int kPWarps = 6;" in text and "constexpr int kPStages = 3;" in text
+    block = 4 * (33 * 32 + 6 * (3 * 32 * 36 + 32 * 36))
+    assert 2 * (block + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("open_sum", [False, True], ids=["closed", "open"])
+@pytest.mark.parametrize("t_dim,rows,d_in", [
+    (6, 81, 4), (6, 81, 32),   # T = 6; 81 rows: no multiple of any tile
+    (3, 64, 4), (3, 77, 32),   # T_local = 3 of a 2-way deriv axis
+])
+def test_pair_shapes_plain_matches_jax_kernel(t_dim, rows, d_in, open_sum,
+                                              interpret_pallas):
+    """The plain version the pair body is held against on the card, against
+    the JAX kernel in interpret mode at the pair layers' widths. 2e-5: f32
+    sums in another order."""
+    case = [a.astype(np.float32) for a in _jet_case(t_dim, rows, d_in, 32, seed=9)]
+    name = "fused_dense_tanh_jet" + ("_partial" if open_sum else "")
+    want = getattr(jjk, name)(*map(jnp.asarray, case), block_n=8, block_c=128,
+                              block_t=2)
+    got = getattr(tjk, name + "_plain")(*map(torch.from_numpy, case))
+    assert len(got) == len(want) == (4 if open_sum else 3)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5, atol=2e-5)
 
 
 def test_wide_tiling_constants_match_the_source():

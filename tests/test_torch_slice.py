@@ -87,10 +87,6 @@ def test_process_inference_on_the_cpu(tmp_path):
 
 def test_process_refuses_training_and_a_missing_gpu(tmp_path, monkeypatch):
     cfg = _inference_cfg(tmp_path)
-    cfg.optim.optimizer = "kfac"
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tprocess.process(cfg, max_iterations=1, device="cpu")
-    cfg.optim.optimizer = "none"
     cfg.optim.laplacian_mode = "partition"
     with pytest.raises(NotImplementedError, match="forward"):
         tprocess.process(cfg, max_iterations=1, device="cpu")

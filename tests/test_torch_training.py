@@ -485,8 +485,14 @@ def test_deriv_devices_misconfiguration_raises(tmp_path):
 
 
 def test_kfac_and_unknown_optimizers_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tprocess.process(torch_cfg(tmp_path, optimizer="kfac"), device="cpu")
+    """'kfac' runs (its parity with JAX is tests/test_torch_kfac.py's); an
+    optimizer the port does not know raises."""
+    seen = []
+    tprocess.process(torch_cfg(tmp_path / "k", optimizer="kfac", iterations=1,
+                               batch=4), device="cpu",
+                     on_iteration=lambda t, row, s: seen.append((row, s)))
+    assert len(seen) == 1 and seen[0][0]["optimizer_step"] == 0
+    assert np.isfinite(seen[0][0]["grad_norm"]) and "curvature" in seen[0][1]
     with pytest.raises(ValueError, match="Unknown optimizer"):
         tprocess.process(torch_cfg(tmp_path, optimizer="sgd"), device="cpu")
 
