@@ -5,6 +5,10 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 
 Phases, one JSON line each; any failure exits non-zero:
   1. device   - the card, its power limit, full-f32 matmul policy;
+     source   - the C-diamond sto-3g UHF orbital source from the committed
+                cache runs/scf_cache (fails before any SCF work when the
+                cache file is missing): its build seconds, HF e_tot and the
+                occupied k-list every later phase's network takes;
   2. build    - nvcc builds every CUDA kernel from deepsolid_tpu_torch/ops/cuda/csrc
                 and a `kernel_resources` line gives each kernel's registers,
                 spills and static shared memory as ptxas reports them;
@@ -33,11 +37,17 @@ Phases, one JSON line each; any failure exits non-zero:
                 every 2 optimizer steps), continuing the checkpoint's KFAC
                 state at optimizer step 582: the split of an iteration,
                 damping and rho, and the checkpoint written and restored;
-  8. reference - E_L, the energy gradient and the KFAC update of 8
-                checkpoint walkers on the card (f32, kernels) against the
-                port's plain path on the CPU in float64, and E_L with TF32
-                matmuls as a control the check must catch;
-  9. profile  - torch.profiler over one 64-walker local-energy chunk:
+  8. pretrain - the production run script's path from its first step:
+                process() from scratch at 1024 walkers (orbital source,
+                parameters and walkers from the seed, 30 pretraining
+                iterations with method 'net', the step-0 checkpoint, burn-in
+                and 2 KFAC iterations from a fresh state);
+  9. reference - E_L, the energy gradient, the KFAC update and the
+                pretraining loss and its gradient of 8 checkpoint walkers on
+                the card (f32, kernels) against the port's plain path on the
+                CPU in float64, and E_L with TF32 matmuls as a control the
+                check must catch;
+ 10. profile  - torch.profiler over one 64-walker local-energy chunk:
                 kernels by device time and the device's idle share.
 Launch counts are set to 0 just before each driven path and read just
 after it. The last lines are the card as nvidia-smi reports it, the
@@ -75,6 +85,16 @@ KFAC_UPDATE_TOLERANCE = 3e-4
 # against the CPU float64 one, 8 walkers: ~10x the reading of 2.9e-5 on
 # an H100 (PERF.md)
 GRADIENT_TOLERANCE = 3e-4
+# relative error of the pretraining loss and in the global norm of its
+# gradient, card f32 against CPU f64, same 8 walkers: ~10x the first
+# readings on an H100, 8.6e-7 and 3.4e-7 (PERF.md)
+PRETRAIN_LOSS_TOLERANCE = 1e-5
+PRETRAIN_GRADIENT_TOLERANCE = 4e-6
+PRETRAIN_ITERATIONS = 30
+PRETRAIN_LR = 3e-4         # production's (runs/diamond_run.py)
+PRETRAIN_BURN_IN = 20
+PRETRAIN_KFAC_ITERATIONS = 2
+SCF_CACHE = os.path.join(REPO, "runs", "scf_cache")
 REFERENCE_ENERGY = -66.0  # Ha/cell, runs/ckpt_diamond/train_stats_r5_latest.csv
 ENERGY_WINDOW = 1.5       # Ha/cell, a sanity bound; the reference phase is the exact check
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 (non-tensor) FLOP/s
@@ -419,6 +439,7 @@ def diamond_cfg(optimizer, batch, save_name, deriv_devices=1):
     cfg.parallel.deriv_devices = deriv_devices
     cfg.mcmc.burn_in = 0  # the checkpoint's walkers are equilibrated
     cfg.mcmc.steps = 20
+    cfg.pretrain.scf = "hf"  # the UHF orbitals of the cache, as runs/diamond_run.py
     cfg.debug.deterministic = True
     cfg.log.restore_path = os.path.join(REPO, "runs", "ckpt_diamond")
     cfg.log.save_path = os.path.join(REPO, "build", save_name)
@@ -778,7 +799,150 @@ def kfac_phase(dev):
     return result
 
 
-def reference_phase(dev):
+def source_phase():
+    """The C-diamond UHF orbital source, served by the committed cache.
+    Returns the source, or None when the cache holds no converged solution
+    for this system (then nothing has run an SCF)."""
+    import numpy as np
+    from deepsolid_tpu_torch.configs import diamond
+    from deepsolid_tpu_torch.scf import basis as basis_lib
+    from deepsolid_tpu_torch.scf import hf as hf_lib
+    from deepsolid_tpu_torch.scf.free_electron import free_electron_klist, twisted_kpts
+
+    cfg = diamond.get_config(CONFIG)
+    sc, basis, twist = cfg.system.cell, cfg.system.basis, tuple(cfg.network.twist)
+    path = hf_lib._uhf_cache_path(sc, basis, twisted_kpts(sc, twist),
+                                  basis_lib.build_shells(sc.prim, basis))
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as f:
+        e_tot, converged = float(f["e_tot"]), bool(f["converged"])
+    if not converged:
+        return None
+    start = time.perf_counter()
+    source = hf_lib.ScfOrbitals.build(sc, basis, twist, level="hf")
+    seconds = time.perf_counter() - start
+    free = free_electron_klist(sc, twist=twist)
+    emit({"phase": "source", "level": "hf", "basis": basis,
+          "cache": os.path.relpath(path, REPO), "seconds": seconds, "e_tot": e_tot,
+          "ao_images": int(source.evaluator.images.shape[0]), "nao": source.evaluator.nao,
+          "klist_equals_free_electron": all(np.array_equal(a, b)
+                                            for a, b in zip(source.klist, free)),
+          "klist": [np.round(k, 10).tolist() for k in source.klist]})
+    return source
+
+
+def pretrain_phase(dev, source):
+    """process() from scratch, as the production run script starts: the
+    orbital source, parameters and walkers from the seed, pretraining, the
+    step-0 checkpoint, burn-in and KFAC iterations from a fresh state."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.optim.adam import tree_leaves
+    from deepsolid_tpu_torch.train.process import process
+    from deepsolid_tpu_torch.utils.checkpoint import restore
+
+    cfg = production_kfac(diamond_cfg("kfac", BATCH, "chip_smoke_pretrain"))
+    cfg.optim.psi_chunk = EL_CHUNK
+    cfg.optim.kfac.damping_adaptation_interval = 10  # production's
+    cfg.log.restore_path = ""
+    cfg.mcmc.burn_in = PRETRAIN_BURN_IN
+    cfg.pretrain.method = "net"
+    cfg.pretrain.iterations = PRETRAIN_ITERATIONS
+    cfg.pretrain.lr = PRETRAIN_LR
+    cfg.pretrain.steps = 1
+    shutil.rmtree(cfg.log.save_path, ignore_errors=True)
+
+    pre, iters = [], []
+    step0 = os.path.join(cfg.log.save_path, "qmcjax_ckpt_000000.npz")
+    step0_ok = []
+
+    def check_step0():
+        """The pretrained state as saved, read before the first KFAC
+        iteration's checkpoint could take its name."""
+        ok = False
+        if os.path.exists(step0):
+            t_next, ck_data, ck_params, ck_state, _ = restore(step0)
+            ok = (t_next == 1 and ck_state is None and ck_data.shape == (BATCH, 288)
+                  and bool(np.isfinite(ck_data).all())
+                  and all(np.isfinite(a).all() for a in tree_leaves(ck_params)))
+        step0_ok.append(ok)
+
+    def on_pretrain(t, loss, pmove, seconds):
+        b1 = read_launches()["gj_inverse_slogdet"]
+        rec = {"phase": "pretrain_iteration", "step": t, "loss": loss, "pmove": pmove,
+               "seconds": seconds, "b1_launches": b1 - sum(r["b1_launches"] for r in pre),
+               "peak_memory_bytes_so_far": torch.cuda.max_memory_allocated(dev)}
+        pre.append(rec)
+        emit(rec)
+
+    def on_iteration(t, row, seconds):
+        if not step0_ok:
+            check_step0()
+        row.pop("local_energy")
+        rec = {"phase": "pretrain_kfac_iteration", "step": t, **row, "seconds": seconds,
+               "adapted": "adapt" in seconds}
+        iters.append(rec)
+        emit(rec)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    start = time.perf_counter()
+    params, data, energy = process(cfg, PRETRAIN_KFAC_ITERATIONS, device="cuda",
+                                   on_iteration=on_iteration, on_pretrain=on_pretrain)
+    wall = time.perf_counter() - start
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    if not step0_ok:
+        check_step0()
+    step0_ok = step0_ok[0]
+    losses = [r["loss"] for r in pre]
+
+    def med(key, recs):
+        return statistics.median(r["seconds"][key] for r in recs)
+
+    # the targets alone: the UHF orbital matrices of one psi_chunk of walkers
+    chunk = data[:EL_CHUNK].contiguous()
+    target_ms = time_ms(lambda: source.orbital_mats(chunk), reps=10)
+
+    steady = pre[1:]  # iterations 2-30: the first pays warm-up
+    result = {
+        "phase": "pretrain", "method": cfg.pretrain.method, "scf": cfg.pretrain.scf,
+        "batch": BATCH, "psi_chunk": EL_CHUNK, "el_chunk": EL_CHUNK,
+        "lr": PRETRAIN_LR, "iterations": len(pre), "burn_in": PRETRAIN_BURN_IN,
+        "kfac_iterations": len(iters), "seconds": wall,
+        "loss_first": losses[0] if losses else None,
+        "loss_last": losses[-1] if losses else None,
+        "pmove": [r["pmove"] for r in pre],
+        "seconds_per_iteration_median": {k: med(k, steady) for k in
+                                         ("loss_grad", "update", "mcmc", "step")},
+        "walkers_per_s_pretraining_median": BATCH / med("step", steady),
+        "target_orbitals_ms_per_psi_chunk": target_ms,
+        "b1_launches_per_iteration": sorted({r["b1_launches"] for r in pre}),
+        "peak_memory_bytes_pretraining": pre[-1]["peak_memory_bytes_so_far"] if pre else None,
+        "peak_memory_bytes": peak, "launches": launches,
+        "step0_checkpoint": os.path.relpath(step0, REPO), "step0_restores": step0_ok,
+        "kfac_energy_per_cell": [r["energy"] for r in iters],
+        "kfac_seconds_per_iteration": [r["seconds"]["step"] for r in iters],
+        "energy_per_cell": energy,
+    }
+    result["ok"] = (
+        len(pre) == PRETRAIN_ITERATIONS and len(steady) > 0
+        and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+        and step0_ok and bool(torch.isfinite(data).all())
+        and all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+        and len(iters) == PRETRAIN_KFAC_ITERATIONS
+        and all(math.isfinite(r["energy"]) for r in iters) and math.isfinite(energy)
+        and all(r["b1_launches"] > 0 for r in pre)
+        and launches["gj_inverse_slogdet"] > 0
+        and launches["fused_dense_tanh_jet"] > 0
+        and launches["fused_dense_tanh_jet_mix"] > 0)
+    emit(result)
+    return result
+
+
+def reference_phase(dev, source):
     """E_L, the energy gradient and the KFAC update of 8 checkpoint
     walkers: the card's f32 kernel path against the port's plain path on
     the CPU in float64."""
@@ -789,13 +953,14 @@ def reference_phase(dev):
     from deepsolid_tpu_torch.models.network import params_from_jax
     from deepsolid_tpu_torch.optim import kfac as kfac_lib
     from deepsolid_tpu_torch.optim.adam import learning_rate_schedule, tree_leaves
+    from deepsolid_tpu_torch.train import pretrain as pretrain_lib
     from deepsolid_tpu_torch.train.loss import make_loss
     from deepsolid_tpu_torch.train.process import build_network
     from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
 
     cfg = diamond.get_config(CONFIG)
     sc = cfg.system.cell
-    net = build_network(cfg, sc)
+    net = build_network(cfg, sc, klist_override=source.klist)
     _, data, params, opt_state, _ = restore(
         find_last_checkpoint(os.path.join(REPO, "runs", "ckpt_diamond")))
     x = np.asarray(data[:8], np.float64)
@@ -839,6 +1004,18 @@ def reference_phase(dev):
     upd_norm2 = sum(float((c ** 2).sum()) for c in tree_leaves(cpu_upd))
     upd_rel = math.sqrt(upd_diff2 / upd_norm2)
 
+    # the pretraining loss against the cached UHF orbitals and its gradient
+    pre_vg = pretrain_lib.make_value_and_grad(
+        pretrain_lib.make_loss_per_walker(net, source, cfg.network.detnet.full_det))
+    gpu_pre_loss, gpu_pre_grad = pre_vg(gpu_params, gpu_x)
+    cpu_pre_loss, cpu_pre_grad = pre_vg(params_from_jax(params, "cpu", torch.float64),
+                                        torch.as_tensor(x, dtype=torch.float64))
+    pre_loss_rel = abs(float(gpu_pre_loss) - float(cpu_pre_loss)) / abs(float(cpu_pre_loss))
+    pre_diff2 = sum(float(((g.cpu().double() - c) ** 2).sum())
+                    for g, c in zip(tree_leaves(gpu_pre_grad), tree_leaves(cpu_pre_grad)))
+    pre_norm2 = sum(float((c ** 2).sum()) for c in tree_leaves(cpu_pre_grad))
+    pre_grad_rel = math.sqrt(pre_diff2 / pre_norm2)
+
     def diffs(el):
         d = ((el - cpu).abs() / sc.scale).numpy()
         return float(np.median(d)), float(d.max())
@@ -871,17 +1048,25 @@ def reference_phase(dev):
         "kfac_update_rel_err_global_norm": upd_rel,
         "kfac_update_global_norm_cpu_f64": math.sqrt(upd_norm2),
         "kfac_update_tolerance": KFAC_UPDATE_TOLERANCE,
+        "pretrain_loss_cpu_f64": float(cpu_pre_loss),
+        "pretrain_loss_rel_err": pre_loss_rel,
+        "pretrain_gradient_rel_err_global_norm": pre_grad_rel,
+        "pretrain_gradient_global_norm_cpu_f64": math.sqrt(pre_norm2),
+        "pretrain_loss_tolerance": PRETRAIN_LOSS_TOLERANCE,
+        "pretrain_gradient_tolerance": PRETRAIN_GRADIENT_TOLERANCE,
     }
     # a check the TF32 control passes could not guard the precision flags
     result["ok"] = (median <= tol_median and worst <= tol_max
                     and result["tf32_control_fails_check"]
                     and grad_rel <= GRADIENT_TOLERANCE
-                    and math.isfinite(upd_rel) and upd_rel <= KFAC_UPDATE_TOLERANCE)
+                    and math.isfinite(upd_rel) and upd_rel <= KFAC_UPDATE_TOLERANCE
+                    and pre_loss_rel <= PRETRAIN_LOSS_TOLERANCE
+                    and pre_grad_rel <= PRETRAIN_GRADIENT_TOLERANCE)
     emit(result)
     return result
 
 
-def profile_phase(dev):
+def profile_phase(dev, source):
     """Where one 64-walker local-energy chunk spends the card's time:
     kernels by device time from torch.profiler, and the device's busy
     share of the chunk's wall time."""
@@ -895,7 +1080,7 @@ def profile_phase(dev):
     from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
 
     cfg = diamond.get_config(CONFIG)
-    net = build_network(cfg, cfg.system.cell)
+    net = build_network(cfg, cfg.system.cell, klist_override=source.klist)
     _, data, params, _, _ = restore(
         find_last_checkpoint(os.path.join(REPO, "runs", "ckpt_diamond")))
     params = params_from_jax(params, dev, torch.float32)
@@ -947,6 +1132,14 @@ def main() -> int:
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    # every phase takes the UHF orbital source (and its k-list) from the
+    # committed cache; a cold UHF would take minutes, so its absence fails
+    # here, before any SCF work
+    os.environ["DEEPSOLID_TPU_SCF_CACHE"] = SCF_CACHE
+    source = source_phase()
+    if source is None:
+        return fail(f"no converged UHF solution for {CONFIG} in {SCF_CACHE}")
+
     seconds, log = build.build(ptxas_verbose=True)
     emit({"phase": "build", "seconds": seconds, "sources": list(build.SOURCES)})
     emit({"kernel_resources": build.resources(log)})
@@ -997,11 +1190,16 @@ def main() -> int:
                     "non-finite parameter or factor, no damping adaptation, "
                     "the checkpoint, or the energy window)")
 
-    if not reference_phase(dev)["ok"]:
-        return fail("card E_L, its gradient or the KFAC update disagrees with "
-                    "the CPU float64 reference, or the TF32 control passed the "
-                    "check")
-    profile_phase(dev)
+    if not pretrain_phase(dev, source)["ok"]:
+        return fail("the pretrain phase failed its checks (the loss did not "
+                    "fall, a non-finite loss, walker or energy, the step-0 "
+                    "checkpoint, or a kernel of the path never launched)")
+
+    if not reference_phase(dev, source)["ok"]:
+        return fail("card E_L, its gradient, the KFAC update or the "
+                    "pretraining loss or its gradient disagrees with the CPU "
+                    "float64 reference, or the TF32 control passed the check")
+    profile_phase(dev, source)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

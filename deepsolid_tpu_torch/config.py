@@ -132,5 +132,15 @@ def default() -> ConfigDict:
             "debug": {
                 "deterministic": False,
             },
+            "pretrain": {
+                "method": "net",  # 'net' | 'hf' | 'none'
+                "iterations": 1000,
+                "lr": 3e-4,
+                "steps": 1,
+                # orbital-source SCF level: 'core' (core-Hamiltonian
+                # bands), 'hf' (self-consistent UHF, scf/hf.run_uhf), or
+                # 'rhf' (restricted KRHF, closed shells)
+                "scf": "core",
+            },
         }
     )

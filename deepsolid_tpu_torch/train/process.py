@@ -1,13 +1,17 @@
-"""The run loop: inference (optim.optimizer = 'none'), KFAC and adam training.
+"""The run loop: pretraining, then inference (optim.optimizer = 'none'),
+KFAC or adam training.
 
-Mirrors deepsolid_tpu/train/process.py: restore a checkpoint (or
-initialize parameters and walkers), burn in, then per iteration run the
-Metropolis sampler, evaluate the batch local energy with the
-forward-Laplacian engine and, when training, the gradient estimator and
-the update ('kfac': curvature update, natural-gradient step and, under
-adaptive damping, the loss again on the same walkers; 'adam': the optax
-chain); write the train_stats CSV row, adapt the proposal width and save
-checkpoints. Pretraining is not ported yet.
+Mirrors deepsolid_tpu/train/process.py: build the orbital source when
+the run pretrains or takes its k-list from the SCF (a basis with
+klist_policy 'auto'), build the network on that source's occupied
+k-list, restore a checkpoint (or initialize parameters and walkers),
+pretrain a run that starts from scratch and save it as step 0, burn in,
+then per iteration run the Metropolis sampler, evaluate the batch local
+energy with the forward-Laplacian engine and, when training, the
+gradient estimator and the update ('kfac': curvature update,
+natural-gradient step and, under adaptive damping, the loss again on the
+same walkers; 'adam': the optax chain); write the train_stats CSV row,
+adapt the proposal width and save checkpoints.
 
 Several ranks (torch.distributed initialized by the caller, see
 parallel.run_ranks) run this same function, SPMD: `parallel.deriv_devices`
@@ -43,6 +47,7 @@ from deepsolid_tpu_torch.sampling.init import init_electrons
 from deepsolid_tpu_torch.sampling.mcmc import make_mcmc_step, update_mcmc_width
 from deepsolid_tpu_torch.scf.free_electron import free_electron_klist
 from deepsolid_tpu_torch.system.cell import Supercell
+from deepsolid_tpu_torch.train import pretrain as pretrain_lib
 from deepsolid_tpu_torch.train.loss import chunk_batch_fn, make_loss
 from deepsolid_tpu_torch.utils import checkpoint as checkpoint_lib
 from deepsolid_tpu_torch.utils.writers import Writer
@@ -62,10 +67,25 @@ def resolve_klist(cfg, sc: Supercell):
                                policy=cfg.system.klist_policy)
 
 
-def build_network(cfg, sc: Supercell):
+def build_network(cfg, sc: Supercell, klist_override=None):
     detnet = dict(cfg.network.detnet)
     detnet["hidden_dims"] = tuple(tuple(h) for h in detnet["hidden_dims"])
-    return make_network(sc, resolve_klist(cfg, sc), NetworkConfig(**detnet))
+    klist = klist_override if klist_override is not None else resolve_klist(cfg, sc)
+    return make_network(sc, klist, NetworkConfig(**detnet))
+
+
+def wants_pretrain(cfg) -> bool:
+    return cfg.pretrain.iterations > 0 and cfg.pretrain.method != "none"
+
+
+def orbital_source(cfg, sc: Supercell):
+    """The orbital source, when the run pretrains or takes the network's
+    occupied k-list from the SCF (a basis with klist_policy 'auto'): the
+    network's Bloch phases must use the source's k-list (the reference
+    gets both from HF, process.py:87,107-113). None otherwise."""
+    if wants_pretrain(cfg) or (cfg.system.basis and cfg.system.klist_policy == "auto"):
+        return pretrain_lib.make_orbital_source(cfg, sc)
+    return None
 
 
 def _same_structure(a, b) -> bool:
@@ -89,8 +109,10 @@ def _sync(device: torch.device) -> None:
 
 
 def process(cfg, max_iterations: Optional[int] = None, device="cuda",
-            on_iteration: Optional[Callable] = None):
-    """Run inference, KFAC or adam training per `cfg` on `device`.
+            on_iteration: Optional[Callable] = None,
+            on_pretrain: Optional[Callable] = None):
+    """Run pretraining and inference, KFAC or adam training per `cfg` on
+    `device`.
 
     Returns (params, data, energy per primitive cell of the last
     iteration); `data` is this rank's walkers. `on_iteration(t, row,
@@ -100,6 +122,9 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
     wall-clock split {'mcmc', 'local_energy', 'gradient', 'update',
     'step'}, for KFAC also 'curvature' and, on an iteration whose damping
     is adapted, 'adapt' (the loss on the same walkers again).
+    `on_pretrain(t, loss, pmove, seconds)` receives each pretraining
+    iteration's loss, acceptance and split {'loss_grad', 'update', 'mcmc',
+    'step'} (see train/pretrain.py).
     """
     optimizer_name = cfg.optim.optimizer
     if optimizer_name not in ("kfac", "adam", "none"):
@@ -130,7 +155,8 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
     logging.info("Starting QMC on rank %d of %d (%d data x %d deriv ranks)",
                  mesh.rank, mesh.world_size, mesh.num_data, deriv_devices)
 
-    net = build_network(cfg, sc)
+    source = orbital_source(cfg, sc)
+    net = build_network(cfg, sc, klist_override=source.klist if source else None)
 
     save_path = (checkpoint_lib.create_save_path(cfg.log.save_path) if writes
                  else cfg.log.save_path)
@@ -168,6 +194,9 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
         params = net.init(np.random.default_rng(
             888 if cfg.debug.deterministic else seed))
     params = params_from_jax(params, device=device, dtype=dtype)
+    # pretraining and burn-in belong to a run's first iteration only; the
+    # restored inference run's clock reset below does not make it one
+    first_iteration = t_init == 0
 
     psi_chunk = cfg.optim.get("psi_chunk", 0)
     mcmc_step = make_mcmc_step(chunk_batch_fn(net.slogdet, psi_chunk),
@@ -230,7 +259,16 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
                 state_to_numpy(opt_state), np.asarray(width))
 
     with torch.no_grad():
-        if t_init == 0 and cfg.mcmc.burn_in > 0:
+        if first_iteration and wants_pretrain(cfg):
+            params, data = pretrain_lib.pretrain(
+                cfg, sc, net, params, data, gen, source=source,
+                all_mean=mesh.all_mean, on_pretrain=on_pretrain)
+            global_data = mesh.gather_data(data)  # every rank takes part
+            if writes:
+                checkpoint_lib.save(save_path, 0, global_data.numpy(),
+                                    params_to_numpy(params), None, None)
+
+        if first_iteration and cfg.mcmc.burn_in > 0:
             logging.info("Burning in MCMC chain for %d steps", cfg.mcmc.burn_in)
             for _ in range(cfg.mcmc.burn_in):
                 data, _ = mcmc_step(params, data, gen, width)

@@ -23,6 +23,7 @@ from test_torch_kfac import assert_trees_close, with_kfac
 from test_torch_training import (  # noqa: F401  (one_device_jax is a fixture)
     RANK_TIMEOUT, flat, jax_cfg, jflat, one_device_jax, same_order, seed_state,
     torch_cfg, write_start)
+from torch_helpers import REPO_SCF_CACHE
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CKPT_DIR = str(REPO / "runs" / "ckpt_diamond")
@@ -113,7 +114,7 @@ def test_kfac_ignores_another_optimizers_state(tmp_path, caplog):
     assert "another optimizer" in caplog.text
 
 
-def test_committed_diamond_kfac_state_is_restored(tmp_path):
+def test_committed_diamond_kfac_state_is_restored(tmp_path, monkeypatch):
     """One KFAC iteration of the full-width C-diamond 2x2x2 network from
     the committed checkpoint: its state (step 582, damping 1.0, seven
     Kronecker blocks from 5 x 5 to 833 x 833, four diagonal entries) is
@@ -132,7 +133,9 @@ def test_committed_diamond_kfac_state_is_restored(tmp_path):
     assert sorted(raw["diag"]) == ["envelope/0/pi", "envelope/0/sigma",
                                    "envelope/1/pi", "envelope/1/sigma"]
 
+    monkeypatch.setenv("DEEPSOLID_TPU_SCF_CACHE", REPO_SCF_CACHE)
     cfg = tdiamond.get_config("C,C,3.567,2,sto-3g")
+    cfg.pretrain.scf = "hf"  # the committed UHF orbitals give the network's k-list
     cfg.batch_size = 2
     cfg.optim.optimizer = "kfac"
     cfg.optim.el_chunk = 1

@@ -19,6 +19,7 @@ from deepsolid_tpu_torch.models.fwdlap_forward import make_logpsi_and_kinetic
 from deepsolid_tpu_torch.models.network import params_from_jax
 from deepsolid_tpu_torch.train import process as tprocess
 from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+from torch_helpers import REPO_SCF_CACHE
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT_DIR = os.path.join(REPO, "runs", "ckpt_diamond")
@@ -57,8 +58,12 @@ def test_trained_diamond_full_width_matches_jax():
     assert np.all(np.abs((ke + ew).real.numpy() / scale + 66.0) < 10.0)
 
 
-def _inference_cfg(tmp_path, batch=2):
+def _inference_cfg(tmp_path, monkeypatch, batch=2):
+    """The production run's source: the UHF orbitals from the committed
+    cache, whose k-list the network takes."""
+    monkeypatch.setenv("DEEPSOLID_TPU_SCF_CACHE", REPO_SCF_CACHE)
     cfg = tdiamond.get_config(CONFIG)
+    cfg.pretrain.scf = "hf"
     cfg.batch_size = batch
     cfg.optim.optimizer = "none"
     cfg.optim.el_chunk = 1
@@ -70,8 +75,8 @@ def _inference_cfg(tmp_path, batch=2):
     return cfg
 
 
-def test_process_inference_on_the_cpu(tmp_path):
-    cfg = _inference_cfg(tmp_path)
+def test_process_inference_on_the_cpu(tmp_path, monkeypatch):
+    cfg = _inference_cfg(tmp_path, monkeypatch)
     seen = []
     params, data, energy = tprocess.process(
         cfg, max_iterations=1, device="cpu",
@@ -86,7 +91,7 @@ def test_process_inference_on_the_cpu(tmp_path):
 
 
 def test_process_refuses_training_and_a_missing_gpu(tmp_path, monkeypatch):
-    cfg = _inference_cfg(tmp_path)
+    cfg = _inference_cfg(tmp_path, monkeypatch)
     cfg.optim.laplacian_mode = "partition"
     with pytest.raises(NotImplementedError, match="forward"):
         tprocess.process(cfg, max_iterations=1, device="cpu")

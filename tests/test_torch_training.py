@@ -48,6 +48,8 @@ def torch_cfg(save_path, optimizer="adam", iterations=3, batch=8, **optim):
         cfg.optim[key] = value
     cfg.mcmc.burn_in = 0
     cfg.mcmc.steps = 0  # fixed walkers: the two packages' samplers draw differently
+    cfg.pretrain.iterations = 0  # the start checkpoint is iteration 0: no pretraining
+    cfg.pretrain.method = "none"
     cfg.network.detnet.hidden_dims = NET["hidden_dims"]
     cfg.network.detnet.determinants = NET["determinants"]
     cfg.log.save_path = str(save_path)

@@ -5,6 +5,8 @@ reference (deepsolid_tpu) and the port (deepsolid_tpu_torch). Inputs are
 numpy arrays made from fixed seeds; both sides compute in float64.
 """
 
+import os
+
 import jax
 import numpy as np
 import torch
@@ -16,6 +18,9 @@ from deepsolid_tpu_torch.models import network as tnet_lib
 from deepsolid_tpu_torch.system import Atom, Cell, make_supercell
 
 F64 = torch.float64
+# the committed UHF solutions (runs/scf_cache), shared by both packages
+REPO_SCF_CACHE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                              "runs", "scf_cache")
 SMALL_NET = dict(hidden_dims=((16, 8), (16, 8)), determinants=2)
 
 
