@@ -42,13 +42,29 @@ Phases, one JSON line each; any failure exits non-zero:
                 parameters and walkers from the seed, 30 pretraining
                 iterations with method 'net', the step-0 checkpoint, burn-in
                 and 2 KFAC iterations from a fresh state);
-  9. reference - E_L, the energy gradient, the KFAC update and the
+  9. si       - the same path for Si diamond 1x1x1 (28 electrons, sto-3g,
+                runs/si_diamond_run.py's settings: el_chunk 128, here
+                psi_chunk 64), at full width;
+ 10. bcc_li   - bcc-Li 3x3x3 (54 atoms, 162 electrons) from its POSCAR
+                through the command line's config loader, at full width:
+                el_chunk and psi_chunk probed against the card's peak
+                memory, then 2 KFAC fisher_exact iterations from the
+                committed step-0 checkpoint (restored at t = 1: no
+                pretraining, no burn-in) with a fresh optimizer state;
+                both new phases report the kernel body each launch shape
+                took (as the wrappers count them), and B1, B2 and B3 are
+                then held against their plain versions and timed at every
+                shape these two paths launched;
+ 11. reference - E_L, the energy gradient, the KFAC update and the
                 pretraining loss and its gradient of 8 checkpoint walkers on
                 the card (f32, kernels) against the port's plain path on the
                 CPU in float64, and E_L with TF32 matmuls as a control the
-                check must catch;
- 10. profile  - torch.profiler over one 64-walker local-energy chunk:
-                kernels by device time and the device's idle share.
+                check must catch; E_L of 8 Si walkers (after the si phase)
+                and 2 bcc-Li checkpoint walkers the same way, each with its
+                own TF32 control;
+ 12. profile  - torch.profiler over one 64-walker C-diamond local-energy
+                chunk and one bcc-Li chunk (el_chunk walkers): kernels by
+                device time and the device's idle share.
 Launch counts are set to 0 just before each driven path and read just
 after it. The last lines are the card as nvidia-smi reports it, the
 kernels line and {"ok": true, "device": {...}}.
@@ -95,6 +111,23 @@ PRETRAIN_LR = 3e-4         # production's (runs/diamond_run.py)
 PRETRAIN_BURN_IN = 20
 PRETRAIN_KFAC_ITERATIONS = 2
 SCF_CACHE = os.path.join(REPO, "runs", "scf_cache")
+# Si diamond 1x1x1 from scratch, runs/si_diamond_run.py's settings
+SI_CONFIG = "Si,Si,5.43,1,sto-3g"
+SI_EL_CHUNK = 128          # the run script's
+SI_PSI_CHUNK = 64
+SI_KFAC_ITERATIONS = 2
+# bcc-Li 3x3x3 from the committed step-0 checkpoint, runs/bcc_li_run.py's
+# settings; el_chunk and psi_chunk are the largest candidates whose peak
+# device memory stays under PROBE_LIMIT_BYTES
+BCC_LI_CONFIG_FILE = os.path.join(REPO, "deepsolid_tpu_torch", "configs", "read_poscar.py")
+BCC_LI_POSCAR = os.path.join(REPO, "deepsolid_tpu_torch", "configs", "poscar", "bcc_li.vasp")
+BCC_LI_CKPT = os.path.join(REPO, "runs", "ckpt_bcc_li")
+BCC_LI_ITERATIONS = 2
+BCC_LI_EL_CHUNKS = (16, 32)
+BCC_LI_PSI_CHUNKS = (256, 512)
+PROBE_LIMIT_BYTES = 60e9
+BCC_LI_REFERENCE_WALKERS = 2
+SI_REFERENCE_WALKERS = 8
 REFERENCE_ENERGY = -66.0  # Ha/cell, runs/ckpt_diamond/train_stats_r5_latest.csv
 ENERGY_WINDOW = 1.5       # Ha/cell, a sanity bound; the reference phase is the exact check
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 (non-tensor) FLOP/s
@@ -187,6 +220,159 @@ def gj_edge_cases(dev, gen, errs):
     return out
 
 
+def gj_errs(a):
+    """(inverse, sign, log|det|) errors of the Gauss-Jordan kernel against
+    its plain version on the matrices `a`."""
+    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+
+    got, want = dk.gj_inverse_slogdet(a), dk.gj_inverse_slogdet_plain(a)
+    inv = float((got[0] - want[0]).abs().amax(dim=(-1, -2)).div(
+        want[0].abs().amax(dim=(-1, -2))).max())
+    return inv, float((got[1] - want[1]).abs().max()), float((got[2] - want[2]).abs().max())
+
+
+def b1_row(dev, gen, nb, n, path="main"):
+    """The Gauss-Jordan kernel on `nb` Gaussian n x n complex64 matrices
+    against its plain version, timed beside its bound and
+    torch.linalg.inv + slogdet. `path` names the driven path whose launch
+    count the row reports."""
+    import torch
+    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+
+    a = torch.complex(torch.randn((nb, n, n), generator=gen, device=dev),
+                      torch.randn((nb, n, n), generator=gen, device=dev)) / math.sqrt(2 * n)
+    inv_err, sg_err, ld_err = gj_errs(a)
+    # Gaussian matrices: the worst-conditioned of 8192 amplifies f32
+    # rounding-order differences to ~1e-3 of the inverse's scale
+    b1_bytes = 2 * a.numel() * 8 + nb * (8 + 4)
+    b1_flops = 8.0 * n**3 * nb  # n^3 complex multiply-adds
+    bnd, by = bound_ms(b1_bytes, b1_flops)
+    return {
+        "name": "gj_inverse_slogdet", "route": "cuda",
+        "source": "deepsolid_tpu_torch/ops/cuda/csrc/gj_inverse.cu",
+        "replaces": "deepsolid_tpu/ops/pallas/det_kernels.py:172",
+        "per": f"one launch on ({nb}, {n}, {n}) complex64", "path": path,
+        "shapes": [[nb, n, n]],
+        "variant": dk.variant(dk._lib(), n, dev),
+        "max_abs_err": ld_err, "max_rel_err_inverse": inv_err,
+        "max_abs_err_sign": sg_err, "tolerance": 5e-3,
+        "ok": inv_err <= 5e-3 and ld_err <= 5e-3 and sg_err <= 5e-3,
+        "ms": time_ms(lambda: dk.gj_inverse_slogdet(a)),
+        "plain_ms": time_ms(lambda: dk.gj_inverse_slogdet_plain(a), reps=5),
+        "library_ms": time_ms(lambda: (torch.linalg.inv(a), torch.linalg.slogdet(a))),
+        "bound_ms": bnd, "bound_by": by,
+    }
+
+
+def recorded(fn):
+    """fn()'s result and the kernel body of the one jet launch it made, as
+    the wrapper counted it."""
+    from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
+
+    before = jk.SHAPES.copy()
+    out = fn()
+    (key,) = (jk.SHAPES - before).keys()
+    return out, key[2]
+
+
+def jet_bytes_flops(t, r, k, c, mix_groups=0):
+    nbytes = 4 * ((t + 2) * r * k + k * c + c + (t + 2) * r * c
+                  + (t + 2) * mix_groups * c)
+    return nbytes, 2.0 * (t + 2) * r * k * c
+
+
+def b3_row(dev, gen, n, groups, path="main", system=""):
+    """The mix jet kernel on the three one-electron layers of one E_L chunk
+    of `groups` walkers of n electrons (T = 3n; layer 0: 16 -> 256, layers
+    1, 2: 320 -> 256) against its plain version, timed beside its bound."""
+    import torch
+    from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    t3, c3 = 3 * n, 256
+    err = rel = 0.0
+    total = plain = mm = nbytes = flops = 0.0
+    ms, variants = [], []
+    for k, count in ((16, 1), (320, 2)):
+        args = (rnd(groups, n, k), rnd(t3, groups, n, k), rnd(groups, n, k),
+                rnd(groups, c3), rnd(groups, c3), rnd(t3, groups, c3),
+                rnd(k, c3) / math.sqrt(k), rnd(c3))
+        got, variant = recorded(lambda: jk.fused_dense_tanh_jet_mix(*args))
+        e, r_ = max_errs(got, jk.fused_dense_tanh_jet_mix_plain(*args))
+        err, rel = max(err, e), max(rel, r_)
+        del got
+        t_k = time_ms(lambda: jk.fused_dense_tanh_jet_mix(*args))
+        ms.append(t_k)
+        variants.append(variant)
+        total += count * t_k
+        plain += count * time_ms(lambda: jk.fused_dense_tanh_jet_mix_plain(*args))
+        mm += count * time_ms(lambda: torch.matmul(args[1], args[6]))
+        b_, f_ = jet_bytes_flops(t3, groups * n, k, c3, groups)
+        nbytes, flops = nbytes + count * b_, flops + count * f_
+        del args
+    torch.cuda.empty_cache()
+    bnd, by = bound_ms(nbytes, flops)
+    return {
+        "name": "fused_dense_tanh_jet_mix", "route": "cuda",
+        "source": "deepsolid_tpu_torch/ops/cuda/csrc/dense_tanh_jet.cu",
+        "replaces": "deepsolid_tpu/ops/pallas/jet_kernels.py:534",
+        "per": (f"the three one-electron layers of one {groups}-walker {system}chunk "
+                f"(T={t3}, {groups * n} rows, 16->256, 2x 320->256)"),
+        "path": path, "variant": variants,
+        "shapes": [[t3, groups * n, k, c3] for k in (16, 320)],
+        "max_abs_err": err, "max_rel_err": rel,
+        "tolerance": 1e-5, "ok": rel <= 1e-5,
+        "ms": total, "ms_per_shape": ms, "plain_ms": plain,
+        "library_ms": None, "matmul_ms": mm, "bound_ms": bnd, "bound_by": by,
+    }
+
+
+def b2_row(dev, gen, n, groups, path="main", system=""):
+    """The plain jet kernel on the two pair layers of one E_L chunk of
+    `groups` walkers of n electrons (T = 6, groups * n^2 rows; 4 -> 32 and
+    32 -> 32) against its plain version, timed beside its bound."""
+    import torch
+    from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rows, ms, variants = groups * n * n, [], []
+    err = rel = 0.0
+    nbytes = flops = plain = mm = 0.0
+    for k, c in ((4, 32), (32, 32)):
+        args = (rnd(rows, k), rnd(6, rows, k), rnd(rows, k),
+                rnd(k, c) / math.sqrt(k), rnd(c))
+        got, variant = recorded(lambda: jk.fused_dense_tanh_jet(*args))
+        e, r_ = max_errs(got, jk.fused_dense_tanh_jet_plain(*args))
+        err, rel = max(err, e), max(rel, r_)
+        del got
+        ms.append(time_ms(lambda: jk.fused_dense_tanh_jet(*args)))
+        variants.append(variant)
+        plain += time_ms(lambda: jk.fused_dense_tanh_jet_plain(*args))
+        mm += time_ms(lambda: torch.matmul(args[1], args[3]))
+        b_, f_ = jet_bytes_flops(6, rows, k, c)
+        nbytes, flops = nbytes + b_, flops + f_
+        del args
+    torch.cuda.empty_cache()
+    bnd, by = bound_ms(nbytes, flops)
+    return {
+        "name": "fused_dense_tanh_jet", "route": "cuda",
+        "source": "deepsolid_tpu_torch/ops/cuda/csrc/dense_tanh_jet.cu",
+        "replaces": "deepsolid_tpu/ops/pallas/jet_kernels.py:263",
+        "per": (f"both two-electron layers of one {groups}-walker {system}chunk "
+                f"(T=6, {rows} rows, 4->32 and 32->32)"),
+        "path": path, "variant": variants,
+        "shapes": [[6, rows, k, 32] for k in (4, 32)],
+        "max_abs_err": err, "max_rel_err": rel,
+        "tolerance": 1e-5, "ok": rel <= 1e-5,
+        "ms": sum(ms), "ms_per_shape": ms, "plain_ms": plain,
+        "library_ms": None, "matmul_ms": mm, "bound_ms": bnd, "bound_by": by,
+    }
+
+
 def kernel_phase(dev, gen):
     """Each kernel at the main path's shapes against its plain version."""
     import torch
@@ -200,61 +386,18 @@ def kernel_phase(dev, gen):
     # B1: log|psi| of 1024 walkers x 8 determinants, one spin channel, as the
     # sampler launches it, and of one 64-walker chunk (E_L, and every sampler
     # sweep when psi_chunk is set): a launch too small to fill the card
-    n = 48
-
-    def gj_errs(a):
-        got, want = dk.gj_inverse_slogdet(a), dk.gj_inverse_slogdet_plain(a)
-        inv = float((got[0] - want[0]).abs().amax(dim=(-1, -2)).div(
-            want[0].abs().amax(dim=(-1, -2))).max())
-        return inv, float((got[1] - want[1]).abs().max()), float((got[2] - want[2]).abs().max())
-
     edge = gj_edge_cases(dev, gen, gj_errs)
     sing = torch.diag(torch.tensor([1.0, 2.0, 0.0], device=dev)).to(torch.complex64)
     sing_ld = float(dk.gj_inverse_slogdet(sing[None])[2][0])
     for nb in (BATCH * 8, EL_CHUNK * 8):
-        a = torch.complex(rnd(nb, n, n), rnd(nb, n, n)) / math.sqrt(2 * n)
-        inv_err, sg_err, ld_err = gj_errs(a)
-        # Gaussian matrices: the worst-conditioned of 8192 amplifies f32
-        # rounding-order differences to ~1e-3 of the inverse's scale
-        ok = (inv_err <= 5e-3 and ld_err <= 5e-3 and sg_err <= 5e-3
-              and sing_ld == -math.inf and all(c["ok"] for c in edge))
-        b1_bytes = 2 * a.numel() * 8 + nb * (8 + 4)
-        b1_flops = 8.0 * n**3 * nb  # n^3 complex multiply-adds
-        bnd, by = bound_ms(b1_bytes, b1_flops)
-        rows.append({
-            "name": "gj_inverse_slogdet", "route": "cuda",
-            "source": "deepsolid_tpu_torch/ops/cuda/csrc/gj_inverse.cu",
-            "replaces": "deepsolid_tpu/ops/pallas/det_kernels.py:172",
-            "per": f"one launch on ({nb}, 48, 48) complex64",
-            "max_abs_err": ld_err, "max_rel_err_inverse": inv_err,
-            "max_abs_err_sign": sg_err, "singular_logdet": sing_ld,
-            "edge_cases": edge, "tolerance": 5e-3, "ok": ok,
-            "ms": time_ms(lambda: dk.gj_inverse_slogdet(a)),
-            "plain_ms": time_ms(lambda: dk.gj_inverse_slogdet_plain(a), reps=5),
-            "library_ms": time_ms(lambda: (torch.linalg.inv(a), torch.linalg.slogdet(a))),
-            "bound_ms": bnd, "bound_by": by,
-        })
-
-    def jet_bytes_flops(t, r, k, c, mix_groups=0):
-        nbytes = 4 * ((t + 2) * r * k + k * c + c + (t + 2) * r * c
-                      + (t + 2) * mix_groups * c)
-        return nbytes, 2.0 * (t + 2) * r * k * c
+        row = b1_row(dev, gen, nb, 48)
+        row.update(singular_logdet=sing_ld, edge_cases=edge,
+                   ok=row["ok"] and sing_ld == -math.inf and all(c["ok"] for c in edge))
+        rows.append(row)
 
     # B2: two-electron layers of one 64-walker E_L chunk (pair rows)
-    rows_b2, ms = EL_CHUNK * 96 * 96, []
-    err = rel = 0.0
-    nbytes = flops = plain = mm = 0.0
-    for k, c in ((4, 32), (32, 32)):
-        args = (rnd(rows_b2, k), rnd(6, rows_b2, k), rnd(rows_b2, k),
-                rnd(k, c) / math.sqrt(k), rnd(c))
-        e, r_ = max_errs(jk.fused_dense_tanh_jet(*args),
-                         jk.fused_dense_tanh_jet_plain(*args))
-        err, rel = max(err, e), max(rel, r_)
-        ms.append(time_ms(lambda: jk.fused_dense_tanh_jet(*args)))
-        plain += time_ms(lambda: jk.fused_dense_tanh_jet_plain(*args))
-        mm += time_ms(lambda: torch.matmul(args[1], args[3]))
-        b_, f_ = jet_bytes_flops(6, rows_b2, k, c)
-        nbytes, flops = nbytes + b_, flops + f_
+    rows_b2 = EL_CHUNK * 96 * 96
+    row = b2_row(dev, gen, 96, EL_CHUNK)
     # the pair body at a ragged shape (rows no multiple of its 32-row tile)
     # and a pair-like shape that falls to the general kernel (d_in 8)
     def pair_extra(fn, plain, t):
@@ -268,57 +411,22 @@ def kernel_phase(dev, gen):
         return out
 
     b2_extra = pair_extra(jk.fused_dense_tanh_jet, jk.fused_dense_tanh_jet_plain, 6)
-    rel = max(rel, *b2_extra.values())
-    bnd, by = bound_ms(nbytes, flops)
-    rows.append({
-        "name": "fused_dense_tanh_jet", "route": "cuda",
-        "source": "deepsolid_tpu_torch/ops/cuda/csrc/dense_tanh_jet.cu",
-        "replaces": "deepsolid_tpu/ops/pallas/jet_kernels.py:263",
-        "per": "both two-electron layers of one 64-walker chunk (T=6, 589824 rows, 4->32 and 32->32)",
-        "max_abs_err": err, "max_rel_err": rel, **b2_extra,
-        "tolerance": 1e-5, "ok": rel <= 1e-5,
-        "ms": sum(ms), "ms_per_shape": ms, "plain_ms": plain,
-        "library_ms": None, "matmul_ms": mm, "bound_ms": bnd, "bound_by": by,
-    })
+    row["max_rel_err"] = max(row["max_rel_err"], *b2_extra.values())
+    row.update(b2_extra, ok=row["max_rel_err"] <= 1e-5)
+    rows.append(row)
 
     # B3: one-electron layers of one chunk (layer 0: 16 -> 256, layers 1, 2: 320 -> 256)
     t3, c3 = 3 * 96, 256
-    err = rel = 0.0
-    total = plain = mm = nbytes = flops = 0.0
-    ms = []
-    for k, count in ((16, 1), (320, 2)):
-        args = (rnd(EL_CHUNK, 96, k), rnd(t3, EL_CHUNK, 96, k), rnd(EL_CHUNK, 96, k),
-                rnd(EL_CHUNK, c3), rnd(EL_CHUNK, c3), rnd(t3, EL_CHUNK, c3),
-                rnd(k, c3) / math.sqrt(k), rnd(c3))
-        e, r_ = max_errs(jk.fused_dense_tanh_jet_mix(*args),
-                         jk.fused_dense_tanh_jet_mix_plain(*args))
-        err, rel = max(err, e), max(rel, r_)
-        t_k = time_ms(lambda: jk.fused_dense_tanh_jet_mix(*args))
-        ms.append(t_k)
-        total += count * t_k
-        plain += count * time_ms(lambda: jk.fused_dense_tanh_jet_mix_plain(*args))
-        mm += count * time_ms(lambda: torch.matmul(args[1], args[6]))
-        b_, f_ = jet_bytes_flops(t3, EL_CHUNK * 96, k, c3, EL_CHUNK)
-        nbytes, flops = nbytes + count * b_, flops + count * f_
-        del args
+    row = b3_row(dev, gen, 96, EL_CHUNK)
     # a ragged shape: 385 rows (no multiple of the row tile), 50 tangents
     # (no multiple of the slices), d_in 40 (no multiple of the k-slice)
     ragged = (rnd(5, 77, 40), rnd(50, 5, 77, 40), rnd(5, 77, 40), rnd(5, c3),
               rnd(5, c3), rnd(50, 5, c3), rnd(40, c3) / math.sqrt(40), rnd(c3))
     _, ragged_rel = max_errs(jk.fused_dense_tanh_jet_mix(*ragged),
                              jk.fused_dense_tanh_jet_mix_plain(*ragged))
-    rel = max(rel, ragged_rel)
-    bnd, by = bound_ms(nbytes, flops)
-    rows.append({
-        "name": "fused_dense_tanh_jet_mix", "route": "cuda",
-        "source": "deepsolid_tpu_torch/ops/cuda/csrc/dense_tanh_jet.cu",
-        "replaces": "deepsolid_tpu/ops/pallas/jet_kernels.py:534",
-        "per": "the three one-electron layers of one 64-walker chunk (T=288, 6144 rows, 16->256, 2x 320->256)",
-        "max_abs_err": err, "max_rel_err": rel, "ragged_max_rel_err": ragged_rel,
-        "tolerance": 1e-5, "ok": rel <= 1e-5,
-        "ms": total, "ms_per_shape": ms, "plain_ms": plain,
-        "library_ms": None, "matmul_ms": mm, "bound_ms": bnd, "bound_by": by,
-    })
+    row["max_rel_err"] = max(row["max_rel_err"], ragged_rel)
+    row.update(ragged_max_rel_err=ragged_rel, ok=row["max_rel_err"] <= 1e-5)
+    rows.append(row)
     # B4a/B4b: the open forms. A rank of a 2-way deriv axis holds T_local =
     # 144 of the 288 tangents (3 of the 6 at the pair shape) and gets the
     # tangent square sum back instead of a closed Laplacian.
@@ -411,6 +519,27 @@ def kernel_phase(dev, gen):
     return rows
 
 
+def production_kernel_rows(dev, gen, bcc_li_el_chunk, bcc_li_psi_chunk):
+    """B1, B2 and B3 at every shape the Si and bcc-Li paths give them: B1
+    on a sampler launch (psi_chunk x 8 determinants) and an E_L launch
+    (el_chunk x 8) of each, n = 14 and 81; B2 and B3 on one E_L chunk of
+    each. Each row lists its shapes; the Si sampler row also holds 1024
+    walkers x 8 at n = 14, as runs/si_diamond_run.py samples with
+    psi_chunk unset, a shape this run does not launch."""
+    si_n, bcc_n = 14, 81
+    si = b1_row(dev, gen, SI_PSI_CHUNK * 8, si_n, "si")
+    si["run_script_shape"] = b1_row(dev, gen, BATCH * 8, si_n, "si")
+    rows = [si, b1_row(dev, gen, SI_EL_CHUNK * 8, si_n, "si"),
+            b1_row(dev, gen, bcc_li_psi_chunk * 8, bcc_n, "bcc_li"),
+            b1_row(dev, gen, bcc_li_el_chunk * 8, bcc_n, "bcc_li"),
+            b2_row(dev, gen, 2 * si_n, SI_EL_CHUNK, "si", "Si "),
+            b2_row(dev, gen, 2 * bcc_n, bcc_li_el_chunk, "bcc_li", "bcc-Li "),
+            b3_row(dev, gen, 2 * si_n, SI_EL_CHUNK, "si", "Si "),
+            b3_row(dev, gen, 2 * bcc_n, bcc_li_el_chunk, "bcc_li", "bcc-Li ")]
+    si["ok"] = si["ok"] and si["run_script_shape"]["ok"]
+    return rows
+
+
 def reset_launches():
     from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
     from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
@@ -418,6 +547,8 @@ def reset_launches():
     for counts in (dk.LAUNCHES, jk.LAUNCHES):
         for key in counts:
             counts[key] = 0
+    dk.SHAPES.clear()
+    jk.SHAPES.clear()
 
 
 def read_launches():
@@ -425,6 +556,16 @@ def read_launches():
     from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
 
     return {**dk.LAUNCHES, **jk.LAUNCHES}
+
+
+def read_shapes():
+    """Launches by kernel, shape and kernel body since reset_launches, as
+    the wrappers count them."""
+    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+    from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
+
+    return [{"kernel": k, "shape": list(shape), "variant": v, "launches": c}
+            for (k, shape, v), c in sorted((dk.SHAPES + jk.SHAPES).items(), key=str)]
 
 
 def diamond_cfg(optimizer, batch, save_name, deriv_devices=1):
@@ -698,9 +839,7 @@ def production_kfac(cfg):
 def kfac_phase(dev):
     """KFAC fisher_exact iterations at 1024 walkers, continuing the
     checkpoint's KFAC state."""
-    import numpy as np
     import torch
-    from deepsolid_tpu_torch.optim import kfac as kfac_lib
     from deepsolid_tpu_torch.optim.adam import tree_leaves
     from deepsolid_tpu_torch.train.process import process
     from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
@@ -743,30 +882,12 @@ def kfac_phase(dev):
                  first_damping * omega)))
     params_finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
 
-    ckpt = find_last_checkpoint(cfg.log.save_path)
-    ckpt_ok = factors_finite = False
-    if ckpt:
-        t_next, data, ck_params, raw, _ = restore(ckpt)
-        state = kfac_lib.state_from_numpy(raw, dev, torch.float32)
-        again = kfac_lib.state_to_numpy(state)
-        factors_finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(
-            [state["blocks"], state["diag"], state["velocities"]]))
-        ckpt_ok = (
-            t_next == t_start + KFAC_ITERATIONS and data.shape == (BATCH, 288)
-            and int(state["step"]) == start_step + KFAC_ITERATIONS
-            and float(state["damping"]) == np.float32(iters[-1]["damping"])
-            and float(state["rho"]) == np.float32(iters[-1]["rho"])
-            and all(np.array_equal(a, b) for a, b in
-                    zip(tree_leaves(again), tree_leaves(raw)))
-            and all(np.array_equal(a, b.cpu().numpy()) for a, b in
-                    zip(tree_leaves(ck_params), tree_leaves(params))))
+    ckpt_ok, factors_finite, ckpt = kfac_checkpoint_ok(
+        cfg.log.save_path, t_start + KFAC_ITERATIONS, BATCH, 288, params, iters, dev)
 
     keys = ("mcmc", "local_energy", "gradient", "curvature", "update", "step")
     plain = [r for r in iters if not r["adapted"]] or iters
-
-    def med(key, recs):
-        return statistics.median(r["seconds"][key] for r in recs)
-
+    med = med_seconds
     result = {
         "phase": "kfac", "optimizer": "kfac fisher_exact", "batch": BATCH,
         "el_chunk": EL_CHUNK, "psi_chunk": EL_CHUNK, "iterations": len(iters),
@@ -782,7 +903,7 @@ def kfac_phase(dev):
         "walkers_per_s_iteration_without_adaptation": BATCH / med("step", plain),
         "walkers_per_s_iteration_all": BATCH / med("step", iters),
         "peak_memory_bytes": peak, "launches": launches,
-        "state_restored": restored, "checkpoint": os.path.basename(ckpt or ""),
+        "state_restored": restored, "checkpoint": ckpt,
         "checkpoint_restores": ckpt_ok, "parameters_finite": params_finite,
         "factors_finite": factors_finite,
     }
@@ -832,27 +953,64 @@ def source_phase():
     return source
 
 
-def pretrain_phase(dev, source):
-    """process() from scratch, as the production run script starts: the
-    orbital source, parameters and walkers from the seed, pretraining, the
-    step-0 checkpoint, burn-in and KFAC iterations from a fresh state."""
-    import numpy as np
-    import torch
-    from deepsolid_tpu_torch.optim.adam import tree_leaves
-    from deepsolid_tpu_torch.train.process import process
-    from deepsolid_tpu_torch.utils.checkpoint import restore
-
-    cfg = production_kfac(diamond_cfg("kfac", BATCH, "chip_smoke_pretrain"))
-    cfg.optim.psi_chunk = EL_CHUNK
-    cfg.optim.kfac.damping_adaptation_interval = 10  # production's
+def from_scratch(cfg):
+    """`cfg` starting as a production run script starts: from the seed,
+    with pretraining (method 'net'), the step-0 checkpoint and burn-in."""
     cfg.log.restore_path = ""
     cfg.mcmc.burn_in = PRETRAIN_BURN_IN
     cfg.pretrain.method = "net"
     cfg.pretrain.iterations = PRETRAIN_ITERATIONS
     cfg.pretrain.lr = PRETRAIN_LR
     cfg.pretrain.steps = 1
-    shutil.rmtree(cfg.log.save_path, ignore_errors=True)
+    return cfg
 
+
+def med_seconds(key, recs):
+    return statistics.median(r["seconds"][key] for r in recs)
+
+
+def kfac_checkpoint_ok(save_path, t_next_want, batch, n3, params, iters, dev):
+    """The last checkpoint of a KFAC run restores: its clock, walkers,
+    parameters and a state at the run's optimizer step, damping and rho
+    with finite factors. Returns (ok, factors finite, file name)."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.optim import kfac as kfac_lib
+    from deepsolid_tpu_torch.optim.adam import tree_leaves
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    ckpt = find_last_checkpoint(save_path)
+    if not ckpt:
+        return False, False, ""
+    t_next, data, ck_params, raw, _ = restore(ckpt)
+    state = kfac_lib.state_from_numpy(raw, dev, torch.float32)
+    again = kfac_lib.state_to_numpy(state)
+    finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(
+        [state["blocks"], state["diag"], state["velocities"]]))
+    ok = (t_next == t_next_want and data.shape == (batch, n3)
+          and int(state["step"]) == iters[-1]["optimizer_step"] + 1
+          and float(state["damping"]) == np.float32(iters[-1]["damping"])
+          and float(state["rho"]) == np.float32(iters[-1]["rho"])
+          and all(np.array_equal(a, b) for a, b in
+                  zip(tree_leaves(again), tree_leaves(raw)))
+          and all(np.array_equal(a, b.cpu().numpy()) for a, b in
+                  zip(tree_leaves(ck_params), tree_leaves(params))))
+    return ok, finite, os.path.basename(ckpt)
+
+
+def scratch_run(dev, cfg, source, phase, kfac_iterations, emit_iterations=True):
+    """process() from scratch: the orbital source, parameters and walkers
+    from the seed, pretraining, the step-0 checkpoint, burn-in and
+    `kfac_iterations` KFAC iterations from a fresh state. Returns the
+    phase's record (not yet emitted) with its checks in "ok"."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.optim.adam import tree_leaves
+    from deepsolid_tpu_torch.train.process import process
+    from deepsolid_tpu_torch.utils.checkpoint import restore
+
+    shutil.rmtree(cfg.log.save_path, ignore_errors=True)
+    batch, n3 = cfg.batch_size, 3 * sum(cfg.system.cell.nelec)
     pre, iters = [], []
     step0 = os.path.join(cfg.log.save_path, "qmcjax_ckpt_000000.npz")
     step0_ok = []
@@ -863,24 +1021,25 @@ def pretrain_phase(dev, source):
         ok = False
         if os.path.exists(step0):
             t_next, ck_data, ck_params, ck_state, _ = restore(step0)
-            ok = (t_next == 1 and ck_state is None and ck_data.shape == (BATCH, 288)
+            ok = (t_next == 1 and ck_state is None and ck_data.shape == (batch, n3)
                   and bool(np.isfinite(ck_data).all())
                   and all(np.isfinite(a).all() for a in tree_leaves(ck_params)))
         step0_ok.append(ok)
 
     def on_pretrain(t, loss, pmove, seconds):
         b1 = read_launches()["gj_inverse_slogdet"]
-        rec = {"phase": "pretrain_iteration", "step": t, "loss": loss, "pmove": pmove,
+        rec = {"phase": f"{phase}_iteration", "step": t, "loss": loss, "pmove": pmove,
                "seconds": seconds, "b1_launches": b1 - sum(r["b1_launches"] for r in pre),
                "peak_memory_bytes_so_far": torch.cuda.max_memory_allocated(dev)}
         pre.append(rec)
-        emit(rec)
+        if emit_iterations:
+            emit(rec)
 
     def on_iteration(t, row, seconds):
         if not step0_ok:
             check_step0()
         row.pop("local_energy")
-        rec = {"phase": "pretrain_kfac_iteration", "step": t, **row, "seconds": seconds,
+        rec = {"phase": f"{phase}_kfac_iteration", "step": t, **row, "seconds": seconds,
                "adapted": "adapt" in seconds}
         iters.append(rec)
         emit(rec)
@@ -888,64 +1047,326 @@ def pretrain_phase(dev, source):
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     start = time.perf_counter()
-    params, data, energy = process(cfg, PRETRAIN_KFAC_ITERATIONS, device="cuda",
+    params, data, energy = process(cfg, kfac_iterations, device="cuda",
                                    on_iteration=on_iteration, on_pretrain=on_pretrain)
     wall = time.perf_counter() - start
-    launches = read_launches()
+    launches, shapes = read_launches(), read_shapes()
     peak = torch.cuda.max_memory_allocated(dev)
 
     if not step0_ok:
         check_step0()
     step0_ok = step0_ok[0]
+    ckpt_ok, factors_finite, ckpt = (kfac_checkpoint_ok(
+        cfg.log.save_path, kfac_iterations, batch, n3, params, iters, dev)
+        if iters else (False, False, ""))
     losses = [r["loss"] for r in pre]
 
-    def med(key, recs):
-        return statistics.median(r["seconds"][key] for r in recs)
-
     # the targets alone: the UHF orbital matrices of one psi_chunk of walkers
-    chunk = data[:EL_CHUNK].contiguous()
+    chunk = data[:cfg.optim.psi_chunk].contiguous()
     target_ms = time_ms(lambda: source.orbital_mats(chunk), reps=10)
 
     steady = pre[1:]  # iterations 2-30: the first pays warm-up
+    plain = [r for r in iters if not r["adapted"]] or iters
     result = {
-        "phase": "pretrain", "method": cfg.pretrain.method, "scf": cfg.pretrain.scf,
-        "batch": BATCH, "psi_chunk": EL_CHUNK, "el_chunk": EL_CHUNK,
-        "lr": PRETRAIN_LR, "iterations": len(pre), "burn_in": PRETRAIN_BURN_IN,
+        "phase": phase, "method": cfg.pretrain.method, "scf": cfg.pretrain.scf,
+        "basis": cfg.system.basis, "electrons": list(cfg.system.cell.nelec),
+        "batch": batch, "psi_chunk": cfg.optim.psi_chunk, "el_chunk": cfg.optim.el_chunk,
+        "lr": cfg.pretrain.lr, "iterations": len(pre), "burn_in": cfg.mcmc.burn_in,
         "kfac_iterations": len(iters), "seconds": wall,
         "loss_first": losses[0] if losses else None,
         "loss_last": losses[-1] if losses else None,
         "pmove": [r["pmove"] for r in pre],
-        "seconds_per_iteration_median": {k: med(k, steady) for k in
+        "seconds_per_iteration_median": {k: med_seconds(k, steady) for k in
                                          ("loss_grad", "update", "mcmc", "step")},
-        "walkers_per_s_pretraining_median": BATCH / med("step", steady),
+        "walkers_per_s_pretraining_median": batch / med_seconds("step", steady),
         "target_orbitals_ms_per_psi_chunk": target_ms,
         "b1_launches_per_iteration": sorted({r["b1_launches"] for r in pre}),
         "peak_memory_bytes_pretraining": pre[-1]["peak_memory_bytes_so_far"] if pre else None,
-        "peak_memory_bytes": peak, "launches": launches,
+        "peak_memory_bytes": peak, "launches": launches, "launch_shapes": shapes,
         "step0_checkpoint": os.path.relpath(step0, REPO), "step0_restores": step0_ok,
+        "checkpoint": ckpt, "checkpoint_restores": ckpt_ok,
+        "factors_finite": factors_finite,
         "kfac_energy_per_cell": [r["energy"] for r in iters],
-        "kfac_seconds_per_iteration": [r["seconds"]["step"] for r in iters],
+        "kfac_seconds_per_iteration": [r["seconds"] for r in iters],
+        "kfac_walkers_per_s_local_energy": [batch / r["seconds"]["local_energy"]
+                                            for r in iters],
+        "kfac_walkers_per_s_iteration_without_adaptation":
+            batch / med_seconds("step", plain) if iters else None,
         "energy_per_cell": energy,
     }
     result["ok"] = (
         len(pre) == PRETRAIN_ITERATIONS and len(steady) > 0
         and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-        and step0_ok and bool(torch.isfinite(data).all())
+        and step0_ok and ckpt_ok and factors_finite
+        and bool(torch.isfinite(data).all())
         and all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
-        and len(iters) == PRETRAIN_KFAC_ITERATIONS
-        and all(math.isfinite(r["energy"]) for r in iters) and math.isfinite(energy)
+        and len(iters) == kfac_iterations
+        and all(math.isfinite(r["energy"]) and math.isfinite(r["grad_norm"])
+                and math.isfinite(r["rho"]) for r in iters)
+        and math.isfinite(energy)
         and all(r["b1_launches"] > 0 for r in pre)
         and launches["gj_inverse_slogdet"] > 0
         and launches["fused_dense_tanh_jet"] > 0
         and launches["fused_dense_tanh_jet_mix"] > 0)
+    return result, params, data
+
+
+def pretrain_phase(dev, source):
+    """process() from scratch, as the production run script starts: the
+    orbital source, parameters and walkers from the seed, pretraining, the
+    step-0 checkpoint, burn-in and KFAC iterations from a fresh state."""
+    cfg = from_scratch(production_kfac(diamond_cfg("kfac", BATCH, "chip_smoke_pretrain")))
+    cfg.optim.psi_chunk = EL_CHUNK
+    cfg.optim.kfac.damping_adaptation_interval = 10  # production's
+    result, _, _ = scratch_run(dev, cfg, source, "pretrain", PRETRAIN_KFAC_ITERATIONS)
     emit(result)
     return result
 
 
-def reference_phase(dev, source):
+def si_cfg():
+    """runs/si_diamond_run.py's settings from its first step, at 1024
+    walkers with `psi_chunk` 64 (the run script leaves it unset)."""
+    from deepsolid_tpu_torch.configs import diamond
+
+    cfg = production_kfac(diamond.get_config(SI_CONFIG))
+    cfg.batch_size = BATCH
+    cfg.precision = "float32"
+    cfg.optim.laplacian_mode = "forward"
+    cfg.optim.el_chunk = SI_EL_CHUNK
+    cfg.optim.psi_chunk = SI_PSI_CHUNK
+    cfg.optim.kfac.damping_adaptation_interval = 10  # production's
+    cfg.mcmc.steps = 20
+    cfg.pretrain.scf = "hf"
+    cfg.debug.deterministic = True
+    cfg.log.save_path = os.path.join(REPO, "build", "chip_smoke_si")
+    return from_scratch(cfg)
+
+
+def si_phase(dev):
+    """Si diamond 1x1x1 (28 electrons) from scratch at full width. Returns
+    the record and what the reference phase holds: (cfg, k-list, numpy
+    parameters, walkers) after the KFAC iterations."""
+    from deepsolid_tpu_torch.models.network import params_to_numpy
+    from deepsolid_tpu_torch.train.process import orbital_source
+
+    cfg = si_cfg()
+    source = orbital_source(cfg, cfg.system.cell)
+    result, params, data = scratch_run(dev, cfg, source, "si", SI_KFAC_ITERATIONS,
+                                       emit_iterations=False)
+    result["config"] = SI_CONFIG
+    emit(result)
+    return result, (cfg, source.klist, params_to_numpy(params),
+                    data[:SI_REFERENCE_WALKERS].cpu().numpy())
+
+
+def bcc_li_cfg(el_chunk, psi_chunk):
+    """runs/bcc_li_run.py's settings, loaded as the command line loads them
+    (deepsolid_tpu_torch.cli): the port's POSCAR copy, 3x3x3, sto-3g."""
+    from deepsolid_tpu_torch import cli
+
+    overrides = {
+        "batch_size": BATCH, "precision": "float32", "optim.optimizer": "kfac",
+        "optim.laplacian_mode": "forward", "optim.el_chunk": el_chunk,
+        "optim.psi_chunk": psi_chunk, "mcmc.burn_in": 100, "mcmc.steps": 20,
+        "pretrain.method": "net", "pretrain.scf": "hf", "pretrain.iterations": 500,
+        "optim.kfac.adaptive_damping": True,
+        "optim.kfac.damping_adaptation_interval": 10,
+        "log.restore_path": BCC_LI_CKPT,
+        "log.save_path": os.path.join(REPO, "build", "chip_smoke_bcc_li"),
+        "debug.deterministic": True,
+    }
+    argv = [f"--config={BCC_LI_CONFIG_FILE}:{BCC_LI_POSCAR},3,sto-3g"]
+    for key, value in overrides.items():
+        argv += [f"--config.{key}", str(value)]
+    cfg, _ = cli.parse(argv)
+    return cfg
+
+
+def bcc_li_probe(dev, cfg, net, params, x):
+    """Peak device memory of one E_L chunk of each candidate `el_chunk` and
+    of KFAC's curvature capture (the largest psi_chunk-chunked pass: one
+    tapped forward, two backward passes) of each candidate `psi_chunk`;
+    the largest candidate under PROBE_LIMIT_BYTES that divides the batch
+    is taken. A candidate that runs out of memory reads None."""
+    import torch
+    from deepsolid_tpu_torch.hamiltonian import make_local_energy
+    from deepsolid_tpu_torch.optim import kfac as kfac_lib
+    from deepsolid_tpu_torch.optim.adam import learning_rate_schedule
+
+    el_fn = make_local_energy(net, cfg.system.cell)
+
+    def peak(fn):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            fn()
+            torch.cuda.synchronize(dev)
+        except torch.cuda.OutOfMemoryError:
+            return None
+        finally:
+            torch.cuda.empty_cache()
+        return torch.cuda.max_memory_allocated(dev)
+
+    def capture(n):
+        cfg.optim.psi_chunk = n
+        opt = kfac_lib.KfacOptimizer.from_config(cfg, net, learning_rate_schedule(cfg))
+        opt.update_curvature(opt.init(params), params, x[:n])
+
+    with torch.no_grad():
+        el = {c: peak(lambda: el_fn(params, x[:c])) for c in BCC_LI_EL_CHUNKS}
+    psi = {c: peak(lambda: capture(c)) for c in BCC_LI_PSI_CHUNKS}
+
+    def choose(readings):
+        fits = [c for c, b in readings.items()
+                if b is not None and b < PROBE_LIMIT_BYTES and BATCH % c == 0]
+        return max(fits) if fits else None
+
+    return {"el_chunk_peak_bytes": el, "psi_chunk_peak_bytes": psi,
+            "limit_bytes": PROBE_LIMIT_BYTES,
+            "el_chunk": choose(el), "psi_chunk": choose(psi)}
+
+
+def bcc_li_phase(dev):
+    """bcc-Li 3x3x3 (54 atoms, 162 electrons) at full width: KFAC
+    fisher_exact iterations from the committed step-0 checkpoint with a
+    fresh optimizer state, el_chunk and psi_chunk taken from the card's
+    own peak memory. Returns the record and what the reference phase
+    holds: (cfg, k-list, the checkpoint's parameters and walkers)."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.optim.adam import tree_leaves
+    from deepsolid_tpu_torch.train.process import build_network, orbital_source, process
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    cfg = bcc_li_cfg(0, 0)
+    sc = cfg.system.cell
+    klist = orbital_source(cfg, sc).klist
+    net = build_network(cfg, sc, klist_override=klist)
+    t_start, start_data, start_params, _, _ = restore(find_last_checkpoint(BCC_LI_CKPT))
+    params = params_from_jax(start_params, dev, torch.float32)
+    x = torch.as_tensor(np.asarray(start_data), dtype=torch.float32, device=dev)
+    probe = bcc_li_probe(dev, cfg, net, params, x)
+    emit({"phase": "bcc_li_probe", **probe})
+    del params, x
+    if probe["el_chunk"] is None or probe["psi_chunk"] is None:
+        return {"phase": "bcc_li", "ok": False, "probe": probe}, None
+
+    cfg = bcc_li_cfg(probe["el_chunk"], probe["psi_chunk"])
+    shutil.rmtree(cfg.log.save_path, ignore_errors=True)
+    iters, pretrained = [], []
+
+    def on_iteration(t, row, seconds):
+        row.pop("local_energy")
+        rec = {"phase": "bcc_li_iteration", "step": t, **row, "seconds": seconds,
+               "adapted": "adapt" in seconds}
+        iters.append(rec)
+        emit(rec)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    start = time.perf_counter()
+    params, _, energy = process(
+        cfg, t_start + BCC_LI_ITERATIONS, device="cuda", on_iteration=on_iteration,
+        on_pretrain=lambda *args: pretrained.append(args))
+    wall = time.perf_counter() - start
+    launches, shapes = read_launches(), read_shapes()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # B1 on the restored run's path only: per iteration the sampler's 20
+    # proposals and its first evaluation, E_L, the gradient's and KFAC's
+    # capture forward passes, each chunked, two spins each; E_L again on an
+    # iteration that adapts the damping. Pretraining or burn-in would add
+    # sweeps of their own.
+    n_psi, n_el = BATCH // cfg.optim.psi_chunk, BATCH // cfg.optim.el_chunk
+    adapted = sum(r["adapted"] for r in iters)
+    b1_want = 2 * (len(iters) * ((cfg.mcmc.steps + 1) * n_psi + n_el + 2 * n_psi)
+                   + adapted * n_el)
+    ckpt_ok, factors_finite, ckpt = (kfac_checkpoint_ok(
+        cfg.log.save_path, t_start + BCC_LI_ITERATIONS, BATCH, 3 * sum(sc.nelec),
+        params, iters, dev) if iters else (False, False, ""))
+    plain = [r for r in iters if not r["adapted"]] or iters
+    keys = ("mcmc", "local_energy", "gradient", "curvature", "update", "step")
+    result = {
+        "phase": "bcc_li", "config": f"read_poscar {os.path.relpath(BCC_LI_POSCAR, REPO)},3,sto-3g",
+        "electrons": list(sc.nelec), "atoms": sc.natom, "batch": BATCH,
+        "el_chunk": cfg.optim.el_chunk, "psi_chunk": cfg.optim.psi_chunk,
+        "restored_step": t_start, "steps": [r["step"] for r in iters],
+        "pretraining_iterations": len(pretrained), "seconds": wall,
+        "energy_per_cell": energy, "loss_per_cell": [r["energy"] for r in iters],
+        "damping": [r["damping"] for r in iters], "rho": [r["rho"] for r in iters],
+        "adapted": [r["adapted"] for r in iters],
+        "seconds_per_iteration": [r["seconds"] for r in iters],
+        "seconds_per_iteration_median": {k: med_seconds(k, iters) for k in keys},
+        "walkers_per_s_local_energy": [BATCH / r["seconds"]["local_energy"] for r in iters],
+        "walkers_per_s_iteration_without_adaptation": BATCH / med_seconds("step", plain),
+        "peak_memory_bytes": peak, "launches": launches,
+        "b1_launches_expected": b1_want, "launch_shapes": shapes,
+        "checkpoint": ckpt, "checkpoint_restores": ckpt_ok,
+        "factors_finite": factors_finite,
+    }
+    result["ok"] = (
+        t_start == 1 and result["steps"] == list(range(1, 1 + BCC_LI_ITERATIONS))
+        and not pretrained and launches["gj_inverse_slogdet"] == b1_want
+        and launches["fused_dense_tanh_jet"] > 0 and launches["fused_dense_tanh_jet_mix"] > 0
+        and all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+        and ckpt_ok and factors_finite and math.isfinite(energy)
+        and all(math.isfinite(r["energy"]) and math.isfinite(r["grad_norm"])
+                and math.isfinite(r["rho"]) for r in iters))
+    emit(result)
+    return result, (cfg, klist, start_params, start_data[:BCC_LI_REFERENCE_WALKERS])
+
+
+def system_el_reference(dev, cfg, klist, params, x):
+    """E_L per primitive cell of the walkers `x` (numpy) under the numpy
+    parameter tree `params`: the card's f32 kernel path, and the port's
+    plain path on the CPU in float32, each against the plain path on the
+    CPU in float64, and the card's path with TF32 matmuls as the control
+    the check must catch. Returns {"card": (median, max), "cpu_f32":
+    (median, max), "card_tf32": (median, max)} of the absolute differences
+    and the float64 values."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.device import set_full_precision
+    from deepsolid_tpu_torch.hamiltonian import make_local_energy
+    from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.train.process import build_network
+
+    sc = cfg.system.cell
+    el_fn = make_local_energy(build_network(cfg, sc, klist_override=klist), sc)
+    x = np.asarray(x, np.float64)
+
+    def el(device, dtype):
+        with torch.no_grad():
+            ke, ew = el_fn(params_from_jax(params, device, dtype),
+                           torch.as_tensor(x, dtype=dtype, device=device))
+        return (ke + ew).cpu().to(torch.complex128)
+
+    cpu = el("cpu", torch.float64)
+
+    def diffs(got):
+        d = ((got - cpu).abs() / sc.scale).numpy()
+        return float(np.median(d)), float(d.max())
+
+    got = {"card": diffs(el(dev, torch.float32)),
+           "cpu_f32": diffs(el("cpu", torch.float32)),
+           "el_cpu_f64_per_cell": (cpu.real / sc.scale).tolist()}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got["card_tf32"] = diffs(el(dev, torch.float32))
+    finally:
+        set_full_precision()
+    return got
+
+
+def reference_phase(dev, source, systems):
     """E_L, the energy gradient and the KFAC update of 8 checkpoint
     walkers: the card's f32 kernel path against the port's plain path on
-    the CPU in float64."""
+    the CPU in float64. `systems` maps a name to (cfg, k-list, numpy
+    parameters, walkers) of another system whose E_L is held the same
+    way (Si, bcc-Li)."""
     import numpy as np
     import torch
     from deepsolid_tpu_torch.configs import diamond
@@ -1055,8 +1476,28 @@ def reference_phase(dev, source):
         "pretrain_loss_tolerance": PRETRAIN_LOSS_TOLERANCE,
         "pretrain_gradient_tolerance": PRETRAIN_GRADIENT_TOLERANCE,
     }
+    # Si and bcc-Li: the same limits; the port's own f32 path on the CPU
+    # beside the card says how much of the error is f32's, not the kernels',
+    # and each system's TF32 control must fail them as diamond's does
+    for name, (sys_cfg, klist, sys_params, sys_x) in systems.items():
+        start = time.perf_counter()
+        got = system_el_reference(dev, sys_cfg, klist, sys_params, sys_x)
+        (card_median, card_max), (f32_median, f32_max) = got["card"], got["cpu_f32"]
+        tf32_median, tf32_max = got["card_tf32"]
+        tf32_fails = not (tf32_median <= tol_median and tf32_max <= tol_max)
+        result[name] = {
+            "walkers": len(sys_x), "el_cpu_f64_per_cell": got["el_cpu_f64_per_cell"],
+            "median_abs_diff_per_cell": card_median, "max_abs_diff_per_cell": card_max,
+            "cpu_f32_median_abs_diff_per_cell": f32_median,
+            "cpu_f32_max_abs_diff_per_cell": f32_max,
+            "tf32_control_median_abs_diff_per_cell": tf32_median,
+            "tf32_control_max_abs_diff_per_cell": tf32_max,
+            "tf32_control_fails_check": tf32_fails,
+            "ok": card_median <= tol_median and card_max <= tol_max and tf32_fails,
+            "seconds": time.perf_counter() - start}
     # a check the TF32 control passes could not guard the precision flags
-    result["ok"] = (median <= tol_median and worst <= tol_max
+    result["ok"] = (all(result[name]["ok"] for name in systems)
+                    and median <= tol_median and worst <= tol_max
                     and result["tf32_control_fails_check"]
                     and grad_rel <= GRADIENT_TOLERANCE
                     and math.isfinite(upd_rel) and upd_rel <= KFAC_UPDATE_TOLERANCE
@@ -1066,25 +1507,20 @@ def reference_phase(dev, source):
     return result
 
 
-def profile_phase(dev, source):
-    """Where one 64-walker local-energy chunk spends the card's time:
-    kernels by device time from torch.profiler, and the device's busy
-    share of the chunk's wall time."""
+def profile_phase(dev, cfg, klist, params, x, what):
+    """Where one local-energy chunk (walkers `x`, numpy parameters `params`)
+    spends the card's time: kernels by device time from torch.profiler,
+    and the device's busy share of the chunk's wall time."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
-    from deepsolid_tpu_torch.configs import diamond
     from deepsolid_tpu_torch.hamiltonian import make_local_energy
     from deepsolid_tpu_torch.models.network import params_from_jax
     from deepsolid_tpu_torch.train.process import build_network
-    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
 
-    cfg = diamond.get_config(CONFIG)
-    net = build_network(cfg, cfg.system.cell, klist_override=source.klist)
-    _, data, params, _, _ = restore(
-        find_last_checkpoint(os.path.join(REPO, "runs", "ckpt_diamond")))
+    net = build_network(cfg, cfg.system.cell, klist_override=klist)
     params = params_from_jax(params, dev, torch.float32)
-    x = torch.as_tensor(np.asarray(data[:EL_CHUNK]), dtype=torch.float32, device=dev)
+    x = torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
     el_fn = make_local_energy(net, cfg.system.cell)
     with torch.no_grad():
         el_fn(params, x)  # warm-up
@@ -1104,7 +1540,7 @@ def profile_phase(dev, source):
             by_name[name] = (tot + ms, cnt + 1)
     busy = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    result = {"phase": "profile", "what": "one 64-walker local-energy chunk",
+    result = {"phase": "profile", "what": what,
               "wall_ms": wall_ms, "device_busy_ms": busy,
               "kernel_launches": sum(c for _, c in by_name.values()),
               "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
@@ -1195,11 +1631,54 @@ def main() -> int:
                     "fall, a non-finite loss, walker or energy, the step-0 "
                     "checkpoint, or a kernel of the path never launched)")
 
-    if not reference_phase(dev, source)["ok"]:
-        return fail("card E_L, its gradient, the KFAC update or the "
-                    "pretraining loss or its gradient disagrees with the CPU "
-                    "float64 reference, or the TF32 control passed the check")
-    profile_phase(dev, source)
+    si, si_reference = si_phase(dev)
+    if not si["ok"]:
+        return fail("the si phase failed its checks (the pretraining loss did "
+                    "not fall, a non-finite value, a checkpoint that does not "
+                    "restore, or a kernel of the path never launched)")
+
+    bcc_li, bcc_li_reference = bcc_li_phase(dev)
+    if not bcc_li["ok"]:
+        return fail("the bcc_li phase failed its checks (no el_chunk or "
+                    "psi_chunk under the memory limit, the restore, B1 "
+                    "launches beyond the sampler, E_L and KFAC, a non-finite "
+                    "parameter, factor or energy, or the checkpoint)")
+
+    # B1, B2 and B3 at the shapes these two paths gave them, each row with
+    # its path's launch count and the launches at each of its shapes
+    shaped = production_kernel_rows(dev, gen, bcc_li["el_chunk"], bcc_li["psi_chunk"])
+    for row in shaped:
+        record = {"si": si, "bcc_li": bcc_li}[row["path"]]
+        row["launches"] = record["launches"][row["name"]]
+        row["launches_at_shape"] = [
+            sum(r["launches"] for r in record["launch_shapes"]
+                if r["kernel"] == row["name"] and r["shape"] == shape)
+            for shape in row["shapes"]]
+        emit({"phase": "kernel", **row})
+    kernels += shaped
+    bad = [(r["name"], r["path"], r["shapes"]) for r in shaped
+           if not r["ok"] or r["launches"] <= 0 or min(r["launches_at_shape"]) <= 0]
+    if bad:
+        return fail(f"kernels at the Si and bcc-Li shapes disagree with their "
+                    f"plain versions or their path launched none at a shape: {bad}")
+
+    if not reference_phase(dev, source, {"si": si_reference,
+                                         "bcc_li": bcc_li_reference})["ok"]:
+        return fail("card E_L (C-diamond, Si or bcc-Li), its gradient, the "
+                    "KFAC update or the pretraining loss or its gradient "
+                    "disagrees with the CPU float64 reference, or the TF32 "
+                    "control passed the check")
+    from deepsolid_tpu_torch.configs import diamond
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    _, data, params, _, _ = restore(
+        find_last_checkpoint(os.path.join(REPO, "runs", "ckpt_diamond")))
+    profile_phase(dev, diamond.get_config(CONFIG), source.klist, params, data[:EL_CHUNK],
+                  "one 64-walker C-diamond local-energy chunk")
+    bcc_cfg, bcc_klist, _, _ = bcc_li_reference
+    _, data, params, _, _ = restore(find_last_checkpoint(BCC_LI_CKPT))
+    profile_phase(dev, bcc_cfg, bcc_klist, params, data[:bcc_li["el_chunk"]],
+                  f"one {bcc_li['el_chunk']}-walker bcc-Li local-energy chunk")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

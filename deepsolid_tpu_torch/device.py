@@ -28,18 +28,32 @@ def constant(a, like: torch.Tensor) -> torch.Tensor:
     return _constant(arr.tobytes(), arr.shape, arr.dtype.str, like.dtype, like.device)
 
 
+def rank_device(local_rank: int, device_count: int) -> torch.device:
+    """The GPU of the rank `local_rank` on a host with `device_count`
+    GPUs: ranks take the cards in turn, so each rank owns one where there
+    are enough, and ranks beyond the count share (two ranks on a one-GPU
+    host both land on cuda:0)."""
+    return torch.device("cuda", local_rank % device_count)
+
+
 def resolve_device(device="cuda") -> torch.device:
     """The torch device an entry point runs on.
 
     Entry points default to 'cuda'; asking for it without a visible GPU
-    raises instead of quietly running on the CPU. Tests pass 'cpu'.
+    raises instead of quietly running on the CPU. Tests pass 'cpu'. A
+    'cuda' without an index is the current card: a rank that
+    `parallel.run_ranks` started has already made its own card
+    (`rank_device`) current.
     """
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device 'cuda' was requested but no CUDA GPU is available; "
-            "pass device='cpu' to run on the CPU"
-        )
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' was requested but no CUDA GPU is available; "
+                "pass device='cpu' to run on the CPU"
+            )
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 

@@ -13,6 +13,7 @@ for tensors on the CPU.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Tuple
 
@@ -21,6 +22,8 @@ import torch
 from deepsolid_tpu_torch.ops.cuda import build
 
 LAUNCHES = {"gj_inverse_slogdet": 0}
+# launches by (kernel, (matrices, n, n), variant), counted beside LAUNCHES
+SHAPES = collections.Counter()
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -104,7 +107,7 @@ def _gj_cuda(a: torch.Tensor):
         raise ValueError(f"expected (..., n, n) matrices, got {tuple(a.shape)}")
     lib = _lib()
     n = a.shape[-1]
-    variant(lib, n, a.device)  # the launcher takes the same branch by n
+    body = variant(lib, n, a.device)  # the launcher takes the same branch by n
     lead = a.shape[:-2]
     a2 = a.reshape(-1, n, n).contiguous()  # copies only a strided input
     nb = a2.shape[0]
@@ -119,6 +122,7 @@ def _gj_cuda(a: torch.Tensor):
                 logdet.data_ptr(), nb, n, stream)
         build.check(lib, code, "gj_inverse_slogdet")
         LAUNCHES["gj_inverse_slogdet"] += 1
+        SHAPES["gj_inverse_slogdet", (nb, n, n), body] += 1
     return ainv.reshape(a.shape), sign.reshape(lead), logdet.reshape(lead)
 
 

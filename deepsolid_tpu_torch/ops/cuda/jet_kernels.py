@@ -18,6 +18,7 @@ Layouts (float32 on the card; T is T_local in the open form):
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -27,6 +28,9 @@ from deepsolid_tpu_torch.ops.cuda import build
 LAUNCHES = {"fused_dense_tanh_jet": 0, "fused_dense_tanh_jet_mix": 0,
             "fused_dense_tanh_jet_partial": 0,
             "fused_dense_tanh_jet_mix_partial": 0}
+# launches by (kernel, (T, rows, d_in, d_out), variant_label), counted
+# beside LAUNCHES
+SHAPES = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -91,6 +95,13 @@ def kernel_variant(t_dim, rows, d_in, d_out, mixed, sms):
     if pair_body(d_in, d_out, mixed):
         return PAIR
     return wide_slices(t_dim, rows, d_in, d_out, sms)
+
+
+def variant_label(slices):
+    """`kernel_variant`'s answer in words."""
+    if slices == PAIR:
+        return "pair"
+    return f"wide, {slices} tangent slices" if slices > 0 else "general"
 
 
 def _dense(x):
@@ -195,6 +206,7 @@ def _launch(name, val, jac, lap, w, b, mix, rows_per_group, groups,
                 rows_per_group, groups, stream)
         build.check(lib, code, name)
         LAUNCHES[name] += 1
+        SHAPES[name, (t_dim, rows, d_in, d_out), variant_label(slices)] += 1
     if open_sum:
         return val_o, jac_o, lap_o, sq_o
     return val_o, jac_o, lap_o

@@ -31,6 +31,8 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from deepsolid_tpu_torch.device import rank_device
+
 
 def _reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """Sum of `t` over the ranks of `group`, as a new tensor."""
@@ -70,6 +72,9 @@ class Mesh:
     world_size: int = 1
     deriv_devices: int = 1
     shard: Optional[TangentShard] = None
+    # this rank's device: where a backend that reduces on the device
+    # (NCCL) takes its buffers
+    device: torch.device = torch.device("cpu")
 
     @property
     def num_data(self) -> int:
@@ -94,9 +99,9 @@ class Mesh:
         """Rank 0's value on every rank."""
         if self.world_size == 1:
             return value
-        buf = torch.tensor([value], dtype=torch.int64)
-        if dist.get_backend() != "gloo":
-            buf = buf.cuda()
+        on_host = dist.get_backend() == "gloo"
+        buf = torch.tensor([value], dtype=torch.int64,
+                           device="cpu" if on_host else self.device)
         dist.broadcast(buf, src=0)
         return int(buf.item())
 
@@ -111,10 +116,12 @@ class Mesh:
         return torch.cat(parts[::self.deriv_devices]).cpu()
 
 
-def make_mesh(deriv_devices: int = 1) -> Mesh:
+def make_mesh(deriv_devices: int = 1, device="cpu") -> Mesh:
     """The mesh of the initialized process group (one process when
-    torch.distributed is not initialized). Every rank must call this: it
-    creates one group per data index, in the same order everywhere."""
+    torch.distributed is not initialized), on this rank's `device`. Every
+    rank must call this: it creates one group per data index, in the same
+    order everywhere."""
+    device = torch.device(device)
     deriv_devices = max(1, int(deriv_devices))
     if not (dist.is_available() and dist.is_initialized()):
         if deriv_devices > 1:
@@ -122,7 +129,7 @@ def make_mesh(deriv_devices: int = 1) -> Mesh:
                 f"parallel.deriv_devices={deriv_devices} needs "
                 "torch.distributed initialized with that many ranks or a "
                 "multiple of it (see deepsolid_tpu_torch.parallel.run_ranks)")
-        return Mesh()
+        return Mesh(device=device)
     rank, world = dist.get_rank(), dist.get_world_size()
     if world % deriv_devices != 0:
         raise ValueError(
@@ -135,7 +142,7 @@ def make_mesh(deriv_devices: int = 1) -> Mesh:
             group = dist.new_group(ranks)
             if rank in ranks:
                 shard = TangentShard(rank % deriv_devices, deriv_devices, group)
-    return Mesh(rank, world, deriv_devices, shard)
+    return Mesh(rank, world, deriv_devices, shard, device)
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +152,8 @@ def make_mesh(deriv_devices: int = 1) -> Mesh:
 
 def _rank_main(rank, world_size, backend, store, fn, args, results):
     try:
+        if torch.cuda.is_available():  # each rank on its own card, in turn
+            torch.cuda.set_device(rank_device(rank, torch.cuda.device_count()))
         dist.init_process_group(backend, init_method=f"file://{store}",
                                 rank=rank, world_size=world_size)
         try:
@@ -162,9 +171,12 @@ def run_ranks(fn: Callable, world_size: int, args: Sequence = (),
     joined in one process group, and return their results by rank.
 
     `fn` must be importable (a module-level function) and its arguments
-    and result picklable. The store is a file in a fresh temporary
-    directory, so runs side by side need no free port. A rank that fails
-    or outlives `timeout` seconds ends every rank and raises here.
+    and result picklable. Where CUDA is available, rank r starts on its own
+    card, `rank_device(r, device_count)`, so a backend that needs a GPU
+    per rank (NCCL) gets one where the host has enough. The store is a
+    file in a fresh temporary directory, so runs side by side need no free
+    port. A rank that fails or outlives `timeout` seconds ends every rank
+    and raises here.
     """
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()

@@ -1,16 +1,16 @@
 """Built-in Gaussian basis sets (no Basis Set Exchange dependency).
 
-Host numpy, a copy of deepsolid_tpu/scf/basis.py except for 'et-dz',
-which the port does not generate yet (see below).
+Host numpy, a copy of deepsolid_tpu/scf/basis.py.
 
 STO-3G is generated from the universal STO-3G expansion of Slater
 orbitals: exponents at zeta=1 scale as zeta^2 per shell, contraction
 coefficients are shell-universal (Hehre, Stewart & Pople, JCP 51, 2657
 (1969); third row: JCP 52, 2769 (1970)). Supported elements: Z = 1..18.
 
-'et-dz' (deepsolid_tpu/scf/etdz.py generates it from each atom's own
-even-tempered-bath UHF) is not ported: requesting it raises
-NotImplementedError.
+'et-dz' (scf/etdz.py) generates a DZ-quality contracted basis for ANY
+element Z <= 30 (s/p/d occupancy, H through Zn) from the atom's own
+even-tempered-bath UHF — the element-general path matching the
+reference's any-element PySCF bridge.
 
 cc-pVDZ carries explicit Dunning correlation-consistent tables
 (JCP 90, 1007 (1989); Li from Prascher et al., Theor Chem Acc 128, 69
@@ -240,9 +240,9 @@ def build_shells(cell, basis: str = "sto-3g",
     elif name in ("cc-pvdz", "ccpvdz"):
         shells_for_atom = ccpvdz_shells_for_atom
     elif name in ("et-dz", "etdz", "dz"):
-        raise NotImplementedError(
-            "the generated et-dz basis is not ported yet (its generator "
-            "needs the atomic UHF of scf/etdz.py and scf/molecular.py)")
+        from deepsolid_tpu_torch.scf.etdz import dz_shells_for_atom
+
+        shells_for_atom = dz_shells_for_atom
     else:
         raise NotImplementedError(
             f"built-in bases: sto-3g, cc-pvdz, et-dz (got {basis!r}); pass "

@@ -130,6 +130,8 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
     if optimizer_name not in ("kfac", "adam", "none"):
         raise ValueError(f"Unknown optimizer: {optimizer_name}")
     device = resolve_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)  # the kernels launch on the current card
     set_full_precision()
     dtype = _DTYPES[cfg.precision]
     sc = cfg.system.cell
@@ -146,7 +148,7 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
             raise ValueError(
                 f"parallel.deriv_devices={deriv_devices} must divide the "
                 f"3N={n_tangents} Laplacian tangent columns")
-    mesh = parallel.make_mesh(deriv_devices)
+    mesh = parallel.make_mesh(deriv_devices, device)
     if cfg.batch_size % mesh.num_data != 0:
         raise ValueError(f"Batch size {cfg.batch_size} not divisible by the "
                          f"{mesh.num_data}-way data axis")

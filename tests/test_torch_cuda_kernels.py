@@ -36,8 +36,11 @@ def test_gj_kernel_matches_plain(cuda_device):
     for n in (5, 13, 48, 96, 100):
         a = torch.complex(rnd(64, n, n), rnd(64, n, n)) + 4.0 * torch.eye(n, device=cuda_device)
         before = tdk.LAUNCHES["gj_inverse_slogdet"]
+        key = ("gj_inverse_slogdet", (64, n, n), "registers" if n == 48 else "shared")
+        shape_before = tdk.SHAPES[key]
         got = tdk.gj_inverse_slogdet(a)
         assert tdk.LAUNCHES["gj_inverse_slogdet"] == before + 1
+        assert tdk.SHAPES[key] == shape_before + 1
         for x, y in zip(got, tdk.gj_inverse_slogdet_plain(a)):
             torch.testing.assert_close(x, y, rtol=2e-3, atol=2e-3)  # conditioning
     sing = torch.diag(torch.tensor([1.0, 2.0, 0.0], device=cuda_device))
@@ -144,9 +147,12 @@ def test_pair_variant_matches_plain(cuda_device, t_dim, rows, d_in, open_sum):
             rnd(d_in, 32) / d_in**0.5, rnd(32))
     name = "fused_dense_tanh_jet" + ("_partial" if open_sum else "")
     before = tjk.LAUNCHES[name]
+    key = (name, (t_dim, rows, d_in, 32), "pair")
+    shape_before = tjk.SHAPES[key]
     got = getattr(tjk, name)(*case)
     torch.cuda.synchronize()
     assert tjk.LAUNCHES[name] == before + 1
+    assert tjk.SHAPES[key] == shape_before + 1
     want = getattr(tjk, name + "_plain")(*case)
     assert len(got) == len(want) == (4 if open_sum else 3)
     for x, y in zip(got, want):

@@ -32,7 +32,9 @@ importlib.import_module("chip_smoke")
 for needed in ("deepsolid_tpu_torch.parallel", "deepsolid_tpu_torch.optim",
                "deepsolid_tpu_torch.optim.adam", "deepsolid_tpu_torch.optim.kfac",
                "deepsolid_tpu_torch.train.pretrain", "deepsolid_tpu_torch.scf.hf",
-               "deepsolid_tpu_torch.scf.gto", "deepsolid_tpu_torch.scf.interface"):
+               "deepsolid_tpu_torch.scf.gto", "deepsolid_tpu_torch.scf.interface",
+               "deepsolid_tpu_torch.system.poscar", "deepsolid_tpu_torch.configs.read_poscar",
+               "deepsolid_tpu_torch.scf.etdz", "deepsolid_tpu_torch.cli"):
     assert needed in names, needed
 print(len(names))
 """

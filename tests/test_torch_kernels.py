@@ -318,6 +318,7 @@ def _forbid(monkeypatch, module, name):
 
 def test_wrappers_take_the_plain_version_for_cpu_tensors():
     before = {**tdk.LAUNCHES, **tjk.LAUNCHES}
+    shapes = tdk.SHAPES + tjk.SHAPES
     a = torch.from_numpy(_complex64((2, 4, 4), seed=1))
     for x, y in zip(tdk.gj_inverse_slogdet(a), tdk.gj_inverse_slogdet_plain(a)):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
@@ -326,6 +327,15 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
                     tjk.fused_dense_tanh_jet_plain(*case)):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
     assert {**tdk.LAUNCHES, **tjk.LAUNCHES} == before  # no kernel launched
+    assert tdk.SHAPES + tjk.SHAPES == shapes
+
+
+@pytest.mark.parametrize("slices,label", [
+    (tjk.PAIR, "pair"), (4, "wide, 4 tangent slices"), (1, "wide, 1 tangent slices"),
+    (0, "general")])
+def test_variant_label(slices, label):
+    """The words the launch-shape record gives each kernel body."""
+    assert tjk.variant_label(slices) == label
 
 
 def test_wrappers_never_fall_back_for_non_cpu_tensors(monkeypatch):

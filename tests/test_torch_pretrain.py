@@ -310,7 +310,7 @@ def test_restored_inference_run_does_not_pretrain_or_burn_in(tmp_path, monkeypat
 
 def test_unsupported_basis_is_a_hard_error():
     cfg = port_cfg()
-    cfg.system.basis = "et-dz"
+    cfg.system.basis = "6-31g"  # neither package builds it (et-dz is generated)
     tsc = port_system()[0]
     with pytest.raises(NotImplementedError, match="planewave"):
         tpretrain.make_orbital_source(cfg, tsc)
