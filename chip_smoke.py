@@ -16,9 +16,12 @@ Phases, one JSON line each; any failure exits non-zero:
                 its plain PyTorch version on the card, timed with CUDA
                 events (and a library yardstick where one PyTorch call
                 computes the same); the Gauss-Jordan kernel at both of its
-                launch shapes and on edge-case matrices; the jet kernels
-                also at ragged shapes (the pair body's too) and at a pair
-                shape that falls to the general kernel; the open
+                launch shapes, on edge-case matrices at n = 48, 14 and 81
+                and at both ends of each of its four bodies' ranges (B1
+                rows also give graph_ms, the card's time per launch from a
+                CUDA graph of launches, beside ms through the wrapper); the
+                jet kernels also at ragged shapes (the pair body's too) and
+                at a pair shape that falls to the general kernel; the open
                 ("partial") jet kernels recombined against the closed one;
   4. main     - 3 inference iterations of the committed C-diamond 2x2x2
                 checkpoint (96 electrons, 1024 walkers, full width) through
@@ -52,9 +55,10 @@ Phases, one JSON line each; any failure exits non-zero:
                 committed step-0 checkpoint (restored at t = 1: no
                 pretraining, no burn-in) with a fresh optimizer state;
                 both new phases report the kernel body each launch shape
-                took (as the wrappers count them), and B1, B2 and B3 are
-                then held against their plain versions and timed at every
-                shape these two paths launched;
+                took (as the wrappers count them; B1 must take the warp
+                body at Si's n = 14 and the mid body at bcc-Li's 81), and
+                B1, B2 and B3 are then held against their plain versions
+                and timed at every shape these two paths launched;
  11. reference - E_L, the energy gradient, the KFAC update and the
                 pretraining loss and its gradient of 8 checkpoint walkers on
                 the card (f32, kernels) against the port's plain path on the
@@ -126,6 +130,8 @@ BCC_LI_ITERATIONS = 2
 BCC_LI_EL_CHUNKS = (16, 32)
 BCC_LI_PSI_CHUNKS = (256, 512)
 PROBE_LIMIT_BYTES = 60e9
+# the Gauss-Jordan body each system's launches must take (by n alone)
+B1_BODY = {"si": "warp", "bcc_li": "mid"}
 BCC_LI_REFERENCE_WALKERS = 2
 SI_REFERENCE_WALKERS = 8
 REFERENCE_ENERGY = -66.0  # Ha/cell, runs/ckpt_diamond/train_stats_r5_latest.csv
@@ -176,8 +182,10 @@ def max_errs(got, want):
 
 def gj_edge_cases(dev, gen, errs):
     """The Gauss-Jordan kernel against its plain version on matrices that
-    exercise the pivot rule: `errs(a)` gives (inverse, sign, log|det|)
-    errors. One record per case."""
+    exercise the pivot rule, at n = 48, 14 and 81 (the registers, warp and
+    mid bodies at the three systems' sizes), and on generic matrices at
+    both ends of every body's range: `errs(a)` gives (inverse, sign,
+    log|det|) errors. One record per case, with the body that took it."""
     import torch
     from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
 
@@ -185,37 +193,46 @@ def gj_edge_cases(dev, gen, errs):
         return torch.complex(torch.randn((nb, n, n), generator=gen, device=dev),
                              torch.randn((nb, n, n), generator=gen, device=dev))
 
-    n = 48
-    eye = torch.eye(n, device=dev).to(torch.complex64)
-    tie = rnd_c(4, n)
-    tie[:, 3, 0], tie[:, 7, 0] = 5.0, 5.0j   # equal |.|^2 in the first pivot column
-    tie[:, 20, 9], tie[:, 40, 9] = -9.0, 9.0
-    cases = {
-        "anti_diagonal": torch.flip(eye, [1])[None],      # a swap at every step
-        "permutation": torch.roll(eye, 5, 0)[None],
-        "tie": tie,
-        "generic_13": rnd_c(16, 13) / math.sqrt(26),       # the shared-memory kernel
-        "generic_96": rnd_c(16, 96) / math.sqrt(192),
-    }
+    cases = {}
+    for n in (48, 14, 81):
+        eye = torch.eye(n, device=dev).to(torch.complex64)
+        tie = rnd_c(4, n)
+        tie[:, 3, 0], tie[:, 7, 0] = 5.0, 5.0j   # equal |.|^2 in the first pivot column
+        if n > 40:
+            tie[:, 20, 9], tie[:, 40, 9] = -9.0, 9.0
+        sfx = "" if n == 48 else f"_{n}"
+        cases.update({
+            f"anti_diagonal{sfx}": torch.flip(eye, [1])[None],  # a swap at every step
+            f"permutation{sfx}": torch.roll(eye, 5, 0)[None],
+            f"tie{sfx}": tie,
+        })
+    # warp 1-16 (two matrices a warp) and 17-32, shared 33-47, mid 49-96,
+    # shared from 97 to the shared-memory limit
+    for n in (1, 13, 16, 17, 32, 33, 47, 49, 96, 97, 168):
+        cases[f"generic_{n}"] = rnd_c(16, n) / math.sqrt(2 * n)
     out = []
     for name, a in cases.items():
         inv, sg, ld = errs(a)
-        out.append({"case": name, "max_rel_err_inverse": inv, "max_abs_err_sign": sg,
+        out.append({"case": name, "body": dk.variant(dk._lib(), a.shape[-1], dev),
+                    "max_rel_err_inverse": inv, "max_abs_err_sign": sg,
                     "max_abs_err_logdet": ld,
                     "ok": inv <= 5e-3 and sg <= 5e-3 and ld <= 5e-3})
     # a zero pivot: log 0 = -inf on both, no fault; a NaN entry: NaN on both
-    zero = rnd_c(2, n)
-    zero[:, :, 7] = 0
-    nan = rnd_c(2, n)
-    nan[0, 3, 4] = float("nan")
-    for name, a in (("zero_pivot", zero), ("nan_entry", nan)):
-        got, want = dk.gj_inverse_slogdet(a)[2], dk.gj_inverse_slogdet_plain(a)[2]
-        same = bool(torch.equal(torch.isfinite(got), torch.isfinite(want))
-                    and not torch.isfinite(got[0]))
-        if name == "nan_entry":  # the matrix without the NaN is untouched by it
-            same = same and abs(float(got[1] - want[1])) <= 5e-3
-        out.append({"case": name, "logdet": got.tolist(), "logdet_plain": want.tolist(),
-                    "ok": same})
+    for n in (48, 14, 81):
+        zero = rnd_c(2, n)
+        zero[:, :, 7] = 0
+        nan = rnd_c(2, n)
+        nan[0, 3, 4] = float("nan")
+        sfx = "" if n == 48 else f"_{n}"
+        for name, a in ((f"zero_pivot{sfx}", zero), (f"nan_entry{sfx}", nan)):
+            got, want = dk.gj_inverse_slogdet(a)[2], dk.gj_inverse_slogdet_plain(a)[2]
+            same = bool(torch.equal(torch.isfinite(got), torch.isfinite(want))
+                        and not torch.isfinite(got[0]))
+            if name.startswith("nan_entry"):  # the matrix without the NaN is untouched by it
+                same = same and abs(float(got[1] - want[1])) <= 5e-3
+            out.append({"case": name, "body": dk.variant(dk._lib(), n, dev),
+                        "logdet": got.tolist(), "logdet_plain": want.tolist(),
+                        "ok": same})
     torch.cuda.synchronize()
     return out
 
@@ -238,6 +255,7 @@ def b1_row(dev, gen, nb, n, path="main"):
     count the row reports."""
     import torch
     from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+    from deepsolid_tpu_torch.ops.cuda.time_kernels import graph_ms
 
     a = torch.complex(torch.randn((nb, n, n), generator=gen, device=dev),
                       torch.randn((nb, n, n), generator=gen, device=dev)) / math.sqrt(2 * n)
@@ -258,6 +276,7 @@ def b1_row(dev, gen, nb, n, path="main"):
         "max_abs_err_sign": sg_err, "tolerance": 5e-3,
         "ok": inv_err <= 5e-3 and ld_err <= 5e-3 and sg_err <= 5e-3,
         "ms": time_ms(lambda: dk.gj_inverse_slogdet(a)),
+        "graph_ms": graph_ms(lambda: dk.gj_inverse_slogdet(a)),
         "plain_ms": time_ms(lambda: dk.gj_inverse_slogdet_plain(a), reps=5),
         "library_ms": time_ms(lambda: (torch.linalg.inv(a), torch.linalg.slogdet(a))),
         "bound_ms": bnd, "bound_by": by,
@@ -537,7 +556,19 @@ def production_kernel_rows(dev, gen, bcc_li_el_chunk, bcc_li_psi_chunk):
             b3_row(dev, gen, 2 * si_n, SI_EL_CHUNK, "si", "Si "),
             b3_row(dev, gen, 2 * bcc_n, bcc_li_el_chunk, "bcc_li", "bcc-Li ")]
     si["ok"] = si["ok"] and si["run_script_shape"]["ok"]
+    for row in rows[:4]:  # B1: Si's n = 14 on the warp body, bcc-Li's 81 on the mid one
+        row["ok"] = row["ok"] and row["variant"] == B1_BODY[row["path"]]
     return rows
+
+
+def b1_bodies(shapes):
+    """{n: the kernel bodies B1's launches at n x n took}, from a launch
+    shape record."""
+    out = {}
+    for r in shapes:
+        if r["kernel"] == "gj_inverse_slogdet":
+            out.setdefault(r["shape"][-1], set()).add(r["variant"])
+    return {n: sorted(v) for n, v in sorted(out.items())}
 
 
 def reset_launches():
@@ -1154,6 +1185,8 @@ def si_phase(dev):
     result, params, data = scratch_run(dev, cfg, source, "si", SI_KFAC_ITERATIONS,
                                        emit_iterations=False)
     result["config"] = SI_CONFIG
+    result["b1_bodies"] = b1_bodies(result["launch_shapes"])
+    result["ok"] = result["ok"] and result["b1_bodies"] == {14: [B1_BODY["si"]]}
     emit(result)
     return result, (cfg, source.klist, params_to_numpy(params),
                     data[:SI_REFERENCE_WALKERS].cpu().numpy())
@@ -1303,12 +1336,14 @@ def bcc_li_phase(dev):
         "walkers_per_s_iteration_without_adaptation": BATCH / med_seconds("step", plain),
         "peak_memory_bytes": peak, "launches": launches,
         "b1_launches_expected": b1_want, "launch_shapes": shapes,
+        "b1_bodies": b1_bodies(shapes),
         "checkpoint": ckpt, "checkpoint_restores": ckpt_ok,
         "factors_finite": factors_finite,
     }
     result["ok"] = (
         t_start == 1 and result["steps"] == list(range(1, 1 + BCC_LI_ITERATIONS))
         and not pretrained and launches["gj_inverse_slogdet"] == b1_want
+        and result["b1_bodies"] == {81: [B1_BODY["bcc_li"]]}
         and launches["fused_dense_tanh_jet"] > 0 and launches["fused_dense_tanh_jet_mix"] > 0
         and all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
         and ckpt_ok and factors_finite and math.isfinite(energy)
@@ -1635,14 +1670,16 @@ def main() -> int:
     if not si["ok"]:
         return fail("the si phase failed its checks (the pretraining loss did "
                     "not fall, a non-finite value, a checkpoint that does not "
-                    "restore, or a kernel of the path never launched)")
+                    "restore, a kernel of the path never launched, or B1 at "
+                    "n = 14 not on the warp body)")
 
     bcc_li, bcc_li_reference = bcc_li_phase(dev)
     if not bcc_li["ok"]:
         return fail("the bcc_li phase failed its checks (no el_chunk or "
                     "psi_chunk under the memory limit, the restore, B1 "
-                    "launches beyond the sampler, E_L and KFAC, a non-finite "
-                    "parameter, factor or energy, or the checkpoint)")
+                    "launches beyond the sampler, E_L and KFAC, B1 at n = 81 "
+                    "not on the mid body, a non-finite parameter, factor or "
+                    "energy, or the checkpoint)")
 
     # B1, B2 and B3 at the shapes these two paths gave them, each row with
     # its path's launch count and the launches at each of its shapes

@@ -9,41 +9,84 @@
 // the largest |A[r, k]|^2 among the unused rows r >= k of the row-swapped
 // matrix, the smallest r on a tie (the TPU kernel's rule); a column whose
 // unused entries are all NaN takes row k. A zero pivot gives log 0 = -inf
-// and no fault.
+// and no fault. Padding rows and columns of a body that rounds n up are
+// never candidates (an identity-filled padding row, as the TPU kernel
+// pads, would outrank a NaN entry and break the NaN rule).
 //
-// What bounds it on this card: at the main path's shape (8192 matrices of
-// 48 x 48 per launch) the work is 8 n^3 flops per matrix, 7.2 GFLOP, and
-// 302 MB of input and output: ~0.1 ms at either peak. An elimination is a
-// chain of n dependent steps, so no design reaches that; what decides the
-// time is where the matrix lives. With the matrix in shared memory every
-// one of the n^3 entry updates moves ~32 bytes through a port of 128
-// bytes a clock, 4 updates a clock per SM where the FMA lanes could do 32;
-// a sampler chunk of 512 matrices does not fill the card and takes one
-// matrix's own latency, n steps of pivot search + broadcast + update.
+// What bounds it on this card: a launch of B matrices does 8 n^3 flops
+// per matrix on 16 n^2 bytes in and out, so the operations bound it from
+// n ~ 8 up: ~0.1 ms at the FP32 peak for C-diamond's (8192, 48, 48), 0.26
+// ms for bcc-Li's (4096, 81, 81); Si's (8192, 14, 14) is bound by its 26
+// MB of bytes, 0.008 ms. An elimination is a chain of n dependent steps,
+// so no design reaches that; what decides the time is where the matrix
+// lives. With the matrix in shared memory every one of the n^3 entry
+// updates moves ~32 bytes through a port of 128 bytes a clock, 4 updates
+// a clock per SM where the FMA lanes could do 32; a launch that does not
+// fill the card (512 matrices of 14, 256 of 81) takes one matrix's own
+// latency, n steps of pivot search + broadcast + update.
 //
-// Design, two kernels chosen by n alone (gj_uses_registers):
+// Design, four bodies chosen by n alone (gj_body). The three register
+// bodies keep the matrix in registers for the whole elimination and share
+// one scheme: rows are never swapped; a position (where the explicit
+// algorithm would hold each row) keeps the pivot rule, the tie rule and
+// the swap parity, and the permutation is undone once, when the inverse
+// is written through a shared-memory tile so that the stores are
+// coalesced. A candidate's key is the bit pattern of its |.|^2 plus two
+// (the order of non-negative floats is the order of their bits), one for
+// a NaN, zero for a used or padding row; the largest key wins, the
+// smallest position on a tie, and since the row at position k is always
+// unused an all-NaN column takes it. The sign and log|det| accumulators
+// are kept redundantly by every thread. Every register index is static:
+// the loop over k is unrolled over the register tiles.
+//   * warp (n <= 32: Si's 14; H10's 5, graphene's 6, LiH 2x2x2's 16).
+//     One lane owns one row (W complex values, W = 16 or 32); for n <= 16
+//     two matrices share a warp, 16 lanes each. A step: the lane's column-k
+//     entry gives its key; a shuffle butterfly of log2 W rounds inside the
+//     matrix's lanes picks the largest 64-bit word (key, 255 - position,
+//     lane); the pivot value and then the W entries of the raw pivot row
+//     are broadcast by shuffles from the pivot lane, and each lane updates
+//     its row with its own multiplier f d. Dependent chain per step: 2
+//     FMAs and a compare, log2 W paired shuffles, one shuffle, a
+//     reciprocal, then W shuffles pipelined into W complex updates; no
+//     barrier of any kind.
 //   * registers (n = 48: the 48 electrons per spin of the C-diamond 2x2x2
-//     supercell, the one system the port's configs hold). One warp per
-//     matrix, two matrices per block. Lane (ty, tx) of a 4 x 8 lane grid
-//     owns rows ty + 4 i and columns tx + 8 j for the whole elimination,
-//     12 x 6 complex entries in registers. Per step only the scaled pivot
-//     row and the multiplier column (2 n values) pass through shared
-//     memory, so a lane reads 18 values for 72 complex multiply-adds and
-//     the updates run at the FMA rate. Rows are never swapped: a position
-//     table (where the explicit algorithm would hold each row) keeps the
-//     pivot rule, the tie rule and the swap parity, and the permutation is
-//     undone when the inverse is written, through a shared-memory tile so
-//     that the stores are coalesced. The pivot search is part of the step:
-//     column k, which its owners publish for the update anyway, is scanned
-//     by all 32 lanes and two warp reductions (redux.sync) pick the pivot;
-//     nothing waits on a block barrier, a step has four __syncwarp()s. The same rule serves both launch shapes: at
-//     8192 matrices ~8 warps per SM hide each other's latency, and at 512
-//     a warp's own chain of 48 short steps is the whole launch.
-//   * shared (any other n up to 168, the shared-memory limit): one block
+//     supercell). One warp per matrix, two matrices per block. Lane (ty, tx)
+//     of a 4 x 8 lane grid owns rows ty + 4 i and columns tx + 8 j, 12 x 6
+//     complex entries. Per step only the scaled pivot row and the
+//     multiplier column (2 n values) pass through shared memory, so a lane
+//     reads 18 values for 72 complex multiply-adds and the updates run at
+//     the FMA rate. Column k, which its owners publish for the update
+//     anyway, is scanned by all 32 lanes and two warp reductions
+//     (redux.sync) pick the pivot; a step has four __syncwarp()s. At 8192
+//     matrices ~8 warps per SM hide each other's latency, and at 512 a
+//     warp's own chain of 48 short steps is the whole launch.
+//   * mid (49 <= n <= 96: bcc-Li 3x3x3's 81 electrons per spin). One block
+//     of 8 warps per matrix; lane (ty, tx) of a 16 x 16 lane grid owns rows
+//     ty + 16 i and columns tx + 16 j, 6 x 6 complex entries (72 registers,
+//     half the n = 48 body's 144, so that two blocks of 256 threads fit an
+//     SM at <= 128 registers each; 96 is the largest n a 6 x 6 tile
+//     covers). The matrix arrives in a shared-memory tile by 8-byte
+//     cp.async copies (a matrix of odd n^2 starts off 16-byte alignment),
+//     from which each lane takes its strided entries. A step: the owners
+//     of column k publish it (double-buffered by the parity of k); barrier
+//     one; every warp scans the whole column (rows lane + 32 q) with the
+//     positions of those rows in registers and two redux.sync pick the
+//     pivot, the same in every warp, so no word crosses warps; the pivot
+//     row's owners publish it scaled; barrier two; each lane reads its 6
+//     row multipliers and 6 pivot-row entries and does 36 complex
+//     multiply-adds. Dependent chain per step: a shared store, a barrier,
+//     3 shared loads, 2 warp reductions, a shared load, a reciprocal, 6
+//     complex products and stores, a barrier, 12 shared loads, then the
+//     36 updates (144 FMAs, 288 clocks of an SM's FMA rate for the block).
+//     One block per matrix: a persistent grid that copies the next matrix
+//     while it eliminates the current one measured slower
+//     (time_gj_variants.py), as did one barrier per step with the search
+//     a step ahead, a rolled loop over the column tiles, and the pivot
+//     arithmetic left to the pivot row's owners.
+//   * shared (33-47 and 97 up to 168, the shared-memory limit): one block
 //     per matrix in shared memory, warp 0 picks the pivot, one pass per
 //     step applies swap and elimination, three barriers per step.
 // Plain FP32 arithmetic, no fast-math.
-
 #include <cuda_runtime.h>
 
 namespace {
@@ -347,18 +390,364 @@ gj_shared_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
   }
 }
 
+// ---- the warp kernel ---------------------------------------------------------
+
+constexpr int kWarpBodyWarps = 4;  // warps per block
+
+// A candidate's key: 0 for a used or padding row, 1 for a NaN, else the
+// bits of |v|^2 plus 2.
+__device__ __forceinline__ unsigned pivot_key(float2 v, bool candidate) {
+  const float mag = v.x * v.x + v.y * v.y;
+  if (!candidate) return 0u;
+  return mag == mag ? __float_as_uint(mag) + 2u : 1u;
+}
+
+// One lane per row, W lanes per matrix (32 / W matrices per warp).
+template <int W>
+__global__ void __launch_bounds__(32 * kWarpBodyWarps)
+gj_warp_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
+               float2* __restrict__ sign_out, float* __restrict__ logdet_out,
+               int batch, int n) {
+  static_assert(W == 16 || W == 32, "a matrix takes a half warp or a warp");
+  constexpr int kSegs = 32 / W;
+  constexpr unsigned kSegMask = W == 32 ? kFull : (1u << W) - 1u;
+  // the loading and unscrambling tile of each matrix (row stride W + 1),
+  // and its raw pivot row, double-buffered by the parity of k
+  __shared__ float2 tiles[kWarpBodyWarps][kSegs][W][W + 1];
+  __shared__ __align__(16) float2 rows[kWarpBodyWarps][2][kSegs][W];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int seg = lane / W;
+  const int r = lane % W;  // the row this lane owns
+  const int first = (blockIdx.x * kWarpBodyWarps + warp) * kSegs;
+  if (first >= batch) return;  // a whole warp: only warp-level syncs follow
+  const int mat = first + seg;
+  const bool live = mat < batch;  // the last half warp of an odd batch idles
+  const size_t base = static_cast<size_t>(mat) * n * n;
+  float2(*tile)[W + 1] = tiles[warp][seg];
+
+  // row i of the matrix is one coalesced load of its lanes
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if (live && i < n && r < n) tile[i][r] = a[base + i * n + r];
+  }
+  __syncwarp();
+  float2 m[W];
+#pragma unroll
+  for (int c = 0; c < W; ++c) {
+    m[c] = (live && r < n && c < n) ? tile[r][c] : make_float2(0.f, 0.f);
+  }
+  __syncwarp();  // the tile is rewritten at the end
+
+  int pos = r;  // padding rows keep positions >= n and never move
+  float2 sign = make_float2(1.f, 0.f);
+  float logdet = 0.f;
+  const int seg_base = seg * W;
+
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    if (k >= n) break;
+    const float2 v = m[k];
+    // the pivot: the largest (key, 255 - position) among the matrix's
+    // lanes, its lane in the low byte (positions are unique)
+    unsigned long long best =
+        (static_cast<unsigned long long>(pivot_key(v, r < n && pos >= k)) << 32) |
+        (static_cast<unsigned>(255 - pos) << 8) | static_cast<unsigned>(r);
+#pragma unroll
+    for (int off = W / 2; off > 0; off >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(kFull, best, off);
+      best = other > best ? other : best;
+    }
+    const unsigned low = static_cast<unsigned>(best);
+    const int plane = static_cast<int>(low & 255u);
+    const int bpos = 255 - static_cast<int>(low >> 8);
+    const int src = seg_base + plane;
+    // the pivot value by shuffle, the pivot row through shared memory
+    const float2 bval = make_float2(__shfl_sync(kFull, v.x, src),
+                                    __shfl_sync(kFull, v.y, src));
+    float4* prow = reinterpret_cast<float4*>(rows[warp][k & 1][seg]);
+    if (r == plane) {
+#pragma unroll
+      for (int j = 0; j < W / 2; ++j) {
+        prow[j] = make_float4(m[2 * j].x, m[2 * j].y, m[2 * j + 1].x, m[2 * j + 1].y);
+      }
+    }
+    __syncwarp();
+
+    const float den = bval.x * bval.x + bval.y * bval.y;
+    const float inv_den = 1.f / den;
+    const float rs = rsqrtf(den) * (bpos == k ? 1.f : -1.f);
+    const float2 sg = cmul(sign, bval);
+    sign = make_float2(sg.x * rs, sg.y * rs);
+    logdet += 0.5f * logf(den);
+    const float2 d = make_float2(bval.x * inv_den, -bval.y * inv_den);
+
+    // row -= (f d) * pivot row; the pivot row becomes d * itself, with d
+    // in column k, and every other row -f d there
+    const bool piv = r == plane;
+    const float2 fd = cmul(v, d);
+    const float2 coef = piv ? make_float2(-d.x, -d.y) : fd;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const float4 p2 = prow[j / 2];
+      const float2 p = (j & 1) ? make_float2(p2.z, p2.w) : make_float2(p2.x, p2.y);
+      const float2 b = piv ? make_float2(0.f, 0.f) : m[j];
+      m[j].x = fmaf(coef.y, p.y, fmaf(-coef.x, p.x, b.x));
+      m[j].y = fmaf(-coef.y, p.x, fmaf(-coef.x, p.y, b.y));
+    }
+    m[k] = piv ? d : make_float2(-fd.x, -fd.y);
+    if (piv) {
+      pos = k;
+    } else if (pos == k) {
+      pos = bpos;
+    }
+  }
+
+  // storage row r, column c holds A^-1[pos(r), the row at position c]
+#pragma unroll
+  for (int c = 0; c < W; ++c) {
+    if (c >= n) break;
+    const unsigned at = (__ballot_sync(kFull, pos == c) >> seg_base) & kSegMask;
+    if (r < n) tile[pos][__ffs(at) - 1] = m[c];
+  }
+  __syncwarp();
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      if (i < n && r < n) ainv[base + i * n + r] = tile[i][r];
+    }
+    if (r == 0) {
+      sign_out[mat] = sign;
+      logdet_out[mat] = logdet;
+    }
+  }
+}
+
+// ---- the mid kernel ----------------------------------------------------------
+
+constexpr int kMidMin = 49;            // smallest n of the mid kernel
+constexpr int kMidN = 96;              // its padded size: 6 x 6 per lane
+constexpr int kMidTile = kMidN / 16;   // entries per lane along each axis
+constexpr int kMidThreads = 256;       // a 16 x 16 lane grid
+
+// Dynamic shared memory of the mid kernel: its n x (n + 1) tile.
+__host__ __device__ constexpr long long mid_tile_bytes(int n) {
+  return static_cast<long long>(n) * (n + 1) * sizeof(float2);
+}
+
+// 8-byte asynchronous copy from device to shared memory.
+__device__ __forceinline__ void cp_async8(float2* dst, const float2* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kMidThreads, 2)
+gj_mid_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
+              float2* __restrict__ sign_out, float* __restrict__ logdet_out,
+              int n) {
+  constexpr int T = kMidTile;
+  extern __shared__ float2 tile[];  // n x (n + 1): the matrix in, A^-1 out
+  __shared__ float2 fcol[2][kMidN];  // column k of this step, by parity of k
+  __shared__ float2 prow[2][kMidN];  // the scaled pivot row, the same
+  __shared__ int pos_s[kMidN];
+  __shared__ int row_at_s[kMidN];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int ld = n + 1;
+  const int nn = n * n;
+  const size_t base = static_cast<size_t>(blockIdx.x) * nn;
+
+  for (int e = tid; e < nn; e += kMidThreads) {
+    const int i = e / n;
+    cp_async8(tile + i * ld + e - i * n, a + base + e);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  float2 m[T][T];
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      const int row = ty + 16 * i, col = tx + 16 * j;
+      m[i][j] = (row < n && col < n) ? tile[row * ld + col] : make_float2(0.f, 0.f);
+    }
+  }
+
+  // every warp scans rows lane + 32 q and keeps their positions
+  int pos[kMidN / 32];
+#pragma unroll
+  for (int q = 0; q < kMidN / 32; ++q) pos[q] = lane + 32 * q;
+  float2 sign = make_float2(1.f, 0.f);
+  float logdet = 0.f;
+
+  // k = 16 j0 + kx: j0 is unrolled so that column k is a static register
+  // index of its owners (the lanes with tx == kx)
+#pragma unroll
+  for (int j0 = 0; j0 < T; ++j0) {
+#pragma unroll 1
+    for (int kx = 0; kx < 16; ++kx) {
+      const int k = 16 * j0 + kx;
+      if (k >= n) break;
+      const int buf = k & 1;
+      const bool owns_col = tx == kx;
+      if (owns_col) {
+#pragma unroll
+        for (int i = 0; i < T; ++i) fcol[buf][ty + 16 * i] = m[i][j0];
+      }
+      __syncthreads();  // one: column k is published
+
+      unsigned key[kMidN / 32];
+      unsigned kmax = 0u;
+#pragma unroll
+      for (int q = 0; q < kMidN / 32; ++q) {
+        const int row = lane + 32 * q;
+        key[q] = pivot_key(fcol[buf][row], row < n && pos[q] >= k);
+        kmax = max(kmax, key[q]);
+      }
+      kmax = __reduce_max_sync(kFull, kmax);
+      unsigned cand = 0xffffffffu;  // (position, row) of the smallest position
+#pragma unroll
+      for (int q = 0; q < kMidN / 32; ++q) {
+        if (key[q] == kmax) {
+          cand = min(cand, (static_cast<unsigned>(pos[q]) << 8) |
+                               static_cast<unsigned>(lane + 32 * q));
+        }
+      }
+      cand = __reduce_min_sync(kFull, cand);
+      const int bpos = static_cast<int>(cand >> 8);
+      const int brow = static_cast<int>(cand & 255u);
+      const float2 bval = fcol[buf][brow];
+
+      const float den = bval.x * bval.x + bval.y * bval.y;
+      const float inv_den = 1.f / den;
+      const float rs = rsqrtf(den) * (bpos == k ? 1.f : -1.f);
+      const float2 sg = cmul(sign, bval);
+      sign = make_float2(sg.x * rs, sg.y * rs);
+      logdet += 0.5f * logf(den);
+      const float2 d = make_float2(bval.x * inv_den, -bval.y * inv_den);
+#pragma unroll
+      for (int q = 0; q < kMidN / 32; ++q) {
+        if (lane + 32 * q == brow) {
+          pos[q] = k;
+        } else if (pos[q] == k) {
+          pos[q] = bpos;
+        }
+      }
+
+      // the pivot row's owners scale it in place and publish it, with d
+      // in column k: the update below then leaves -f d in that column
+      // once its owners have cleared it
+      if (ty == (brow & 15)) {
+        const int ip = brow >> 4;
+#pragma unroll
+        for (int i = 0; i < T; ++i) {
+          if (i == ip) {
+#pragma unroll
+            for (int j = 0; j < T; ++j) {
+              m[i][j] = (tx + 16 * j == k) ? d : cmul(m[i][j], d);
+              prow[buf][tx + 16 * j] = m[i][j];
+            }
+          }
+        }
+      }
+      if (owns_col) {
+#pragma unroll
+        for (int i = 0; i < T; ++i) {
+          if (ty + 16 * i != brow) m[i][j0] = make_float2(0.f, 0.f);
+        }
+      }
+      __syncthreads();  // two: the pivot row is published
+
+      float2 pr[T];
+#pragma unroll
+      for (int j = 0; j < T; ++j) pr[j] = prow[buf][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        const int row = ty + 16 * i;
+        // the pivot row is not eliminated
+        const float2 f = row == brow ? make_float2(0.f, 0.f) : fcol[buf][row];
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+          m[i][j].x = fmaf(f.y, pr[j].y, fmaf(-f.x, pr[j].x, m[i][j].x));
+          m[i][j].y = fmaf(-f.y, pr[j].x, fmaf(-f.x, pr[j].y, m[i][j].y));
+        }
+      }
+    }
+  }
+
+  // storage row r, column c holds A^-1[pos(r), row_at(c)]: warp 0 holds
+  // every row's position
+  if (tid < 32) {
+#pragma unroll
+    for (int q = 0; q < kMidN / 32; ++q) {
+      const int row = lane + 32 * q;
+      if (row < n) {
+        pos_s[row] = pos[q];
+        row_at_s[pos[q]] = row;
+      }
+    }
+  }
+  __syncthreads();
+  int out_col[T];
+#pragma unroll
+  for (int j = 0; j < T; ++j) {
+    out_col[j] = tx + 16 * j < n ? row_at_s[tx + 16 * j] : 0;
+  }
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    const int row = ty + 16 * i;
+    if (row < n) {
+      const int out_row = pos_s[row];
+#pragma unroll
+      for (int j = 0; j < T; ++j) {
+        if (tx + 16 * j < n) tile[out_row * ld + out_col[j]] = m[i][j];
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < nn; e += kMidThreads) {
+    const int i = e / n;
+    ainv[base + e] = tile[i * ld + e - i * n];
+  }
+  if (tid == 0) {
+    sign_out[blockIdx.x] = sign;
+    logdet_out[blockIdx.x] = logdet;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// 1 when n x n matrices take the register kernel, 0 for the shared-memory
-// one: by n alone.
-int gj_uses_registers(int n) { return n == 48 ? 1 : 0; }
+// The body that serves n x n matrices, by n alone: 1 warp, 2 registers,
+// 3 mid, 0 shared (det_kernels.BODIES names them).
+int gj_body(int n) {
+  if (n <= 32) return 1;
+  if (n == 48) return 2;
+  if (n >= kMidMin && n <= kMidN) return 3;
+  return 0;
+}
 
-// Dynamic shared memory the shared-memory kernel needs for n x n matrices.
+// Dynamic shared memory the body for n x n matrices needs per block.
 long long gj_smem_bytes(int n) {
-  return static_cast<long long>(n) * n * sizeof(float2) +
-         3LL * n * sizeof(float2) + static_cast<long long>(n) * sizeof(int);
+  switch (gj_body(n)) {
+    case 0:
+      return static_cast<long long>(n) * n * sizeof(float2) +
+             3LL * n * sizeof(float2) + static_cast<long long>(n) * sizeof(int);
+    case 3:
+      return mid_tile_bytes(n);
+    default:
+      return 0;
+  }
 }
 
 // Largest dynamic shared memory a block may opt into on `device`.
@@ -380,20 +769,39 @@ int gj_inverse_slogdet_launch(const void* a, void* ainv, void* sign,
   auto* sp = static_cast<float2*>(sign);
   auto* lp = static_cast<float*>(logdet);
   auto st = static_cast<cudaStream_t>(stream);
-  if (gj_uses_registers(n)) {
-    const int blocks = (batch + kRegWarps - 1) / kRegWarps;
-    gj_registers_kernel<48><<<blocks, 32 * kRegWarps, 0, st>>>(ap, ip, sp, lp,
-                                                               batch);
-    return static_cast<int>(cudaGetLastError());
-  }
   const size_t smem = static_cast<size_t>(gj_smem_bytes(n));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gj_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  switch (gj_body(n)) {
+    case 1:
+      if (n <= 16) {
+        const int per_block = 2 * kWarpBodyWarps;
+        gj_warp_kernel<16><<<(batch + per_block - 1) / per_block,
+                             32 * kWarpBodyWarps, 0, st>>>(ap, ip, sp, lp, batch, n);
+      } else {
+        gj_warp_kernel<32><<<(batch + kWarpBodyWarps - 1) / kWarpBodyWarps,
+                             32 * kWarpBodyWarps, 0, st>>>(ap, ip, sp, lp, batch, n);
+      }
+      break;
+    case 2:
+      gj_registers_kernel<48><<<(batch + kRegWarps - 1) / kRegWarps,
+                                32 * kRegWarps, 0, st>>>(ap, ip, sp, lp, batch);
+      break;
+    case 3: {
+      const cudaError_t err = cudaFuncSetAttribute(
+          gj_mid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      gj_mid_kernel<<<batch, kMidThreads, smem, st>>>(ap, ip, sp, lp, n);
+      break;
+    }
+    default:
+      if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            gj_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+      }
+      gj_shared_kernel<<<batch, kThreads, smem, st>>>(ap, ip, sp, lp, n);
   }
-  gj_shared_kernel<<<batch, kThreads, smem, st>>>(ap, ip, sp, lp, n);
   return static_cast<int>(cudaGetLastError());
 }
 

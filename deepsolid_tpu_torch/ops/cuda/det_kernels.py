@@ -1,9 +1,11 @@
 """Batched complex Gauss-Jordan inverse + slogdet: CUDA kernel and plain version.
 
 Counterpart of deepsolid_tpu/ops/pallas/det_kernels.py. The source
-(csrc/gj_inverse.cu) holds two kernels, chosen by the matrix size alone
-(`variant`): one that keeps a matrix in the registers of one warp, for
-the sizes it is instantiated for, and one that keeps it in the shared
+(csrc/gj_inverse.cu) holds four kernel bodies, chosen by the matrix size
+alone (`variant`, which asks the library's gj_body): three keep a matrix
+in registers, "warp" (n <= 32, one lane per row, two matrices per warp
+for n <= 16), "registers" (n = 48, one warp per matrix) and "mid" (49 <=
+n <= 96, a block of 8 warps per matrix); "shared" keeps it in the shared
 memory of one block, for any other size up to the card's shared-memory
 limit. Every leading batch axis (walkers x determinants) goes into one
 launch. The plain PyTorch version performs the same elimination with the
@@ -22,6 +24,8 @@ import torch
 from deepsolid_tpu_torch.ops.cuda import build
 
 LAUNCHES = {"gj_inverse_slogdet": 0}
+# the kernel bodies by the code gj_body returns
+BODIES = ("shared", "warp", "registers", "mid")
 # launches by (kernel, (matrices, n, n), variant), counted beside LAUNCHES
 SHAPES = collections.Counter()
 
@@ -29,7 +33,7 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "gj_inverse_slogdet_launch": (
         ctypes.c_int, [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]),
-    "gj_uses_registers": (ctypes.c_int, [ctypes.c_int]),
+    "gj_body": (ctypes.c_int, [ctypes.c_int]),
     "gj_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
     "gj_max_smem_optin": (ctypes.c_int, [ctypes.c_int]),
 }
@@ -83,18 +87,18 @@ def _lib():
 
 
 def variant(lib, n: int, device: torch.device) -> str:
-    """Which kernel serves n x n matrices, by n alone: "registers" for a
-    size the register kernel is instantiated for, else "shared", which
-    raises for a matrix that does not fit the card's shared memory."""
-    if lib.gj_uses_registers(n):
-        return "registers"
+    """Which kernel body serves n x n matrices, by n alone (one of
+    BODIES); raises for a size whose body needs more shared memory than
+    the card allows a block."""
+    body = BODIES[lib.gj_body(n)]
     need = lib.gj_smem_bytes(n)
-    limit = lib.gj_max_smem_optin(device.index or 0)
-    if need > limit:
-        raise ValueError(
-            f"{n}x{n} matrices need {need} bytes of shared memory per block; "
-            f"this card allows {limit}. Larger matrices are not supported.")
-    return "shared"
+    if need:
+        limit = lib.gj_max_smem_optin(device.index or 0)
+        if need > limit:
+            raise ValueError(
+                f"{n}x{n} matrices need {need} bytes of shared memory per block; "
+                f"this card allows {limit}. Larger matrices are not supported.")
+    return body
 
 
 def _gj_cuda(a: torch.Tensor):

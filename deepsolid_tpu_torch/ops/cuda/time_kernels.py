@@ -10,10 +10,17 @@ current, baseline). DIR holds gj_inverse.cu and dense_tanh_jet.cu of the
 other design with the same C interface (an earlier commit's csrc/, or a
 copy of the present one with a constant changed); they are built there
 with build.py's flags. The launchers are called directly, on buffers
-allocated once: no wrapper, no allocation in the timed region.
+allocated once: no wrapper, no allocation in the timed region. `ms` is
+one launch between two CUDA events, which for a launch shorter than its
+host call (~20 us through ctypes) reads the host; the Gauss-Jordan rows
+also give `graph_ms`, per launch of a CUDA graph of 20 launches.
 
-Shapes are those of the C-diamond 2x2x2 main path: the Gauss-Jordan
-kernel on (8192, 48, 48) and (512, 48, 48) complex64; the one-electron jet
+The Gauss-Jordan kernel is timed at the launch shapes of the three
+production systems (GJ_SHAPES, complex64): C-diamond 2x2x2's (8192, 48,
+48) and (512, 48, 48), bcc-Li 3x3x3's (4096, 81, 81) sampler and (256, 81,
+81) E_L launches, Si's (512, 14, 14) and (1024, 14, 14) and the run
+script's (8192, 14, 14), each with the body it takes and its bound. The
+jet kernels at the C-diamond 2x2x2 main path's shapes: the one-electron jet
 kernels on 6144 rows, d_out 256, T = 288 (closed) or 144 (open), d_in 16,
 320 or 256; the two-electron (pair) jet kernels on 589,824 rows, d_out 32,
 d_in 4 and 32, T = 6 (closed) and 3 (open). For the wide jet variant the
@@ -43,6 +50,10 @@ WALKERS = 64
 ROWS, D_OUT = WALKERS * 96, 256          # one-electron stream
 PAIR_ROWS, PAIR_D_OUT = WALKERS * 96 * 96, 32  # two-electron stream
 PEAK_BYTES = 3.35e12  # H100 SXM HBM bytes/s (NVIDIA data sheet, 700 W)
+PEAK_FP32 = 67e12     # H100 SXM FP32 FLOP/s outside the tensor cores
+# (matrices, n) of each Gauss-Jordan launch shape
+GJ_SHAPES = ((8192, 48), (512, 48), (4096, 81), (256, 81), (512, 14),
+             (1024, 14), (8192, 14))
 # (T, rows, d_in, d_out, mix rule, open form)
 JET_SHAPES = ((288, ROWS, 16, D_OUT, True, False),
               (288, ROWS, 320, D_OUT, True, False),
@@ -85,18 +96,33 @@ def time_ms(fn, warmup: int = 3, reps: int = 15) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, launches: int = 20) -> float:
+    """Device milliseconds per call of `fn` (one launch on the current
+    stream), from a CUDA graph of `launches` calls replayed back to back:
+    no host time between the launches, which a launch shorter than its
+    host call would otherwise measure."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return time_ms(graph.replay, warmup=2, reps=10) / launches
+
+
 def gj_launcher(lib, a):
     import torch
 
     ainv = torch.empty_like(a)
     sign = torch.empty(a.shape[0], dtype=torch.complex64, device=a.device)
     logdet = torch.empty(a.shape[0], dtype=torch.float32, device=a.device)
-    stream = torch.cuda.current_stream().cuda_stream
 
     def run():
         code = lib.gj_inverse_slogdet_launch(
             a.data_ptr(), ainv.data_ptr(), sign.data_ptr(), logdet.data_ptr(),
-            a.shape[0], a.shape[1], stream)
+            a.shape[0], a.shape[1], torch.cuda.current_stream().cuda_stream)
         build.check(lib, code, "gj_inverse_slogdet")
     return run
 
@@ -156,20 +182,26 @@ def main() -> None:
         gj_base = baseline_library(args.baseline, "gj_inverse", dk._SIGNATURES)
         jet_base = baseline_library(args.baseline, "dense_tanh_jet", jk._SIGNATURES)
 
-    def in_turns(current, base):
+    def in_turns(current, base, timer=time_ms):
         """Milliseconds as baseline, current, current, baseline."""
-        first = time_ms(base) if base else None
-        ms = [time_ms(current), time_ms(current)]
-        return ms, ([first, time_ms(base)] if base else None)
+        first = timer(base) if base else None
+        ms = [timer(current), timer(current)]
+        return ms, ([first, timer(base)] if base else None)
 
-    for nb in (8192, 512):
-        a = torch.complex(rnd(nb, 48, 48), rnd(nb, 48, 48)) / math.sqrt(96)
-        ms, base = in_turns(gj_launcher(gj, a),
-                            gj_launcher(gj_base, a) if gj_base else None)
-        print(json.dumps({"kernel": "gj_inverse_slogdet", "shape": [nb, 48, 48],
-                          "ms": ms, "baseline_ms": base,
+    for nb, n in GJ_SHAPES:
+        a = torch.complex(rnd(nb, n, n), rnd(nb, n, n)) / math.sqrt(2 * n)
+        current = gj_launcher(gj, a)
+        other = gj_launcher(gj_base, a) if gj_base else None
+        ms, base = in_turns(current, other)
+        dev_ms, dev_base = in_turns(current, other, graph_ms)
+        bound = max(2 * a.numel() * 8 / PEAK_BYTES, 8.0 * n**3 * nb / PEAK_FP32)
+        print(json.dumps({"kernel": "gj_inverse_slogdet", "shape": [nb, n, n],
+                          "body": dk.variant(gj, n, dev), "ms": ms,
+                          "baseline_ms": base, "graph_ms": dev_ms,
+                          "baseline_graph_ms": dev_base, "bound_ms": bound * 1e3,
                           "wrapper_ms": time_ms(lambda: dk.gj_inverse_slogdet(a))}),
               flush=True)
+        del a
 
     for t_dim, rows, d_in, d_out, mixed, open_sum in JET_SHAPES:
         val, jac, lap = rnd(rows, d_in), rnd(t_dim, rows, d_in), rnd(rows, d_in)

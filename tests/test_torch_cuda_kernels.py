@@ -28,19 +28,30 @@ def _rnd(gen, dev):
     return lambda *s: torch.randn(s, generator=gen, device=dev)
 
 
+def _gj_body(n):
+    """The body csrc/gj_inverse.cu's gj_body gives n x n matrices."""
+    if n <= 32:
+        return "warp"
+    if n == 48:
+        return "registers"
+    return "mid" if 49 <= n <= 96 else "shared"
+
+
 @pytest.mark.cuda
 def test_gj_kernel_matches_plain(cuda_device):
     rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
-    # 48: the register kernel; the others the shared-memory one (100: above
-    # 48 KB of shared memory, by opt-in)
-    for n in (5, 13, 48, 96, 100):
+    # every body at the production sizes (14, 48, 81) and at both ends of
+    # its range: warp 1-16 (two matrices a warp) and 17-32, shared 33-47,
+    # registers 48, mid 49-96, shared again from 97 (100: above 48 KB of
+    # shared memory, by opt-in)
+    for n in (1, 5, 13, 14, 16, 17, 32, 33, 47, 48, 49, 81, 96, 97, 100):
         a = torch.complex(rnd(64, n, n), rnd(64, n, n)) + 4.0 * torch.eye(n, device=cuda_device)
         before = tdk.LAUNCHES["gj_inverse_slogdet"]
-        key = ("gj_inverse_slogdet", (64, n, n), "registers" if n == 48 else "shared")
+        key = ("gj_inverse_slogdet", (64, n, n), _gj_body(n))
         shape_before = tdk.SHAPES[key]
         got = tdk.gj_inverse_slogdet(a)
         assert tdk.LAUNCHES["gj_inverse_slogdet"] == before + 1
-        assert tdk.SHAPES[key] == shape_before + 1
+        assert tdk.SHAPES[key] == shape_before + 1, (n, key)
         for x, y in zip(got, tdk.gj_inverse_slogdet_plain(a)):
             torch.testing.assert_close(x, y, rtol=2e-3, atol=2e-3)  # conditioning
     sing = torch.diag(torch.tensor([1.0, 2.0, 0.0], device=cuda_device))
@@ -63,7 +74,22 @@ def test_gj_register_kernel_batches(cuda_device, batch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [48, 12])  # the register and the shared-memory kernel
+@pytest.mark.parametrize("n", [14, 32])  # two matrices a warp, one a warp
+@pytest.mark.parametrize("batch", [1, 3, 512])  # 1, 3: the last half warp idle
+def test_gj_warp_body_batches(cuda_device, batch, n):
+    rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(8), cuda_device)
+    a = torch.complex(rnd(batch, n, n), rnd(batch, n, n)) / (2 * n)**0.5
+    key = ("gj_inverse_slogdet", (batch, n, n), "warp")
+    before = tdk.SHAPES[key]
+    got = tdk.gj_inverse_slogdet(a)
+    assert tdk.SHAPES[key] == before + 1
+    for x, y in zip(got, tdk.gj_inverse_slogdet_plain(a)):
+        torch.testing.assert_close(x, y, rtol=5e-3, atol=5e-3)  # conditioning
+
+
+@pytest.mark.cuda
+# the registers, warp (12, 14: Si's), mid (bcc-Li's 81) and shared bodies
+@pytest.mark.parametrize("n", [48, 12, 14, 81, 40])
 @pytest.mark.parametrize("case", ["anti_diagonal", "permutation", "tie",
                                   "zero_pivot", "nan_entry"])
 def test_gj_kernel_edge_matrices(cuda_device, n, case):

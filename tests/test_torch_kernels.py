@@ -36,25 +36,30 @@ def _complex64(shape, seed):
     return (rng.randn(*shape) + 1j * rng.randn(*shape)).astype(np.complex64)
 
 
-def _assert_gj_close(got, want, inv_tol):
+def _assert_gj_close(got, want, inv_tol, det_tol=1e-5):
     ainv, sign, logabs = got
     np.testing.assert_allclose(ainv.numpy(), np.asarray(want[0]), rtol=inv_tol,
                                atol=inv_tol)
-    np.testing.assert_allclose(sign.numpy(), np.asarray(want[1]), atol=1e-5)
-    np.testing.assert_allclose(logabs.numpy(), np.asarray(want[2]), atol=1e-5)
+    np.testing.assert_allclose(sign.numpy(), np.asarray(want[1]), atol=det_tol)
+    np.testing.assert_allclose(logabs.numpy(), np.asarray(want[2]), atol=det_tol)
 
 
 # ---- B1: Gauss-Jordan inverse + slogdet -----------------------------------
 
 
-@pytest.mark.parametrize("b,n", [(3, 5), (4, 13), (1, 48), (130, 16)])
+# (2, 81): bcc-Li 3x3x3's n; (40, 14): Si's; (8, 17), (4, 32): both ends of
+# the warp body's one-matrix-a-warp range
+@pytest.mark.parametrize("b,n", [(3, 5), (4, 13), (1, 48), (130, 16), (2, 81), (40, 14),
+                                 (8, 17), (4, 32)])
 def test_gj_plain_matches_jax_kernel(b, n):
     a = _complex64((b, n, n), seed=b * 100 + n)
     got = tdk.gj_inverse_slogdet_plain(torch.from_numpy(a))
     want = gj_inverse_slogdet_interpret(jnp.asarray(a))
     # complex64 on both sides: f32 rounding of the same elimination,
-    # amplified by the matrices' conditioning
-    _assert_gj_close(got, want, inv_tol=2e-4)
+    # amplified by the matrices' conditioning. The sign and log|det| sum n
+    # rounded factors: at n = 81 each side lies up to 3e-5 from numpy's
+    # complex128 answer (the two sides 1.9e-5 apart), so 4e-5 there
+    _assert_gj_close(got, want, inv_tol=2e-4, det_tol=1e-5 if n <= 48 else 4e-5)
 
 
 def test_gj_plain_zero_diagonal_and_permutation():
@@ -132,21 +137,32 @@ def test_gj_plain_edge_matrices_match_jax_kernel(name):
 
 class _FakeGjLibrary:
     """Stands in for the built library: the size rule of csrc/gj_inverse.cu
-    and a card with 227 KB of shared memory per block."""
+    (gj_body: 1 warp, 2 registers, 3 mid, 0 shared) and a card with 227 KB
+    of shared memory per block."""
 
-    def gj_uses_registers(self, n):
-        return 1 if n == 48 else 0
+    def gj_body(self, n):
+        if n <= 32:
+            return 1
+        if n == 48:
+            return 2
+        return 3 if 49 <= n <= 96 else 0
 
     def gj_smem_bytes(self, n):
-        return n * n * 8 + 3 * n * 8 + n * 4
+        body = self.gj_body(n)
+        if body == 0:
+            return n * n * 8 + 3 * n * 8 + n * 4
+        return n * (n + 1) * 8 if body == 3 else 0
 
     def gj_max_smem_optin(self, device):
         return 232448
 
 
-@pytest.mark.parametrize("n,want", [(48, "registers"), (13, "shared"), (96, "shared"),
+@pytest.mark.parametrize("n,want", [(48, "registers"), (13, "warp"), (96, "mid"),
                                     (47, "shared"), (168, "shared"), (169, None),
-                                    (400, None)])
+                                    (400, None), (1, "warp"), (5, "warp"), (14, "warp"),
+                                    (16, "warp"), (17, "warp"), (32, "warp"),
+                                    (33, "shared"), (49, "mid"), (81, "mid"),
+                                    (97, "shared")])
 def test_gj_variant_is_chosen_by_size_alone(n, want):
     lib, dev = _FakeGjLibrary(), torch.device("cuda", 0)
     if want is None:  # beyond the shared-memory guard: raises, no fallback
@@ -156,15 +172,30 @@ def test_gj_variant_is_chosen_by_size_alone(n, want):
         assert tdk.variant(lib, n, dev) == want
 
 
+def test_gj_fake_library_follows_the_source():
+    """_FakeGjLibrary's size rule is the one csrc/gj_inverse.cu states."""
+    text = (build.CSRC / "gj_inverse.cu").read_text()
+    assert "if (n <= 32) return 1;" in text
+    assert "if (n == 48) return 2;" in text
+    assert "constexpr int kMidMin = 49;" in text and "constexpr int kMidN = 96;" in text
+    assert "if (n >= kMidMin && n <= kMidN) return 3;" in text
+    assert tdk.BODIES == ("shared", "warp", "registers", "mid")
+
+
 def test_gj_wrapper_asks_the_size_rule_before_it_launches(monkeypatch):
     """The CUDA path consults `variant` (and so raises beyond the guard)
     for every tensor it is handed, and never reaches the plain version."""
     _forbid(monkeypatch, tdk, "gj_inverse_slogdet_plain")
     monkeypatch.setattr(tdk, "_lib", lambda: _FakeGjLibrary())
-    seen = []
+    seen, bodies = [], []
     real = tdk.variant
-    monkeypatch.setattr(tdk, "variant",
-                        lambda lib, n, dev: seen.append(n) or real(lib, n, dev))
+
+    def asked(lib, n, dev):
+        seen.append(n)
+        bodies.append((n, real(lib, n, dev)))
+        return bodies[-1][1]
+
+    monkeypatch.setattr(tdk, "variant", asked)
 
     class _OnCard:  # a tensor's face, as far as the checks before the launch look
         device = torch.device("cuda", 0)
@@ -175,6 +206,14 @@ def test_gj_wrapper_asks_the_size_rule_before_it_launches(monkeypatch):
     with pytest.raises(ValueError, match="shared memory"):
         tdk._gj_cuda(_OnCard())
     assert seen == [400]
+    # every body is named by the rule before the launch: the face has no
+    # storage, so the wrapper stops right after asking
+    for n, body in ((14, "warp"), (48, "registers"), (81, "mid"), (40, "shared")):
+        _OnCard.shape = (2, n, n)
+        with pytest.raises(AttributeError):
+            tdk._gj_cuda(_OnCard())
+        assert bodies[-1] == (n, body)
+    assert seen == [400, 14, 48, 81, 40]
 
 
 # ---- B2/B3: fused dense + tanh jet ------------------------------------------
