@@ -59,14 +59,29 @@ Phases, one JSON line each; any failure exits non-zero:
                 body at Si's n = 14 and the mid body at bcc-Li's 81), and
                 B1, B2 and B3 are then held against their plain versions
                 and timed at every shape these two paths launched;
- 11. reference - E_L, the energy gradient, the KFAC update and the
+ 11. h10      - H10 chain (10 electrons, cc-pVDZ) from a cold UHF solved on
+                the host into a scratch cache, then runs/h10_imp_run.py's
+                path from its first step (batch 2048, Langevin importance
+                sampling with 6 sweeps; 30 pretraining iterations, burn-in
+                20, 2 KFAC iterations); one mcmc_step of each sampler
+                (importance, all-electron with 20 sweeps, one-electron)
+                with its seconds, pmove, peak memory and exact B1 launch
+                count; a profile of one importance move; the drift and the
+                observables of the final walkers against CPU f64; B1 (warp
+                body at n = 5), B2 and B3 held and timed at every shape the
+                path launched;
+     diamond_importance - one C-diamond inference iteration from the
+                checkpoint with 6 importance sweeps (B1 at n = 48 with its
+                backward rule), and the drift of 8 checkpoint walkers
+                against CPU f64;
+ 12. reference - E_L, the energy gradient, the KFAC update and the
                 pretraining loss and its gradient of 8 checkpoint walkers on
                 the card (f32, kernels) against the port's plain path on the
                 CPU in float64, and E_L with TF32 matmuls as a control the
                 check must catch; E_L of 8 Si walkers (after the si phase)
                 and 2 bcc-Li checkpoint walkers the same way, each with its
                 own TF32 control;
- 12. profile  - torch.profiler over one 64-walker C-diamond local-energy
+ 13. profile  - torch.profiler over one 64-walker C-diamond local-energy
                 chunk and one bcc-Li chunk (el_chunk walkers): kernels by
                 device time and the device's idle share.
 Launch counts are set to 0 just before each driven path and read just
@@ -130,8 +145,29 @@ BCC_LI_ITERATIONS = 2
 BCC_LI_EL_CHUNKS = (16, 32)
 BCC_LI_PSI_CHUNKS = (256, 512)
 PROBE_LIMIT_BYTES = 60e9
+# H10 chain from a cold UHF, runs/h10_imp_run.py's settings: batch 2048,
+# el_chunk and psi_chunk unset, 6 Langevin importance sweeps, adaptive
+# damping at the default interval
+H10_CONFIG = "H,10,1,1,1.8,0,ccpvdz"
+H10_BATCH = 2048
+H10_STEPS = 6
+H10_KFAC_ITERATIONS = 2
+H10_SCF_CACHE = os.path.join(REPO, "build", "chip_smoke_h10_scf")
+# one mcmc_step of each kind from the h10 phase's final state: importance
+# with the run script's 6 sweeps, all-electron with runs/h10_run.py's 20,
+# one-electron with 1 sweep (10 moves)
+H10_SAMPLERS = {"importance": dict(steps=H10_STEPS, importance=True),
+                "all_electron": dict(steps=20),
+                "one_electron": dict(steps=1, one_electron_moves=True)}
+DRIFT_WALKERS = 8
+# relative error in the global norm of the drift (limit_drift of grad
+# log|psi|) of 8 walkers, card f32 against CPU f64: 7.7x and 9.7x the
+# first readings on an H100, 3.88e-6 (H10) and 3.10e-6 (C-diamond) (PERF.md)
+DRIFT_TOLERANCE = {"h10": 3e-5, "diamond": 3e-5}
+OBSERVABLE_TOLERANCE = 1e-5  # polarization and S(k) of the H10 walkers, card against CPU f64
+DIAMOND_IMPORTANCE_STEPS = 6
 # the Gauss-Jordan body each system's launches must take (by n alone)
-B1_BODY = {"si": "warp", "bcc_li": "mid"}
+B1_BODY = {"si": "warp", "bcc_li": "mid", "h10": "warp"}
 BCC_LI_REFERENCE_WALKERS = 2
 SI_REFERENCE_WALKERS = 8
 REFERENCE_ENERGY = -66.0  # Ha/cell, runs/ckpt_diamond/train_stats_r5_latest.csv
@@ -300,10 +336,11 @@ def jet_bytes_flops(t, r, k, c, mix_groups=0):
     return nbytes, 2.0 * (t + 2) * r * k * c
 
 
-def b3_row(dev, gen, n, groups, path="main", system=""):
+def b3_row(dev, gen, n, groups, path="main", system="", k0=16):
     """The mix jet kernel on the three one-electron layers of one E_L chunk
-    of `groups` walkers of n electrons (T = 3n; layer 0: 16 -> 256, layers
-    1, 2: 320 -> 256) against its plain version, timed beside its bound."""
+    of `groups` walkers of n electrons (T = 3n; layer 0: k0 -> 256, k0 16
+    for two atoms per primitive cell, layers 1, 2: 320 -> 256) against its
+    plain version, timed beside its bound."""
     import torch
     from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
 
@@ -314,7 +351,7 @@ def b3_row(dev, gen, n, groups, path="main", system=""):
     err = rel = 0.0
     total = plain = mm = nbytes = flops = 0.0
     ms, variants = [], []
-    for k, count in ((16, 1), (320, 2)):
+    for k, count in ((k0, 1), (320, 2)):
         args = (rnd(groups, n, k), rnd(t3, groups, n, k), rnd(groups, n, k),
                 rnd(groups, c3), rnd(groups, c3), rnd(t3, groups, c3),
                 rnd(k, c3) / math.sqrt(k), rnd(c3))
@@ -338,9 +375,9 @@ def b3_row(dev, gen, n, groups, path="main", system=""):
         "source": "deepsolid_tpu_torch/ops/cuda/csrc/dense_tanh_jet.cu",
         "replaces": "deepsolid_tpu/ops/pallas/jet_kernels.py:534",
         "per": (f"the three one-electron layers of one {groups}-walker {system}chunk "
-                f"(T={t3}, {groups * n} rows, 16->256, 2x 320->256)"),
+                f"(T={t3}, {groups * n} rows, {k0}->256, 2x 320->256)"),
         "path": path, "variant": variants,
-        "shapes": [[t3, groups * n, k, c3] for k in (16, 320)],
+        "shapes": [[t3, groups * n, k, c3] for k in (k0, 320)],
         "max_abs_err": err, "max_rel_err": rel,
         "tolerance": 1e-5, "ok": rel <= 1e-5,
         "ms": total, "ms_per_shape": ms, "plain_ms": plain,
@@ -559,6 +596,37 @@ def production_kernel_rows(dev, gen, bcc_li_el_chunk, bcc_li_psi_chunk):
     for row in rows[:4]:  # B1: Si's n = 14 on the warp body, bcc-Li's 81 on the mid one
         row["ok"] = row["ok"] and row["variant"] == B1_BODY[row["path"]]
     return rows
+
+
+def h10_kernel_rows(dev, gen, record):
+    """B1 at every shape the h10 path launched it (n = 5: sampler, E_L,
+    gradient and capture, each on the whole batch), B2 and B3 on its E_L
+    (the whole batch in one chunk: T = 6 pair rows, T = 30)."""
+    shapes = record["launch_shapes"]
+    n = sum(record["electrons"])
+    b1 = sorted({tuple(r["shape"]) for r in shapes if r["kernel"] == "gj_inverse_slogdet"})
+    rows = [b1_row(dev, gen, nb, m, "h10") for nb, m, _ in b1]
+    for row in rows:
+        row["ok"] = row["ok"] and row["variant"] == B1_BODY["h10"]
+    k0 = min(r["shape"][2] for r in shapes if r["kernel"] == "fused_dense_tanh_jet_mix")
+    return rows + [b2_row(dev, gen, n, H10_BATCH, "h10", "H10 "),
+                   b3_row(dev, gen, n, H10_BATCH, "h10", "H10 ", k0=k0)]
+
+
+def with_path_launches(rows, records):
+    """Each row with its path's launch count and the launches at each of
+    its shapes, from that path's record; returns the rows that disagree
+    with their plain versions or whose path launched none at a shape."""
+    for row in rows:
+        record = records[row["path"]]
+        row["launches"] = record["launches"][row["name"]]
+        row["launches_at_shape"] = [
+            sum(r["launches"] for r in record["launch_shapes"]
+                if r["kernel"] == row["name"] and r["shape"] == shape)
+            for shape in row["shapes"]]
+        emit({"phase": "kernel", **row})
+    return [(r["name"], r["path"], r["shapes"]) for r in rows
+            if not r["ok"] or r["launches"] <= 0 or min(r["launches_at_shape"]) <= 0]
 
 
 def b1_bodies(shapes):
@@ -1093,7 +1161,7 @@ def scratch_run(dev, cfg, source, phase, kfac_iterations, emit_iterations=True):
     losses = [r["loss"] for r in pre]
 
     # the targets alone: the UHF orbital matrices of one psi_chunk of walkers
-    chunk = data[:cfg.optim.psi_chunk].contiguous()
+    chunk = data[:cfg.optim.psi_chunk or batch].contiguous()
     target_ms = time_ms(lambda: source.orbital_mats(chunk), reps=10)
 
     steady = pre[1:]  # iterations 2-30: the first pays warm-up
@@ -1118,6 +1186,7 @@ def scratch_run(dev, cfg, source, phase, kfac_iterations, emit_iterations=True):
         "checkpoint": ckpt, "checkpoint_restores": ckpt_ok,
         "factors_finite": factors_finite,
         "kfac_energy_per_cell": [r["energy"] for r in iters],
+        "kfac_pmove": [r["pmove"] for r in iters],
         "kfac_seconds_per_iteration": [r["seconds"] for r in iters],
         "kfac_walkers_per_s_local_energy": [batch / r["seconds"]["local_energy"]
                                             for r in iters],
@@ -1353,6 +1422,207 @@ def bcc_li_phase(dev):
     return result, (cfg, klist, start_params, start_data[:BCC_LI_REFERENCE_WALKERS])
 
 
+def h10_cfg():
+    """runs/h10_imp_run.py's settings from its first step."""
+    from deepsolid_tpu_torch.configs import hydrogen_chain
+
+    cfg = hydrogen_chain.get_config(H10_CONFIG)
+    cfg.batch_size = H10_BATCH
+    cfg.precision = "float32"
+    cfg.optim.optimizer = "kfac"
+    cfg.optim.laplacian_mode = "forward"
+    cfg.optim.kfac.adaptive_damping = True
+    cfg.mcmc.steps = H10_STEPS
+    cfg.mcmc.importance_sampling = True
+    cfg.pretrain.scf = "hf"
+    cfg.debug.deterministic = True
+    cfg.log.save_path = os.path.join(REPO, "build", "chip_smoke_h10")
+    return from_scratch(cfg)
+
+
+def drift_rel_err(dev, net, params, x):
+    """Relative error in the global norm of the drift, limit_drift of grad
+    log|psi|, of the walkers `x` (numpy) under the numpy parameters
+    `params`: the card's f32 path against the port's CPU f64 one."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.sampling.mcmc import limit_drift
+    from deepsolid_tpu_torch.train.loss import walker_value_and_grad
+
+    val_grad = walker_value_and_grad(net.slogdet)
+
+    def drift(device, dtype):
+        _, grad = val_grad(params_from_jax(params, device, dtype),
+                           torch.as_tensor(np.asarray(x), dtype=dtype, device=device))
+        return limit_drift(grad).cpu().double()
+
+    card, cpu = drift(dev, torch.float32), drift("cpu", torch.float64)
+    return float((card - cpu).norm() / cpu.norm()), float(cpu.norm())
+
+
+def h10_samplers(dev, cfg, net, params, data):
+    """One mcmc_step of each kind of H10_SAMPLERS from (params, data) at
+    the configured width: seconds, pmove, peak device memory and B1's
+    launches, which must be exactly the sweeps' (two spin channels per
+    evaluation, two evaluations per Langevin move, one first evaluation)."""
+    import torch
+    from deepsolid_tpu_torch.sampling.mcmc import make_mcmc_step
+    from deepsolid_tpu_torch.train.loss import chunk_batch_fn
+
+    sc, psi_chunk = cfg.system.cell, cfg.optim.psi_chunk
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    for name, spec in H10_SAMPLERS.items():
+        step = make_mcmc_step(
+            chunk_batch_fn(net.slogdet, psi_chunk), sc.lattice, steps=spec["steps"],
+            importance_network=net.slogdet if spec.get("importance") else None,
+            one_electron_moves=spec.get("one_electron_moves", False), psi_chunk=psi_chunk)
+        moves = spec["steps"] * (sum(sc.nelec) if spec.get("one_electron_moves") else 1)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        start = time.perf_counter()
+        with torch.no_grad():
+            moved, pmove = step(params, data, gen, cfg.mcmc.move_width)
+            pmove = float(pmove)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - start
+        b1 = read_launches()["gj_inverse_slogdet"]
+        want = 2 * (1 + moves * (2 if spec.get("importance") else 1))
+        out[name] = {"steps": spec["steps"], "moves": moves, "seconds": seconds,
+                     "ms_per_move": 1e3 * seconds / moves, "pmove": pmove,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                     "b1_launches": b1, "b1_launches_expected": want,
+                     "finite": bool(torch.isfinite(moved).all()),
+                     "ok": 0 < pmove <= 1 and b1 == want
+                     and bool(torch.isfinite(moved).all())}
+    return out
+
+
+def h10_phase(dev):
+    """H10 (10 electrons, cc-pVDZ) from a cold UHF solved on the host into
+    a scratch cache, then runs/h10_imp_run.py's path from its first step
+    with the Langevin importance sampler; then one step of each sampler,
+    a profile of one importance move, and the drift and the observables
+    of the final walkers, card f32 against CPU f64. Returns the record."""
+    import torch
+    from deepsolid_tpu_torch.models.network import params_to_numpy
+    from deepsolid_tpu_torch.observables import (make_complex_polarization,
+                                                  make_structure_factor)
+    from deepsolid_tpu_torch.sampling.mcmc import make_mcmc_step
+    from deepsolid_tpu_torch.train.process import build_network, orbital_source
+
+    cfg = h10_cfg()
+    sc = cfg.system.cell
+    shutil.rmtree(H10_SCF_CACHE, ignore_errors=True)
+    os.makedirs(H10_SCF_CACHE)
+    cache = os.environ.get("DEEPSOLID_TPU_SCF_CACHE")
+    os.environ["DEEPSOLID_TPU_SCF_CACHE"] = H10_SCF_CACHE
+    try:
+        start = time.perf_counter()
+        source = orbital_source(cfg, sc)  # the cold UHF
+        uhf_seconds = time.perf_counter() - start
+        emit({"phase": "h10_source", "config": H10_CONFIG, "basis": cfg.system.basis,
+              "level": cfg.pretrain.scf, "seconds_cold_uhf": uhf_seconds,
+              "cache_files": sorted(os.listdir(H10_SCF_CACHE))})
+        result, params, data = scratch_run(dev, cfg, source, "h10", H10_KFAC_ITERATIONS,
+                                           emit_iterations=False)
+    finally:
+        os.environ["DEEPSOLID_TPU_SCF_CACHE"] = cache
+        shutil.rmtree(H10_SCF_CACHE, ignore_errors=True)
+    net = build_network(cfg, sc, klist_override=source.klist)
+    result.update(config=H10_CONFIG, seconds_cold_uhf=uhf_seconds,
+                  mcmc_steps=cfg.mcmc.steps, importance_sampling=True,
+                  b1_bodies=b1_bodies(result["launch_shapes"]))
+    samplers = h10_samplers(dev, cfg, net, params, data)
+
+    move = make_mcmc_step(net.slogdet, sc.lattice, steps=1, importance_network=net.slogdet)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    profile = profile_fn(dev, lambda: move(params, data, gen, cfg.mcmc.move_width),
+                         f"one Langevin importance move of {H10_BATCH} H10 walkers")
+
+    np_params = params_to_numpy(params)
+    x8 = data[:DRIFT_WALKERS].cpu().double().numpy()
+    drift_err, drift_norm = drift_rel_err(dev, net, np_params, x8)
+    obs_err = {}
+    for name, make in (("complex_polarization", make_complex_polarization),
+                       ("structure_factor", make_structure_factor)):
+        fn = make(sc)
+        card = fn(data).cpu().to(torch.complex128)
+        cpu = fn(data.cpu().double()).to(torch.complex128)
+        obs_err[name] = float((card - cpu).abs().max())
+    result.update(
+        samplers=samplers, profile_importance_move=profile,
+        drift_rel_err_global_norm=drift_err, drift_global_norm_cpu_f64=drift_norm,
+        drift_tolerance=DRIFT_TOLERANCE["h10"],
+        observables_max_abs_err=obs_err, observables_tolerance=OBSERVABLE_TOLERANCE)
+    result["ok"] = (
+        result["ok"] and result["b1_bodies"] == {5: [B1_BODY["h10"]]}
+        and all(0 < p <= 1 for p in result["kfac_pmove"])
+        and len(result["kfac_pmove"]) == H10_KFAC_ITERATIONS
+        and all(r["ok"] for r in samplers.values())
+        and drift_err <= DRIFT_TOLERANCE["h10"]
+        and all(e <= OBSERVABLE_TOLERANCE for e in obs_err.values()))
+    emit(result)
+    return result
+
+
+def diamond_importance_phase(dev, source):
+    """One C-diamond inference iteration from the committed checkpoint
+    with the Langevin importance sampler (6 sweeps; B1's registers body
+    at n = 48 and its backward rule), the drift of 8 checkpoint walkers,
+    card f32 against CPU f64, and the peak memory of one move alone."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.sampling.mcmc import make_mcmc_step
+    from deepsolid_tpu_torch.train.process import build_network
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    cfg = diamond_cfg("none", BATCH, "chip_smoke_diamond_importance")
+    cfg.mcmc.steps = DIAMOND_IMPORTANCE_STEPS
+    cfg.mcmc.importance_sampling = True
+    shutil.rmtree(cfg.log.save_path, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, recs, energy, launches = inference_run(cfg, 1)
+    shapes = read_shapes()
+    peak = torch.cuda.max_memory_allocated(dev)
+    _, data, params, _, width = restore(find_last_checkpoint(cfg.log.restore_path), BATCH)
+    net = build_network(cfg, cfg.system.cell, klist_override=source.klist)
+    drift_err, drift_norm = drift_rel_err(dev, net, params, data[:DRIFT_WALKERS])
+
+    # the sampler's own peak: one Langevin move of the batch, unchunked
+    move = make_mcmc_step(net.slogdet, cfg.system.cell.lattice, steps=1,
+                          importance_network=net.slogdet)
+    x = torch.as_tensor(np.asarray(data), dtype=torch.float32, device=dev)
+    gpu_params = params_from_jax(params, dev, torch.float32)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        move(gpu_params, x, torch.Generator(device=dev).manual_seed(9), float(width))
+    torch.cuda.synchronize(dev)
+    sampler_peak = torch.cuda.max_memory_allocated(dev)
+    result = {
+        "phase": "diamond_importance", "config": CONFIG, "batch": BATCH,
+        "mcmc_steps": cfg.mcmc.steps, "energy_per_cell": energy,
+        "pmove": recs[0]["pmove"], "seconds": recs[0]["seconds"],
+        "peak_memory_bytes": peak, "sampler_move_peak_memory_bytes": sampler_peak,
+        "launches": launches, "launch_shapes": shapes,
+        "b1_bodies": b1_bodies(shapes),
+        "drift_rel_err_global_norm": drift_err, "drift_global_norm_cpu_f64": drift_norm,
+        "drift_tolerance": DRIFT_TOLERANCE["diamond"],
+    }
+    result["ok"] = (
+        math.isfinite(energy) and abs(energy - REFERENCE_ENERGY) <= ENERGY_WINDOW
+        and 0 < result["pmove"] <= 1 and result["b1_bodies"] == {48: ["registers"]}
+        and launches["fused_dense_tanh_jet"] > 0 and launches["fused_dense_tanh_jet_mix"] > 0
+        and drift_err <= DRIFT_TOLERANCE["diamond"])
+    emit(result)
+    return result
+
+
 def system_el_reference(dev, cfg, klist, params, x):
     """E_L per primitive cell of the walkers `x` (numpy) under the numpy
     parameter tree `params`: the card's f32 kernel path, and the port's
@@ -1544,11 +1814,9 @@ def reference_phase(dev, source, systems):
 
 def profile_phase(dev, cfg, klist, params, x, what):
     """Where one local-energy chunk (walkers `x`, numpy parameters `params`)
-    spends the card's time: kernels by device time from torch.profiler,
-    and the device's busy share of the chunk's wall time."""
+    spends the card's time."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from deepsolid_tpu_torch.hamiltonian import make_local_energy
     from deepsolid_tpu_torch.models.network import params_from_jax
     from deepsolid_tpu_torch.train.process import build_network
@@ -1557,13 +1825,23 @@ def profile_phase(dev, cfg, klist, params, x, what):
     params = params_from_jax(params, dev, torch.float32)
     x = torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
     el_fn = make_local_energy(net, cfg.system.cell)
+    return profile_fn(dev, lambda: el_fn(params, x), what)
+
+
+def profile_fn(dev, fn, what):
+    """Where one call of `fn` spends the card's time: kernels by device
+    time from torch.profiler, and the device's busy share of the call's
+    wall time (after one warm-up call)."""
+    import torch
+    from torch.autograd import DeviceType
+
     with torch.no_grad():
-        el_fn(params, x)  # warm-up
+        fn()  # warm-up
         torch.cuda.synchronize(dev)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             start = time.perf_counter()
-            el_fn(params, x)
+            fn()
             torch.cuda.synchronize(dev)
             wall_ms = (time.perf_counter() - start) * 1e3
     by_name = {}
@@ -1684,20 +1962,30 @@ def main() -> int:
     # B1, B2 and B3 at the shapes these two paths gave them, each row with
     # its path's launch count and the launches at each of its shapes
     shaped = production_kernel_rows(dev, gen, bcc_li["el_chunk"], bcc_li["psi_chunk"])
-    for row in shaped:
-        record = {"si": si, "bcc_li": bcc_li}[row["path"]]
-        row["launches"] = record["launches"][row["name"]]
-        row["launches_at_shape"] = [
-            sum(r["launches"] for r in record["launch_shapes"]
-                if r["kernel"] == row["name"] and r["shape"] == shape)
-            for shape in row["shapes"]]
-        emit({"phase": "kernel", **row})
     kernels += shaped
-    bad = [(r["name"], r["path"], r["shapes"]) for r in shaped
-           if not r["ok"] or r["launches"] <= 0 or min(r["launches_at_shape"]) <= 0]
+    bad = with_path_launches(shaped, {"si": si, "bcc_li": bcc_li})
     if bad:
         return fail(f"kernels at the Si and bcc-Li shapes disagree with their "
                     f"plain versions or their path launched none at a shape: {bad}")
+
+    h10 = h10_phase(dev)
+    if not h10["ok"]:
+        return fail("the h10 phase failed its checks (the cold UHF, the "
+                    "pretraining loss did not fall, a non-finite value or a "
+                    "pmove outside (0, 1], a checkpoint, B1 at n = 5 not on "
+                    "the warp body, a sampler's B1 launches, the drift or the "
+                    "observables against CPU f64)")
+    shaped = h10_kernel_rows(dev, gen, h10)
+    kernels += shaped
+    bad = with_path_launches(shaped, {"h10": h10})
+    if bad:
+        return fail(f"kernels at the H10 shapes disagree with their plain "
+                    f"versions or the h10 path launched none at a shape: {bad}")
+    if not diamond_importance_phase(dev, source)["ok"]:
+        return fail("the diamond_importance phase failed its checks (the "
+                    "energy window, pmove, B1 at n = 48 not on the registers "
+                    "body, a jet kernel never launched, or the drift against "
+                    "CPU f64)")
 
     if not reference_phase(dev, source, {"si": si_reference,
                                          "bcc_li": bcc_li_reference})["ok"]:

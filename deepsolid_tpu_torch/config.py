@@ -97,6 +97,14 @@ def default() -> ConfigDict:
                 "save_path": "",
                 "restore_path": "",
                 "stats_file_name": "train_stats",
+                # per-walker local energies (Re, Im interleaved) at
+                # stats_frequency into local_energies.csv
+                "local_energies": False,
+                # <exp(i b . sum_i r_i)> as a train_stats column
+                "complex_polarization": False,
+                # S(k) on a 4^3 reciprocal mesh into structure_factor.csv,
+                # every iteration
+                "structure_factor": False,
             },
             "system": {
                 "cell": None,  # deepsolid_tpu_torch.system.Supercell
@@ -110,6 +118,11 @@ def default() -> ConfigDict:
                 "init_width": 0.8,
                 "move_width": 0.02,
                 "adapt_frequency": 100,
+                # Langevin-drift proposals (value and gradient of log|psi|
+                # per move, chunked by optim.psi_chunk)
+                "importance_sampling": False,
+                # one electron per move, nelec moves per step
+                "one_electron": False,
             },
             "network": {
                 "detnet": {
@@ -130,6 +143,9 @@ def default() -> ConfigDict:
                 "deriv_devices": 1,
             },
             "debug": {
+                # discard an iteration whose update leaves a non-finite
+                # parameter or loss, and go on from the state before it
+                "check_nan": False,
                 "deterministic": False,
             },
             "pretrain": {

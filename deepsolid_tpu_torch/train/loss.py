@@ -42,8 +42,9 @@ def _identity(t):
 
 def chunk_batch_fn(fn: Callable, chunk: int) -> Callable:
     """fn(params, data) evaluated `chunk` walkers at a time and
-    concatenated, bounding its activation memory; for evaluations that
-    are not differentiated (the sampler's log|psi| sweeps)."""
+    concatenated (each element of a tuple result along the walker axis),
+    bounding its activation memory; for evaluations whose parameter
+    gradients are not taken (the sampler's log|psi| sweeps and drift)."""
     if not chunk or chunk <= 0:
         return fn
 
@@ -54,9 +55,30 @@ def chunk_batch_fn(fn: Callable, chunk: int) -> Callable:
         if n % chunk != 0:
             raise ValueError(
                 f"optim.psi_chunk={chunk} must divide the walker batch ({n})")
-        return torch.cat([fn(params, d) for d in data.split(chunk)])
+        parts = [fn(params, d) for d in data.split(chunk)]
+        if isinstance(parts[0], tuple):
+            return tuple(torch.cat(p) for p in zip(*parts))
+        return torch.cat(parts)
 
     return wrapped
+
+
+def walker_value_and_grad(fn: Callable, chunk: int = 0) -> Callable:
+    """(params, x) -> (fn(params, x), d fn / dx), `chunk` walkers at a
+    time: the JAX package's vmap(value_and_grad(net.slogdet)) under
+    chunk_batch_fn. Walkers are independent, so the gradient of the sum
+    over the batch is each walker's own gradient. Runs under autograd
+    even inside torch.no_grad(); the graph lives for one chunk and
+    nothing returned carries it."""
+
+    def value_and_grad(params, x):
+        with torch.enable_grad():
+            x = x.detach().requires_grad_()
+            value = fn(params, x)
+            (grad,) = torch.autograd.grad(value.sum(), x)
+        return value.detach(), grad
+
+    return chunk_batch_fn(value_and_grad, chunk)
 
 
 def clip_local_energy_diff(diff, clip_width: float, clip_type: str,

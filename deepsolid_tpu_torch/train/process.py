@@ -6,12 +6,17 @@ the run pretrains or takes its k-list from the SCF (a basis with
 klist_policy 'auto'), build the network on that source's occupied
 k-list, restore a checkpoint (or initialize parameters and walkers),
 pretrain a run that starts from scratch and save it as step 0, burn in,
-then per iteration run the Metropolis sampler, evaluate the batch local
-energy with the forward-Laplacian engine and, when training, the
-gradient estimator and the update ('kfac': curvature update,
-natural-gradient step and, under adaptive damping, the loss again on the
-same walkers; 'adam': the optax chain); write the train_stats CSV row,
-adapt the proposal width and save checkpoints.
+then per iteration run the sampler (all-electron Metropolis, or per
+`mcmc.importance_sampling` / `mcmc.one_electron` Langevin or one-electron
+moves), evaluate the batch local energy with the forward-Laplacian
+engine and, when training, the gradient estimator and the update
+('kfac': curvature update, natural-gradient step and, under adaptive
+damping, the loss again on the same walkers; 'adam': the optax chain);
+under `debug.check_nan` discard an iteration that leaves a non-finite
+parameter or loss; write the train_stats CSV row (with the complex
+polarization under `log.complex_polarization`), structure_factor.csv
+and local_energies.csv when asked, adapt the proposal width and save
+checkpoints.
 
 Several ranks (torch.distributed initialized by the caller, see
 parallel.run_ranks) run this same function, SPMD: `parallel.deriv_devices`
@@ -26,12 +31,14 @@ from __future__ import annotations
 import contextlib
 import datetime
 import logging
+import os
 import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from deepsolid_tpu_torch import observables as observables_lib
 from deepsolid_tpu_torch import parallel
 from deepsolid_tpu_torch.device import resolve_device, set_full_precision
 from deepsolid_tpu_torch.models.network import (
@@ -50,6 +57,7 @@ from deepsolid_tpu_torch.system.cell import Supercell
 from deepsolid_tpu_torch.train import pretrain as pretrain_lib
 from deepsolid_tpu_torch.train.loss import chunk_batch_fn, make_loss
 from deepsolid_tpu_torch.utils import checkpoint as checkpoint_lib
+from deepsolid_tpu_torch.utils.tree import tree_leaves
 from deepsolid_tpu_torch.utils.writers import Writer
 
 TRAIN_SCHEMA = ["energy", "variance", "pmove", "imaginary", "kinetic", "ewald",
@@ -106,6 +114,15 @@ def _same_structure(a, b) -> bool:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _all_finite(tensors) -> bool:
+    return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all())
+
+
+def _append_row(path: str, t: int, values) -> None:
+    with open(path, "a") as f:
+        f.write(f"{t}," + ",".join(values) + "\n")
 
 
 def process(cfg, max_iterations: Optional[int] = None, device="cuda",
@@ -201,8 +218,10 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
     first_iteration = t_init == 0
 
     psi_chunk = cfg.optim.get("psi_chunk", 0)
-    mcmc_step = make_mcmc_step(chunk_batch_fn(net.slogdet, psi_chunk),
-                               sc.lattice, steps=cfg.mcmc.steps)
+    mcmc_step = make_mcmc_step(
+        chunk_batch_fn(net.slogdet, psi_chunk), sc.lattice, steps=cfg.mcmc.steps,
+        importance_network=net.slogdet if cfg.mcmc.importance_sampling else None,
+        one_electron_moves=cfg.mcmc.one_electron, psi_chunk=psi_chunk)
     total_energy = make_loss(
         net, sc, el_chunk=cfg.optim.el_chunk, mode=cfg.optim.laplacian_mode,
         clip_local_energy=cfg.optim.clip_el, clip_type=cfg.optim.clip_type,
@@ -244,6 +263,14 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
                    and cfg.optim.kfac.get("adaptive_damping", False))
     if log_damping:
         schema.append("damping")
+    polarization_fn = structure_factor_fn = None
+    if cfg.log.complex_polarization:
+        schema.append("complex_polarization")
+        polarization_fn = observables_lib.make_complex_polarization(
+            sc, all_mean=mesh.all_mean)
+    if cfg.log.structure_factor:
+        structure_factor_fn = observables_lib.make_structure_factor(
+            sc, all_mean=mesh.all_mean)
 
     iterations = cfg.optim.iterations
     if max_iterations is not None:
@@ -279,6 +306,10 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
                      directory=save_path, iteration_key="step")
               if writes else contextlib.nullcontext()) as writer:
             for t in range(t_init, iterations):
+                if cfg.debug.check_nan:
+                    # every step returns new tensors and writes into none,
+                    # so these references are the state before the step
+                    prev = (params, data, opt_state)
                 seconds = {}
                 t0 = time.perf_counter()
                 data, pmove = mcmc_step(params, data, gen, width)
@@ -331,6 +362,13 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
                     if log_damping:
                         row["damping"] = extra["damping"]
                 seconds["step"] = time.perf_counter() - t0
+                if cfg.debug.check_nan and not _all_finite(tree_leaves(params) + [loss]):
+                    # discard the iteration (no row, no width update, no
+                    # checkpoint) and go on from the state before it; the
+                    # generator runs on
+                    logging.warning("Non-finite update at step %d; retrying", t)
+                    params, data, opt_state = prev
+                    continue
                 if row["nonfinite"] > 0.01:
                     logging.warning(
                         "Step %d: %.1f%% of walkers had non-finite local "
@@ -341,8 +379,23 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
                         "imag=%.4f, kinetic=%.4f, ewald=%.4f",
                         datetime.datetime.now(), t, energy, row["variance"],
                         pmove, row["imaginary"], kinetic, row["ewald"])
+                    if polarization_fn is not None:
+                        row["complex_polarization"] = complex(polarization_fn(data)).real
                     if writer is not None:
                         writer.write(t, **row)
+                # every rank takes part in the means and the gather
+                if structure_factor_fn is not None:
+                    sk = structure_factor_fn(data).cpu().numpy()
+                    if writes:
+                        _append_row(os.path.join(save_path, "structure_factor.csv"),
+                                    t, (str(v) for v in sk))
+                if cfg.log.local_energies and t % cfg.log.stats_frequency == 0:
+                    # the global batch, Re and Im interleaved
+                    el = torch.view_as_complex(mesh.gather_data(
+                        torch.view_as_real(aux.local_energy)).contiguous()).numpy()
+                    if writes:
+                        _append_row(os.path.join(save_path, "local_energies.csv"),
+                                    t, (f"{v.real:.10g},{v.imag:.10g}" for v in el))
                 width, pmoves = update_mcmc_width(
                     t, width, pmoves, pmove, cfg.mcmc.adapt_frequency)
                 if on_iteration is not None:
