@@ -74,14 +74,50 @@ Phases, one JSON line each; any failure exits non-zero:
                 checkpoint with 6 importance sweeps (B1 at n = 48 with its
                 backward rule), and the drift of 8 checkpoint walkers
                 against CPU f64;
- 12. reference - E_L, the energy gradient, the KFAC update and the
+ 12. laplacian - the reference Laplacian engines ('partition' with
+                partition_number 3, 'vmap', 'for', 'hessian') on C-diamond
+                checkpoint walkers at full width: each engine's E_L (card
+                f32) against the port's CPU f64 forward E_L of the same 8
+                walkers within the E_L limits, its walkers/s, peak memory
+                and B1 launches (each engine's el_chunk the largest of 8, 4,
+                2, 1 walkers its 1-walker peak puts under the memory limit;
+                no torch.linalg solver may run), 'partition' beside
+                'forward' at 64 walkers in one process, and one
+                Hessian-vector product of log|det| through B1's
+                second-order rule on (64, 48, 48) and (64, 14, 14) matrices
+                against the same through B1's plain version on the card
+                (one kernel launch each, none in the second derivative);
+ 13. kfac_modes - 2 KFAC iterations of each Monte Carlo estimation mode
+                ('fisher_gradients', 'fisher_curvature_prop') at the kfac
+                phase's settings, continuing the checkpoint's KFAC state:
+                finite parameters and factors, the checkpoint restores,
+                curvature seconds beside fisher_exact's;
+ 14. full_envelope - Si 1x1x1 from scratch with envelope_type 'full' (the
+                si phase's cuts, 2 KFAC iterations with the per-atom
+                Kronecker blocks): the KFAC update of 8 walkers continuing
+                the run's last KFAC state, card f32 against CPU f64 (its
+                sigma leaves within the diamond limit, the whole update
+                within 2x the si phase's isotropic state's reading), and
+                their E_L within the E_L limits;
+ 15. orb_scan - DEEPSOLID_TPU_ORB_SCAN=on against off: E_L of 64 C-diamond
+                checkpoint walkers within 5e-4 Ha/cell, device ms and peak
+                memory of the chunk each way; bcc-Li's peak memory of one
+                32-walker chunk each way and the largest el_chunk of 32,
+                64, 128 under 60 GB with the scan; the sharded phase's two
+                ranks also run one scan-on E_L of 64 walkers, held against
+                the unsharded port;
+ 16. trace    - log.trace_path with trace_start 1, trace_steps 1 in a
+                3-iteration inference run: one torch.profiler trace file
+                naming B1's kernel and the jet kernels, the traced
+                iteration's seconds beside the others;
+ 17. reference - E_L, the energy gradient, the KFAC update and the
                 pretraining loss and its gradient of 8 checkpoint walkers on
                 the card (f32, kernels) against the port's plain path on the
                 CPU in float64, and E_L with TF32 matmuls as a control the
                 check must catch; E_L of 8 Si walkers (after the si phase)
                 and 2 bcc-Li checkpoint walkers the same way, each with its
                 own TF32 control;
- 13. profile  - torch.profiler over one 64-walker C-diamond local-energy
+ 18. profile  - torch.profiler over one 64-walker C-diamond local-energy
                 chunk and one bcc-Li chunk (el_chunk walkers): kernels by
                 device time and the device's idle share.
 Launch counts are set to 0 just before each driven path and read just
@@ -91,6 +127,7 @@ kernels line and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -170,6 +207,39 @@ DIAMOND_IMPORTANCE_STEPS = 6
 B1_BODY = {"si": "warp", "bcc_li": "mid", "h10": "warp"}
 BCC_LI_REFERENCE_WALKERS = 2
 SI_REFERENCE_WALKERS = 8
+# E_L card f32 against CPU f64 per primitive cell: median and max limits
+# (reference phase; ~10x the diamond readings, below the TF32 bias)
+EL_TOLERANCE_MEDIAN, EL_TOLERANCE_MAX = 2e-3, 5e-3
+# the reference Laplacian engines on C-diamond checkpoint walkers
+LAPLACIAN_WALKERS = 8
+LAPLACIAN_ENGINES = ("partition", "vmap", "for", "hessian")
+LAPLACIAN_CHUNKS = (8, 4, 2, 1)  # el_chunk candidates of an engine
+LAPLACIAN_RATE_BATCH = 64        # 'partition' beside 'forward', one process
+# one Hessian-vector product of sum log|det| through B1's rule on
+# 2 I + Gaussian / sqrt(2 n) matrices (condition numbers of a few), kernel
+# against plain version on the card: relative error in the global norm,
+# ~10x f32 rounding through two products with A^-H
+HVP_SHAPES = ((64, 48, 48), (64, 14, 14))
+HVP_TOLERANCE = 1e-4
+MC_MODES = ("fisher_gradients", "fisher_curvature_prop")
+MC_KFAC_ITERATIONS = 2
+FULL_ENVELOPE_WALKERS = 8
+# The full envelope's KFAC update, card f32 against CPU f64, 8 Si walkers
+# continuing the run's state: its sigma leaves (the per-atom Kronecker
+# blocks this phase exists for) within KFAC_UPDATE_TOLERANCE; the whole
+# update within this factor of the same reading for the isotropic Si state
+# of the si phase (same seed and cuts). A 2-iteration-old state sets an
+# f32 floor of ~1e-3 for either envelope, from the dense trunk blocks
+# (PERF.md): the diamond limit holds for a trained state only.
+FULL_ENVELOPE_CONTROL_FACTOR = 2.0
+# orbital scan: scan-on against scan-off E_L per walker, both f32 (sums in
+# another order), as the sharded phase's limit
+ORB_SCAN_TOLERANCE = 5e-4
+ORB_SCAN_ENV = "DEEPSOLID_TPU_ORB_SCAN"
+BCC_LI_SCAN_CHUNKS = (32, 64, 128)
+TRACE_BATCH = 128          # two E_L chunks
+TRACE_MCMC_STEPS = 2       # a short run: the trace holds every event of its window
+TRACE_ITERATIONS = 3
 REFERENCE_ENERGY = -66.0  # Ha/cell, runs/ckpt_diamond/train_stats_r5_latest.csv
 ENERGY_WINDOW = 1.5       # Ha/cell, a sanity bound; the reference phase is the exact check
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 (non-tensor) FLOP/s
@@ -780,11 +850,49 @@ def sharded_rank(rank, world_size):
     algebra_launches = read_launches()
     want = fl.dense_tanh(jet, w, b)
     _, rel = max_errs((got.val, got.jac, got.lap), (want.val, want.jac[sl], want.lap))
+
+    # one E_L chunk of checkpoint walkers with the tangent-chunked orbital
+    # head over the same two ranks
+    scan_el, scan_launches = scan_el_chunk(cfg, shard)
     torch.cuda.synchronize()
     return {"rank": rank, "first_el": first_el.numpy(), "iterations": recs,
             "energy_per_cell": energy, "launches": launches,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-            "algebra_launches": algebra_launches, "algebra_max_rel_err": rel}
+            "algebra_launches": algebra_launches, "algebra_max_rel_err": rel,
+            "scan_el": scan_el, "scan_launches": scan_launches}
+
+
+def scan_el_chunk(cfg, shard=None, scan="on"):
+    """E_L per cell (numpy) of the checkpoint's first EL_CHUNK walkers on
+    the card with DEEPSOLID_TPU_ORB_SCAN=`scan`, over `shard`'s ranks when
+    given, and the kernel launches it made."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.hamiltonian import make_local_energy
+    from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.train.process import build_network, orbital_source
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sc = cfg.system.cell
+    net = build_network(cfg, sc, klist_override=orbital_source(cfg, sc).klist)
+    _, data, params, _, _ = restore(find_last_checkpoint(cfg.log.restore_path))
+    x = torch.as_tensor(np.asarray(data[:EL_CHUNK]), dtype=torch.float32, device=dev)
+    old = os.environ.get(ORB_SCAN_ENV)
+    os.environ[ORB_SCAN_ENV] = scan
+    try:
+        reset_launches()
+        with torch.no_grad():
+            ke, ew = make_local_energy(net, sc, shard=shard)(
+                params_from_jax(params, dev, torch.float32), x)
+        torch.cuda.synchronize(dev)
+        launches = read_launches()
+    finally:
+        if old is None:
+            os.environ.pop(ORB_SCAN_ENV)
+        else:
+            os.environ[ORB_SCAN_ENV] = old
+    return ((ke + ew) / sc.scale).cpu().numpy(), launches
 
 
 def sharded_phase(dev):
@@ -804,6 +912,8 @@ def sharded_phase(dev):
     chunks = SHARD_BATCH // EL_CHUNK
     expect_b4b = 3 * chunks * SHARD_ITERATIONS
     diffs = [float(np.abs(r["first_el"] - want_el.numpy()).max()) for r in ranks]
+    want_scan, _ = scan_el_chunk(cfg, scan="off")
+    scan_diffs = [float(np.abs(r["scan_el"] - want_scan).max()) for r in ranks]
     sharded = statistics.median(
         SHARD_BATCH / it["seconds"]["local_energy"] for it in ranks[0]["iterations"])
     result = {
@@ -815,6 +925,8 @@ def sharded_phase(dev):
         "algebra_max_rel_err": max(r["algebra_max_rel_err"] for r in ranks),
         "expected_mix_partial_launches": expect_b4b,
         "max_abs_el_diff_per_cell_by_rank": diffs, "tolerance": SHARD_EL_TOLERANCE,
+        "orb_scan_max_abs_el_diff_per_cell_by_rank": scan_diffs,
+        "orb_scan_launches_per_rank": [r["scan_launches"] for r in ranks],
         "energy_per_cell": [r["energy_per_cell"] for r in ranks],
         "energy_per_cell_unsharded": energy,
         "peak_memory_bytes_per_rank": [r["peak_memory_bytes"] for r in ranks],
@@ -829,8 +941,11 @@ def sharded_phase(dev):
             and r["launches"]["fused_dense_tanh_jet"] > 0
             and r["launches"]["gj_inverse_slogdet"] > 0
             and r["algebra_launches"]["fused_dense_tanh_jet_partial"] == 1
-            and r["algebra_max_rel_err"] <= 1e-5 for r in ranks)
+            and r["algebra_max_rel_err"] <= 1e-5
+            and r["scan_launches"]["fused_dense_tanh_jet_mix_partial"] == 3
+            and r["scan_launches"]["gj_inverse_slogdet"] == 2 for r in ranks)
         and max(diffs) <= SHARD_EL_TOLERANCE
+        and max(scan_diffs) <= ORB_SCAN_TOLERANCE
         and all(math.isfinite(e) and abs(e - REFERENCE_ENERGY) <= ENERGY_WINDOW
                 for e in result["energy_per_cell"]))
     emit(result)
@@ -935,16 +1050,17 @@ def production_kfac(cfg):
     return cfg
 
 
-def kfac_phase(dev):
-    """KFAC fisher_exact iterations at 1024 walkers, continuing the
-    checkpoint's KFAC state."""
+def kfac_phase(dev, mode="fisher_exact", iterations=KFAC_ITERATIONS, phase="kfac"):
+    """KFAC iterations of estimation mode `mode` at 1024 walkers,
+    continuing the checkpoint's KFAC state."""
     import torch
     from deepsolid_tpu_torch.optim.adam import tree_leaves
     from deepsolid_tpu_torch.train.process import process
     from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
 
-    cfg = production_kfac(diamond_cfg("kfac", BATCH, "chip_smoke_kfac"))
+    cfg = production_kfac(diamond_cfg("kfac", BATCH, f"chip_smoke_{phase}_{mode}"))
     cfg.optim.psi_chunk = EL_CHUNK
+    cfg.optim.kfac.estimation_mode = mode
     shutil.rmtree(cfg.log.save_path, ignore_errors=True)
     t_start, _, _, start_state, _ = restore(find_last_checkpoint(cfg.log.restore_path))
     start_step = int(start_state["step"])
@@ -953,7 +1069,8 @@ def kfac_phase(dev):
 
     def on_iteration(t, row, seconds):
         row.pop("local_energy")
-        rec = {"phase": "kfac_iteration", "step": t, **row, "seconds": seconds,
+        rec = {"phase": f"{phase}_iteration", "mode": mode, "step": t, **row,
+               "seconds": seconds,
                "adapted": "adapt" in seconds, "launches_so_far": read_launches()}
         iters.append(rec)
         emit(rec)
@@ -961,7 +1078,7 @@ def kfac_phase(dev):
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     start = time.perf_counter()
-    params, _, energy = process(cfg, t_start + KFAC_ITERATIONS, device="cuda",
+    params, _, energy = process(cfg, t_start + iterations, device="cuda",
                                 on_iteration=on_iteration)
     wall = time.perf_counter() - start
     launches = read_launches()
@@ -974,7 +1091,7 @@ def kfac_phase(dev):
     first_damping = float(start_state["damping"])
     restored = (
         [r["optimizer_step"] for r in iters]
-        == list(range(start_step, start_step + KFAC_ITERATIONS))
+        == list(range(start_step, start_step + iterations))
         and first_damping != cfg.optim.kfac.damping
         and any(abs(iters[0]["damping"] - d) <= 1e-6 * d for d in
                 (first_damping, min(first_damping / omega, cfg.optim.kfac.max_damping),
@@ -982,13 +1099,13 @@ def kfac_phase(dev):
     params_finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
 
     ckpt_ok, factors_finite, ckpt = kfac_checkpoint_ok(
-        cfg.log.save_path, t_start + KFAC_ITERATIONS, BATCH, 288, params, iters, dev)
+        cfg.log.save_path, t_start + iterations, BATCH, 288, params, iters, dev)
 
     keys = ("mcmc", "local_energy", "gradient", "curvature", "update", "step")
     plain = [r for r in iters if not r["adapted"]] or iters
     med = med_seconds
     result = {
-        "phase": "kfac", "optimizer": "kfac fisher_exact", "batch": BATCH,
+        "phase": phase, "optimizer": f"kfac {mode}", "batch": BATCH,
         "el_chunk": EL_CHUNK, "psi_chunk": EL_CHUNK, "iterations": len(iters),
         "damping_adaptation_interval": KFAC_ADAPT_EVERY,
         "seconds": wall, "energy_per_cell": energy,
@@ -1007,7 +1124,7 @@ def kfac_phase(dev):
         "factors_finite": factors_finite,
     }
     result["ok"] = (
-        len(iters) == KFAC_ITERATIONS and restored and ckpt_ok and params_finite
+        len(iters) == iterations and restored and ckpt_ok and params_finite
         and factors_finite and any(r["adapted"] for r in iters)
         and all(math.isfinite(r["energy"]) and math.isfinite(r["grad_norm"])
                 and math.isfinite(r["rho"]) and r["damping"] > 0 for r in iters)
@@ -1085,7 +1202,7 @@ def kfac_checkpoint_ok(save_path, t_next_want, batch, n3, params, iters, dev):
     state = kfac_lib.state_from_numpy(raw, dev, torch.float32)
     again = kfac_lib.state_to_numpy(state)
     finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(
-        [state["blocks"], state["diag"], state["velocities"]]))
+        [state["blocks"], state["env_blocks"], state["diag"], state["velocities"]]))
     ok = (t_next == t_next_want and data.shape == (batch, n3)
           and int(state["step"]) == iters[-1]["optimizer_step"] + 1
           and float(state["damping"]) == np.float32(iters[-1]["damping"])
@@ -1623,6 +1740,382 @@ def diamond_importance_phase(dev, source):
     return result
 
 
+@contextlib.contextmanager
+def no_linalg_solvers():
+    """A context in which a torch.linalg factorization, inverse, solve or
+    determinant raises: the engines must take B1 for every one."""
+    import torch
+
+    names = ("inv", "inv_ex", "det", "slogdet", "solve", "solve_ex", "lu", "lu_factor",
+             "lu_factor_ex", "cholesky", "cholesky_ex", "qr", "eig", "eigh", "svd")
+
+    def refuse(name):
+        def call(*args, **kwargs):
+            raise RuntimeError(f"torch.linalg.{name} ran on an engine's path")
+        return call
+
+    saved = {n: getattr(torch.linalg, n) for n in names}
+    for n in names:
+        setattr(torch.linalg, n, refuse(n))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(torch.linalg, n, fn)
+
+
+def measured(dev, fn):
+    """(result, seconds, peak device bytes, B1 launches) of one call of fn,
+    or (None,) * 4 when it runs out of device memory."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    start = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize(dev)
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        return None, None, None, None
+    return (out, time.perf_counter() - start, torch.cuda.max_memory_allocated(dev),
+            read_launches()["gj_inverse_slogdet"])
+
+
+def hvp_rows(dev, gen):
+    """One Hessian-vector product of sum log|det A| through B1's rule
+    (the kernel in the forward, the closed-form rule in both backward
+    passes) against the same through B1's plain version on the card."""
+    import torch
+    from deepsolid_tpu_torch.ops import slogdet as slog
+    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+
+    rows = []
+    for nb, n, _ in HVP_SHAPES:
+        def rnd():
+            return torch.complex(torch.randn((nb, n, n), generator=gen, device=dev),
+                                 torch.randn((nb, n, n), generator=gen, device=dev))
+
+        a0 = 2.0 * torch.eye(n, device=dev) + rnd() / math.sqrt(2 * n)
+        v = rnd()
+
+        def hvp():
+            a = a0.clone().requires_grad_()
+            _, logabs = slog.slogdet_op(a)
+            (g,) = torch.autograd.grad(logabs.sum(), a, create_graph=True)
+            return torch.autograd.grad((g * torch.conj(v)).real.sum(), a)[0]
+
+        reset_launches()
+        got = hvp()
+        launches = read_launches()["gj_inverse_slogdet"]
+        kernel = slog.gj_inverse_slogdet
+        slog.gj_inverse_slogdet = dk.gj_inverse_slogdet_plain
+        try:
+            want = hvp()
+        finally:
+            slog.gj_inverse_slogdet = kernel
+        rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+        rows.append({"shape": [nb, n, n], "b1_launches": launches,
+                     "rel_err_global_norm": rel, "tolerance": HVP_TOLERANCE,
+                     "ok": launches == 1 and rel <= HVP_TOLERANCE})
+    return rows
+
+
+def laplacian_phase(dev, source, gen):
+    """The reference Laplacian engines on C-diamond checkpoint walkers at
+    full width, against the port's CPU f64 forward E_L."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.hamiltonian import make_local_energy
+    from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.train.loss import make_batch_local_energy
+    from deepsolid_tpu_torch.train.process import build_network
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    cfg = diamond_cfg("none", BATCH, "chip_smoke_laplacian")
+    sc = cfg.system.cell
+    net = build_network(cfg, sc, klist_override=source.klist)
+    _, data, params_np, _, _ = restore(find_last_checkpoint(cfg.log.restore_path))
+    x_np = np.asarray(data[:LAPLACIAN_RATE_BATCH], np.float64)
+    with torch.no_grad():
+        ke, ew = make_local_energy(net, sc)(params_from_jax(params_np, "cpu", torch.float64),
+                                            torch.as_tensor(x_np[:LAPLACIAN_WALKERS]))
+    want = ((ke + ew) / sc.scale).numpy()
+    params = params_from_jax(params_np, dev, torch.float32)
+    x = torch.as_tensor(x_np, dtype=torch.float32, device=dev)
+
+    def engine(mode, chunk):
+        return make_batch_local_energy(net, sc, el_chunk=chunk, mode=mode, partition_number=3)
+
+    engines, ok, shapes = {}, True, []
+    with no_linalg_solvers():
+        for mode in LAPLACIAN_ENGINES:
+            one_peak = None
+            if mode == "for":  # one tangent at a time: a few walkers' rows
+                chunk = LAPLACIAN_CHUNKS[0]
+            else:  # the 1-walker peak, scaled by the walkers of a chunk
+                _, _, one_peak, _ = measured(dev, lambda: engine(mode, 1)(params, x[:1]))
+                fits = [c for c in LAPLACIAN_CHUNKS
+                        if one_peak is not None and c * one_peak < PROBE_LIMIT_BYTES]
+                chunk = max(fits) if fits else None
+            rec = {"el_chunk": chunk, "one_walker_peak_memory_bytes": one_peak}
+            if chunk is not None:
+                out, secs, peak, b1 = measured(
+                    dev, lambda: engine(mode, chunk)(params, x[:LAPLACIAN_WALKERS]))
+                if mode == "partition":
+                    shapes = read_shapes()
+                if out is not None:
+                    el = ((out[0] + out[1]) / sc.scale).cpu().to(torch.complex128).numpy()
+                    d = np.abs(el - want)
+                    rec.update(walkers=LAPLACIAN_WALKERS, seconds=secs,
+                               walkers_per_s=LAPLACIAN_WALKERS / secs,
+                               peak_memory_bytes=peak, b1_launches=b1,
+                               median_abs_diff_per_cell=float(np.median(d)),
+                               max_abs_diff_per_cell=float(d.max()))
+            rec["ok"] = ("max_abs_diff_per_cell" in rec and rec["b1_launches"] > 0
+                         and rec["median_abs_diff_per_cell"] <= EL_TOLERANCE_MEDIAN
+                         and rec["max_abs_diff_per_cell"] <= EL_TOLERANCE_MAX)
+            ok = ok and rec["ok"]
+            engines[mode] = rec
+            emit({"phase": "laplacian_engine", "mode": mode, **rec})
+
+        # 'partition' beside 'forward' at LAPLACIAN_RATE_BATCH walkers
+        rates = {}
+        part_chunk = engines["partition"]["el_chunk"] or 1
+        for mode, chunk in (("forward", EL_CHUNK), ("partition", part_chunk)):
+            fn = engine(mode, chunk)
+            with torch.no_grad():
+                fn(params, x[:chunk])  # warm-up
+            _, secs, peak, b1 = measured(dev, lambda: fn(params, x))
+            rates[mode] = {"el_chunk": chunk, "seconds": secs, "peak_memory_bytes": peak,
+                           "b1_launches": b1,
+                           "walkers_per_s": None if secs is None else len(x) / secs}
+    hvp = hvp_rows(dev, gen)
+    result = {
+        "phase": "laplacian", "config": CONFIG, "partition_number": 3,
+        "engines": engines, "rate_batch": LAPLACIAN_RATE_BATCH, "rates": rates,
+        "partition_over_forward": (rates["partition"]["walkers_per_s"]
+                                   / rates["forward"]["walkers_per_s"]
+                                   if rates["partition"]["walkers_per_s"] else None),
+        "el_tolerance_median": EL_TOLERANCE_MEDIAN, "el_tolerance_max": EL_TOLERANCE_MAX,
+        "hessian_vector_products": hvp,
+        # the partition engine's 8-walker run, for its B1 kernel row
+        "launches": {"gj_inverse_slogdet": engines["partition"].get("b1_launches", 0)},
+        "launch_shapes": shapes,
+    }
+    result["ok"] = (ok and all(r["ok"] for r in hvp)
+                    and all(r["walkers_per_s"] for r in rates.values()))
+    emit(result)
+    return result
+
+
+def kfac_modes_phase(dev, exact):
+    """2 KFAC iterations of each Monte Carlo estimation mode at the kfac
+    phase's settings, beside the fisher_exact phase's curvature seconds."""
+    results = [kfac_phase(dev, mode, MC_KFAC_ITERATIONS, "kfac_modes") for mode in MC_MODES]
+    exact_curvature = exact["seconds_per_iteration"]["curvature"]
+    summary = {
+        "phase": "kfac_modes_summary",
+        "curvature_seconds": {r["optimizer"]: r["seconds_per_iteration"]["curvature"]
+                              for r in [exact] + results},
+        "curvature_over_fisher_exact": {
+            r["optimizer"]: r["seconds_per_iteration"]["curvature"] / exact_curvature
+            for r in results},
+        "walkers_per_s_iteration_all": {r["optimizer"]: r["walkers_per_s_iteration_all"]
+                                        for r in [exact] + results},
+        "ok": all(r["ok"] for r in results)}
+    emit(summary)
+    return summary
+
+
+def kfac_update_rel_err(dev, cfg, net, params_np, x_np, state_np):
+    """Relative error in the global norm of one KFAC update of the walkers
+    `x_np` continuing the numpy KFAC state `state_np` (a curvature update,
+    then the step; the update is the step's velocities), card f32 against
+    CPU f64."""
+    import torch
+    from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.optim import kfac as kfac_lib
+    from deepsolid_tpu_torch.optim.adam import learning_rate_schedule, tree_leaves
+    from deepsolid_tpu_torch.train.loss import make_loss
+
+    total_energy = make_loss(net, cfg.system.cell, clip_local_energy=cfg.optim.clip_el,
+                             clip_type=cfg.optim.clip_type)
+
+    def update(device, dtype):
+        p = params_from_jax(params_np, device, dtype)
+        x = torch.as_tensor(x_np, dtype=dtype, device=device)
+        _, grads = total_energy.value_and_grad(p, x)
+        opt = kfac_lib.KfacOptimizer.from_config(cfg, net, learning_rate_schedule(cfg))
+        state = opt.update_curvature(kfac_lib.state_from_numpy(state_np, device, dtype),
+                                     p, x)
+        return opt.step_fn(p, state, grads, state["damping"])[1]["velocities"]
+
+    got, want = update(dev, torch.float32), update("cpu", torch.float64)
+
+    def rel(pairs):
+        diff2 = sum(float(((g.cpu().double() - w) ** 2).sum()) for g, w in pairs)
+        return math.sqrt(diff2 / sum(float((w ** 2).sum()) for _, w in pairs))
+
+    sigma = [(got["envelope"][i]["sigma"], want["envelope"][i]["sigma"])
+             for i in range(len(want["envelope"]))]
+    norm = math.sqrt(sum(float((w ** 2).sum()) for w in tree_leaves(want)))
+    return rel(list(zip(tree_leaves(got), tree_leaves(want)))), norm, rel(sigma)
+
+
+def full_envelope_phase(dev, si_reference):
+    """Si 1x1x1 from scratch with the full envelope: its KFAC blocks per
+    atom in the state, the update and E_L of 8 walkers against CPU f64,
+    the update beside the same reading on the si phase's isotropic state
+    (`si_reference`: its cfg, k-list, numpy parameters and walkers)."""
+    import torch
+    from deepsolid_tpu_torch.models.network import params_to_numpy
+    from deepsolid_tpu_torch.train.process import build_network, orbital_source
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    cfg = si_cfg()
+    cfg.network.detnet.envelope_type = "full"
+    cfg.log.save_path = os.path.join(REPO, "build", "chip_smoke_full_envelope")
+    source = orbital_source(cfg, cfg.system.cell)
+    result, params, data = scratch_run(dev, cfg, source, "full_envelope",
+                                       SI_KFAC_ITERATIONS, emit_iterations=False)
+    result["phase"] = "full_envelope"
+    result["config"] = SI_CONFIG + " envelope_type=full"
+    ckpt = find_last_checkpoint(cfg.log.save_path)
+    state_np = restore(ckpt)[3] if ckpt else {"env_blocks": {}}
+    env = state_np["env_blocks"]
+    result["env_blocks"] = {k: list(v["g_raw"].shape) for k, v in env.items()}
+    params_np = params_to_numpy(params)
+    x_np = data[:FULL_ENVELOPE_WALKERS].cpu().double().numpy()
+    net = build_network(cfg, cfg.system.cell, klist_override=source.klist)
+    upd_rel, upd_norm, sigma_rel = kfac_update_rel_err(dev, cfg, net, params_np, x_np,
+                                                       state_np)
+    si_cfg_, si_klist, si_params, si_x = si_reference
+    si_state = restore(find_last_checkpoint(si_cfg_.log.save_path))[3]
+    si_net = build_network(si_cfg_, si_cfg_.system.cell, klist_override=si_klist)
+    control_rel, _, _ = kfac_update_rel_err(dev, si_cfg_, si_net, si_params,
+                                            si_x[:FULL_ENVELOPE_WALKERS], si_state)
+    el = system_el_reference(dev, cfg, source.klist, params_np, x_np)
+    (median, worst) = el["card"]
+    result.update(kfac_update_rel_err_global_norm=upd_rel,
+                  kfac_update_global_norm_cpu_f64=upd_norm,
+                  kfac_update_sigma_rel_err_global_norm=sigma_rel,
+                  kfac_update_tolerance=KFAC_UPDATE_TOLERANCE,
+                  isotropic_control_kfac_update_rel_err_global_norm=control_rel,
+                  control_factor=FULL_ENVELOPE_CONTROL_FACTOR,
+                  median_abs_diff_per_cell=median, max_abs_diff_per_cell=worst,
+                  cpu_f32_abs_diff_per_cell=el["cpu_f32"],
+                  tf32_control_abs_diff_per_cell=el["card_tf32"])
+    result["ok"] = (result["ok"] and ckpt is not None and len(env) == 2
+                    and all(float(abs(v["a_raw"]).max()) > 0 for v in env.values())
+                    and sigma_rel <= KFAC_UPDATE_TOLERANCE
+                    and upd_rel <= FULL_ENVELOPE_CONTROL_FACTOR * control_rel
+                    and median <= EL_TOLERANCE_MEDIAN and worst <= EL_TOLERANCE_MAX)
+    emit(result)
+    return result
+
+
+def orb_scan_phase(dev, source, bcc_li_reference):
+    """DEEPSOLID_TPU_ORB_SCAN=on against off: one 64-walker C-diamond E_L
+    chunk (values, device ms, peak memory) and bcc-Li's chunk memory."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.hamiltonian import make_local_energy
+    from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.train.process import build_network
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    def setup(cfg, klist, ckpt_dir, params_np=None):
+        net = build_network(cfg, cfg.system.cell, klist_override=klist)
+        _, data, ck_params, _, _ = restore(find_last_checkpoint(ckpt_dir))
+        p = params_from_jax(ck_params if params_np is None else params_np, dev, torch.float32)
+        x = torch.as_tensor(np.asarray(data), dtype=torch.float32, device=dev)
+        return make_local_energy(net, cfg.system.cell), p, x
+
+    old = os.environ.get(ORB_SCAN_ENV)
+    out = {}
+    try:
+        cfg = diamond_cfg("none", BATCH, "chip_smoke_orb_scan")
+        el_fn, params, x = setup(cfg, source.klist, cfg.log.restore_path)
+        x = x[:EL_CHUNK]
+        for scan in ("off", "on"):
+            os.environ[ORB_SCAN_ENV] = scan
+            with torch.no_grad():
+                ms = time_ms(lambda: el_fn(params, x), warmup=1, reps=5)
+                el, _, peak, b1 = measured(dev, lambda: el_fn(params, x))
+            out[scan] = {"device_ms_per_chunk": ms, "peak_memory_bytes": peak,
+                         "b1_launches": b1,
+                         "el": ((el[0] + el[1]) / cfg.system.cell.scale).cpu().numpy()}
+        diff = float(np.abs(out["on"].pop("el") - out["off"].pop("el")).max())
+
+        bcc_cfg, bcc_klist, bcc_params, _ = bcc_li_reference
+        el_fn, params, x = setup(bcc_cfg, bcc_klist, BCC_LI_CKPT, bcc_params)
+        bcc = {}
+        for scan, chunks in (("off", BCC_LI_SCAN_CHUNKS[:1]), ("on", BCC_LI_SCAN_CHUNKS)):
+            os.environ[ORB_SCAN_ENV] = scan
+            for c in chunks:
+                with torch.no_grad():
+                    _, secs, peak, _ = measured(dev, lambda: el_fn(params, x[:c]))
+                bcc[f"{scan}_{c}"] = {"peak_memory_bytes": peak, "seconds": secs}
+    finally:
+        if old is None:
+            os.environ.pop(ORB_SCAN_ENV, None)
+        else:
+            os.environ[ORB_SCAN_ENV] = old
+    fits = [c for c in BCC_LI_SCAN_CHUNKS
+            if bcc[f"on_{c}"]["peak_memory_bytes"] is not None
+            and bcc[f"on_{c}"]["peak_memory_bytes"] < PROBE_LIMIT_BYTES]
+    result = {"phase": "orb_scan", "diamond_el_chunk": EL_CHUNK, "diamond": out,
+              "max_abs_el_diff_per_cell": diff, "tolerance": ORB_SCAN_TOLERANCE,
+              "bcc_li": bcc, "bcc_li_largest_el_chunk_with_scan": max(fits) if fits else None,
+              "limit_bytes": PROBE_LIMIT_BYTES}
+    result["ok"] = (diff <= ORB_SCAN_TOLERANCE and bool(fits)
+                    and out["on"]["b1_launches"] == out["off"]["b1_launches"] == 2)
+    emit(result)
+    return result
+
+
+def trace_phase(dev):
+    """A StepTracer window (log.trace_path, trace_start 1, trace_steps 1)
+    inside a 3-iteration C-diamond inference run."""
+    import json as json_lib
+
+    from deepsolid_tpu_torch.train.process import process
+
+    cfg = diamond_cfg("none", TRACE_BATCH, "chip_smoke_trace")
+    cfg.log.trace_path = os.path.join(cfg.log.save_path, "trace")
+    cfg.log.trace_start, cfg.log.trace_steps = 1, 1
+    cfg.mcmc.steps = TRACE_MCMC_STEPS
+    shutil.rmtree(cfg.log.save_path, ignore_errors=True)
+    seconds = []
+    process(cfg, TRACE_ITERATIONS, device="cuda",
+            on_iteration=lambda t, row, s: seconds.append(s["step"]))
+    files = sorted(os.listdir(cfg.log.trace_path)) if os.path.isdir(cfg.log.trace_path) else []
+    kernels = set()
+    size = 0
+    for name in files:
+        path = os.path.join(cfg.log.trace_path, name)
+        size += os.path.getsize(path)
+        with open(path) as f:
+            events = json_lib.load(f)["traceEvents"]
+        kernels |= {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    named = {"gj_inverse_slogdet": sorted(k[:60] for k in kernels if "gj_" in k),
+             "dense_tanh_jet": sorted(k[:60] for k in kernels if "dense_tanh_jet" in k)}
+    result = {"phase": "trace", "batch": TRACE_BATCH, "iterations": TRACE_ITERATIONS,
+              "mcmc_steps": TRACE_MCMC_STEPS,
+              "trace_start": 1, "trace_steps": 1, "files": files, "bytes": size,
+              "kernel_names": len(kernels), "named": named,
+              "seconds_per_iteration": seconds,
+              "traced_over_untraced": seconds[1] / max(seconds[0], seconds[2])
+              if len(seconds) == 3 else None}
+    result["ok"] = (len(files) == 1 and len(seconds) == TRACE_ITERATIONS
+                    and all(named.values()))
+    emit(result)
+    return result
+
+
 def system_el_reference(dev, cfg, klist, params, x):
     """E_L per primitive cell of the walkers `x` (numpy) under the numpy
     parameter tree `params`: the card's f32 kernel path, and the port's
@@ -1750,7 +2243,7 @@ def reference_phase(dev, source, systems):
     # reads ~1e-4 (median) and ~4e-4 (max) Ha/cell; the limits are ~10x
     # that and below the TF32 bias the full-f32 policy exists to prevent
     # (-3.7 mHa/atom, 7.4 mHa per 2-atom cell)
-    tol_median, tol_max = 2e-3, 5e-3
+    tol_median, tol_max = EL_TOLERANCE_MEDIAN, EL_TOLERANCE_MAX
     median, worst = diffs(gpu)
     # control: the same evaluation with TF32 matmuls must fail the check
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -1911,7 +2404,8 @@ def main() -> int:
     sharded = sharded_phase(dev)
     if not sharded["ok"]:
         return fail("the sharded phase failed its checks (launch counts, E_L "
-                    "against the unsharded port, or the energy window)")
+                    "against the unsharded port with and without the orbital "
+                    "scan, or the energy window)")
 
     # each kernel's count on the path that runs it, read just after that
     # path: the unsharded inference path for the closed kernels, rank 0 of
@@ -1934,7 +2428,8 @@ def main() -> int:
     if not training_phase(dev)["ok"]:
         return fail("the training phase failed its checks")
 
-    if not kfac_phase(dev)["ok"]:
+    kfac = kfac_phase(dev)
+    if not kfac["ok"]:
         return fail("the KFAC phase failed its checks (state not restored, a "
                     "non-finite parameter or factor, no damping adaptation, "
                     "the checkpoint, or the energy window)")
@@ -1987,6 +2482,35 @@ def main() -> int:
                     "body, a jet kernel never launched, or the drift against "
                     "CPU f64)")
 
+    laplacian = laplacian_phase(dev, source, gen)
+    if not laplacian["ok"]:
+        return fail("the laplacian phase failed its checks (an engine's E_L "
+                    "against CPU f64, no memory for an engine, no B1 launch, "
+                    "a torch.linalg solver on an engine's path, or a "
+                    "Hessian-vector product against B1's plain version)")
+    b1_part = sorted({tuple(r["shape"]) for r in laplacian["launch_shapes"]
+                      if r["kernel"] == "gj_inverse_slogdet"})
+    shaped = [b1_row(dev, gen, nb, n, "laplacian") for nb, n, _ in b1_part]
+    kernels += shaped
+    bad = with_path_launches(shaped, {"laplacian": laplacian})
+    if bad:
+        return fail(f"B1 at the partition engine's shapes disagrees with its "
+                    f"plain version or launched none: {bad}")
+    if not kfac_modes_phase(dev, kfac)["ok"]:
+        return fail("the kfac_modes phase failed its checks (a Monte Carlo "
+                    "mode's state not restored, a non-finite parameter or "
+                    "factor, or its checkpoint)")
+    if not orb_scan_phase(dev, source, bcc_li_reference)["ok"]:
+        return fail("the orb_scan phase failed its checks (E_L with the scan "
+                    "against without, B1 launches, or no bcc-Li el_chunk under "
+                    "the memory limit with the scan)")
+    if not trace_phase(dev)["ok"]:
+        return fail("the trace phase failed its checks (not one trace file, "
+                    "or B1's or the jet kernels' names missing from it)")
+
+    if not full_envelope_phase(dev, si_reference)["ok"]:
+        return fail("the full_envelope phase failed its checks (the run, its "
+                    "per-atom KFAC blocks, the KFAC update or E_L against CPU f64)")
     if not reference_phase(dev, source, {"si": si_reference,
                                          "bcc_li": bcc_li_reference})["ok"]:
         return fail("card E_L (C-diamond, Si or bcc-Li), its gradient, the "

@@ -82,7 +82,12 @@ def default() -> ConfigDict:
                     "estimation_mode": "fisher_exact",
                 },
                 "ministeps": 1,
-                "laplacian_mode": "forward",  # the port's only engine
+                # kinetic engine: 'partition' (the JAX package's default),
+                # 'vmap', 'for', 'hessian' (ops/laplacian.py) or 'forward'
+                # (the forward Laplacian, which the run scripts set)
+                "laplacian_mode": "partition",
+                # tangent chunks of the 'partition' engine; divides 3N
+                "partition_number": 3,
                 # walkers per local-energy sweep (0 = whole batch at once)
                 "el_chunk": 0,
                 # walkers per sweep of the log psi gradient, of KFAC's
@@ -105,9 +110,16 @@ def default() -> ConfigDict:
                 # S(k) on a 4^3 reciprocal mesh into structure_factor.csv,
                 # every iteration
                 "structure_factor": False,
+                # non-empty: a torch.profiler trace (host and card) of
+                # iterations [trace_start, trace_start + trace_steps) of
+                # the run, written into this directory
+                "trace_path": "",
+                "trace_start": 10,
+                "trace_steps": 5,
             },
             "system": {
                 "cell": None,  # deepsolid_tpu_torch.system.Supercell
+                "ndim": 3,  # three dimensions only
                 "klist_policy": "auto",  # 'auto'|'uniform'|'fermi'|'explicit'
                 "klist": None,  # used when klist_policy == 'explicit'
                 "basis": "",

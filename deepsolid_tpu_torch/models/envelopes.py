@@ -25,12 +25,21 @@ def diagonal_envelope(ae: torch.Tensor, params) -> torch.Tensor:
     return torch.sum(torch.exp(-r) * params["pi"], dim=-2)
 
 
-def full_envelope(ae: torch.Tensor, params) -> torch.Tensor:
+def full_envelope(ae: torch.Tensor, params, name=None, eps=None,
+                  taps=None) -> torch.Tensor:
     """Anisotropic decay with a (3, 3) matrix per atom and orbital.
 
     sigma: (3, 3, natom, nparam); ae: (..., natom, 3) -> (..., nparam).
+    `name` / `eps` / `taps` hook the bilinear sigma product into KFAC's
+    capture as the dense layers' are: taps[name] records the input ae,
+    eps[name] (..., 3, natom, nparam) is added to ae . sigma.
     """
     ae_sigma = torch.einsum("...ak,kmap->...map", ae, params["sigma"])
+    if name is not None:
+        if eps is not None and name in eps:
+            ae_sigma = ae_sigma + eps[name]
+        if taps is not None:
+            taps[name] = ae
     r = torch.linalg.norm(ae_sigma, dim=-3)  # (..., natom, nparam)
     return torch.sum(torch.exp(-r) * params["pi"], dim=-2)
 

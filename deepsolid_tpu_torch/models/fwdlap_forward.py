@@ -1,7 +1,8 @@
 """Forward-Laplacian evaluation of the periodic FermiNet kinetic energy.
 
 Mirrors deepsolid_tpu/models/fwdlap_forward.py (network_jets with its
-optional tangent sharding, and the full-width orbital head). One traversal
+optional tangent sharding, the full-width orbital head and the opt-in
+tangent-chunked orbital and determinant head, `_orbital_det_scan`). One traversal
 carrying (value, Jacobian, Laplacian) jets replaces 3N JVP-of-grad
 passes: the two-electron stream stays pair-sparse (6 tangents), each
 determinant is factorized once, and the 3N tangent axis rides the
@@ -10,6 +11,8 @@ batched matmuls. The walker batch is the leading axis of every value.
 
 from __future__ import annotations
 
+import logging
+import os
 from typing import Callable
 
 import torch
@@ -20,6 +23,33 @@ from deepsolid_tpu_torch.models import features as features_lib
 from deepsolid_tpu_torch.models.network import NetworkConfig, SystemSpec
 from deepsolid_tpu_torch.ops import fwdlap as fl
 from deepsolid_tpu_torch.ops.distance import enforce_pbc
+
+
+_ORB_SCAN_ENV = "DEEPSOLID_TPU_ORB_SCAN"
+_WARNED = set()
+
+
+def _use_orb_scan() -> bool:
+    """Gate of the tangent-chunked orbital and determinant head: off by
+    default, on with DEEPSOLID_TPU_ORB_SCAN=on (the JAX package's gate). A
+    memory lever: the full-width head builds the (T, B, ndet, n, n)
+    orbital Jacobian after mul_row and the det head packs it again; the
+    scan builds a chunk of tangents at a time and never holds a post-trunk
+    (T, ...) tensor. An unrecognized value warns once and keeps it off."""
+    value = os.environ.get(_ORB_SCAN_ENV, "")
+    if value and value not in ("on", "off"):
+        if _ORB_SCAN_ENV not in _WARNED:
+            _WARNED.add(_ORB_SCAN_ENV)
+            logging.warning("%s=%r not recognized (valid: off|on); using off",
+                            _ORB_SCAN_ENV, value)
+        return False
+    return value == "on"
+
+
+def _jet0(j: fl.Jet) -> fl.Jet:
+    """The value and Laplacian of a jet with an empty tangent axis: every
+    fl op below then skips its tangent work (the scan supplies it)."""
+    return fl.Jet(j.val, j.jac[:0], j.lap)
 
 
 def _channel_ranges(spins):
@@ -177,10 +207,18 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
         w_rv, w_rc = split_w(p1["w"], f1)
         h_one = residual(h_one, fl.dense_tanh_mix(h_rv, h_rc, w_rv, w_rc,
                                                   p1.get("b"), shard=shard))
-        h_orb_rv, h_orb_rc, f1_orb = h_one, None, None
+        orb_parts, h_orb_rc, f1_orb = [h_one], None, None
     else:
         f1_orb = h_one.val.shape[-1]
-        h_orb_rv, h_orb_rc = symmetric_split(h_one, h_two)
+        orb_parts, h_orb_rc = symmetric_split_parts(h_one, h_two)
+
+    use_scan = _use_orb_scan()
+    if use_scan:
+        h_orb_rv = fl.concat([_jet0(p) for p in orb_parts], axis=-1)
+        rc0 = None if h_orb_rc is None else _jet0(h_orb_rc)
+    else:
+        h_orb_rv = orb_parts[0] if len(orb_parts) == 1 else fl.concat(orb_parts, axis=-1)
+        rc0 = h_orb_rc
 
     # ---- orbital heads ----------------------------------------------------------
     envelope_fn = envelopes_lib.ENVELOPES[cfg.envelope_type]
@@ -188,6 +226,7 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
     prim_av, prim_bv = spec.prim_av, spec.prim_bv
 
     channel_jets = []
+    scan_ing = []  # per-channel ingredients of the tangent-chunk scan
     for ch, (s, e) in enumerate(ranges):
         spin = e - s
         w_orb = params["orbital"][ch]["w"]
@@ -195,9 +234,10 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
         rows = fl.slice_axis(h_orb_rv, 1, s, e)
         if h_orb_rc is None:
             raw = fl.dense(rows, w_orb, b_orb)
+            w_rv = w_orb
         else:
             w_rv, w_rc = split_w(w_orb, f1_orb)
-            raw = fl.dense_mix(rows, h_orb_rc, w_rv, w_rc, b_orb)
+            raw = fl.dense_mix(rows, rc0, w_rv, w_rc, b_orb)
         nparam = raw.val.shape[-1] // 2
         orb = fl.complexify(fl.slice_axis(raw, -1, 0, nparam),
                             fl.slice_axis(raw, -1, nparam, 2 * nparam))
@@ -236,12 +276,29 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
         ep_jac3 = env_jac3 * pv + env_val * pj
         ep_lap = (env_lap * pv + 2.0 * torch.sum(env_jac3 * pj, dim=0)
                   + env_val * phase_lap[:, :, None, :])
-        orb = fl.mul_row(orb, ep_val.transpose(1, 2), ep_jac3.transpose(2, 3),
-                         ep_lap.transpose(1, 2), n_total=n, offset=s,
-                         shard=shard)
+        ep_val_sw = ep_val.transpose(1, 2)     # (B, ndet, spin, norb)
+        ep_jac3_sw = ep_jac3.transpose(2, 3)   # (3, B, ndet, spin, norb)
+        orb_val0 = orb.val
+        orb = fl.mul_row(orb, ep_val_sw, ep_jac3_sw, ep_lap.transpose(1, 2),
+                         n_total=n, offset=s, shard=shard)
         channel_jets.append(orb)
+        if use_scan:
+            offs = [0]
+            for p in orb_parts:
+                offs.append(offs[-1] + p.val.shape[-1])
+            scan_ing.append(dict(
+                s=s, spin=spin, ndet=ndet, norb=norb, nparam=nparam,
+                w_parts=[w_rv[offs[i]:offs[i + 1]] for i in range(len(orb_parts))],
+                # the row-constant block's tangents, (T_loc, B, d_out)
+                jbc=None if h_orb_rc is None else (h_orb_rc.jac @ w_rc)[:, :, 0],
+                ep_val_sw=ep_val_sw, ep_jac3_sw=ep_jac3_sw, orb_val0=orb_val0))
 
     mats = [fl.concat(channel_jets, axis=2)] if cfg.full_det else channel_jets
+
+    if use_scan:
+        sign_total, l_total = _orbital_det_scan(mats, scan_ing, orb_parts,
+                                                cfg.full_det, shard)
+        return fl.logsumexp_det_jet(sign_total, l_total, shard=shard)
 
     sign_total, l_total = None, None
     for mat in mats:
@@ -252,6 +309,99 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
             sign_total = sign_total * sign
             l_total = fl.add(l_total, l)
     return fl.logsumexp_det_jet(sign_total, l_total, shard=shard)
+
+
+def _orbital_det_scan(mats0, ing, parts, full_det: bool, shard):
+    """Tangent-chunked orbital and determinant head.
+
+    mats0: per-matrix value/Laplacian jets (empty tangent axis): the whole
+    orbital pipeline applied to val and lap, lacking only the tangent-borne
+    2 x cross term of the envelope-phase product's Laplacian. ing: per
+    spin channel, the orbital weight rows per trunk part, the row-constant
+    block's tangents, the row-local envelope-phase factor and the orbital
+    values before that product. parts: the trunk's row-varying jets, whose
+    (T_loc, B, n, f_p) Jacobians are the only full-width tangent tensors
+    read; they are sliced a chunk of tangents at a time, so no post-trunk
+    (T, ...) tensor is ever held.
+
+    Per chunk: trunk slice -> orbital dense -> complexify -> row-local
+    envelope-phase product -> the det head's trace contractions
+    (fl.det_trace_chunk). The loop accumulates sum_t tr((A^-1 J_t)^2) per
+    matrix and the product rule's cross term per channel, and collects
+    tr(A^-1 J_t) per tangent. With a shard, global tangent indices start
+    at the shard's offset and both sums are reduced over the deriv ranks.
+    Returns (sign_total, l_total) as slogdet_jet per matrix would.
+    """
+    t_loc = parts[0].jac.shape[0]
+    facs = [fl.det_factor(m.val) for m in mats0]
+    n_max = max(m.val.shape[-1] for m in mats0)
+    tc = fl._pick_det_scan_chunk(t_loc, n_max)
+    shard0 = 0 if shard is None else shard.t0(t_loc)
+    dev = mats0[0].val.device
+
+    def channel_chunk(g, c0, d):
+        s, spin = d["s"], d["spin"]
+        ndet, norb, nparam = d["ndet"], d["norb"], d["nparam"]
+        jr = None
+        for p, wp in zip(parts, d["w_parts"]):
+            contrib = p.jac[c0:c0 + tc, :, s:s + spin] @ wp
+            jr = contrib if jr is None else jr + contrib
+        if d["jbc"] is not None:
+            jr = jr + d["jbc"][c0:c0 + tc, :, None, :]
+        jc = torch.complex(jr[..., :nparam], jr[..., nparam:])
+        # (tc, B, spin, ndet * norb) -> (tc, B, ndet, spin, norb)
+        jc = jc.unflatten(-1, (ndet, norb)).transpose(2, 3)
+        # global tangent g moves electron g // 3 (component g % 3): row
+        # g // 3 - s of this channel, when that row is in it (fl.mul_row)
+        i_g = g // 3 - s
+        comp = g % 3
+        valid = (i_g >= 0) & (i_g < spin)
+        i_cl = torch.clamp(i_g, 0, spin - 1)
+        bj_row = d["ep_jac3_sw"][comp, :, :, i_cl, :]       # (tc, B, ndet, norb)
+        u = d["orb_val0"][:, :, i_cl, :].movedim(2, 0) * bj_row
+        rowsel = ((i_cl[:, None] == torch.arange(spin, device=dev)[None])
+                  & valid[:, None]).to(jr.dtype)            # (tc, spin)
+        jac_mat = (jc * d["ep_val_sw"]
+                   + rowsel[:, None, None, :, None] * u[:, :, :, None, :])
+        # the Laplacian's cross term: the chunk's slab-diagonal jac rows
+        # against the row-local factor's jac
+        g_rows = jc[torch.arange(tc, device=dev), :, :, i_cl, :]  # (tc, B, ndet, norb)
+        cross_c = torch.einsum("tbdf,ts->bdsf", g_rows * bj_row, rowsel.to(jc.dtype))
+        return jac_mat, cross_c
+
+    l2s = [torch.zeros(m.val.shape[:2], dtype=m.val.dtype, device=dev) for m in mats0]
+    crosses = [torch.zeros_like(d["orb_val0"]) for d in ing]
+    trbs = [[] for _ in mats0]
+    for c0 in range(0, t_loc, tc):
+        g = shard0 + c0 + torch.arange(tc, device=dev)
+        chunks = []
+        for ci, d in enumerate(ing):
+            jac_mat, cross_c = channel_chunk(g, c0, d)
+            chunks.append(jac_mat)
+            crosses[ci] = crosses[ci] + cross_c
+        mats_chunks = [torch.cat(chunks, dim=3)] if full_det else chunks
+        for mi, (jm, fac) in enumerate(zip(mats_chunks, facs)):
+            batch, ndet, nm = jm.shape[1], jm.shape[2], jm.shape[3]
+            j2c = jm.movedim(0, -2).reshape(batch, ndet, nm, tc * nm)
+            trb_c, l2_c = fl.det_trace_chunk(fac[0], j2c, tc, nm, lead=(batch, ndet))
+            trbs[mi].append(trb_c)
+            l2s[mi] = l2s[mi] + l2_c
+
+    sign_total, l_total = None, None
+    for mi, (m0, (a_inv, sign, logdet)) in enumerate(zip(mats0, facs)):
+        cross = torch.cat(crosses, dim=2) if full_det else crosses[mi]
+        lap2 = l2s[mi]
+        if shard is not None:
+            cross, lap2 = shard.all_sum(cross), shard.all_sum(lap2)
+        mat_lap = m0.lap + 2.0 * cross
+        lap1 = torch.sum(a_inv * mat_lap.transpose(-1, -2), dim=(-1, -2))
+        l = fl.Jet(logdet, torch.cat(trbs[mi], dim=0), lap1 - lap2)
+        if l_total is None:
+            sign_total, l_total = sign, l
+        else:
+            sign_total = sign_total * sign
+            l_total = fl.add(l_total, l)
+    return sign_total, l_total
 
 
 def _check_shard(spec: SystemSpec, shard) -> None:

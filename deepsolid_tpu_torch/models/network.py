@@ -1,8 +1,8 @@
 """Periodic complex FermiNet-style wavefunction for solids.
 
-Mirrors deepsolid_tpu/models/network.py (value path, its first-order
-gradient with respect to the parameters, and the KFAC tap hooks of the
-dense layers):
+Mirrors deepsolid_tpu/models/network.py (value path, its derivatives
+with respect to the parameters and the electrons, and the KFAC tap hooks
+of the dense layers and of the full envelope):
   periodic nu/tri input features -> two-stream permutation-equivariant MLP
   -> per-spin complex orbital heads -> multiplicative envelopes -> Bloch
   phase factors e^{i k.r} from the occupied k-list -> log-sum-exp over
@@ -283,7 +283,12 @@ def orbital_matrices(params: ParamTree, x: torch.Tensor, spec: SystemSpec,
                     f"orbital_{i}", eps, taps)
         nparam = raw.shape[-1] // 2
         orb = torch.complex(raw[..., :nparam], raw[..., nparam:])
-        orb = envelope_fn(to_env[:, lo:hi], params["envelope"][i]) * orb
+        if cfg.envelope_type == "full":
+            env = envelope_fn(to_env[:, lo:hi], params["envelope"][i],
+                              name=f"envelope_{i}", eps=eps, taps=taps)
+        else:
+            env = envelope_fn(to_env[:, lo:hi], params["envelope"][i])
+        orb = env * orb
         norb = sum(spins) if cfg.full_det else spin
         orb = orb.reshape(batch, spin, cfg.determinants, norb).transpose(1, 2)
         orbitals.append(orb)
@@ -363,10 +368,13 @@ class Network:
         return reg
 
     def envelope_registry(self, params) -> Dict[str, Dict[str, Any]]:
-        """Per-atom Kronecker blocks of the full envelope's sigma: not
-        ported, so no envelope has one (its parameters take diagonal
-        blocks) and KFAC refuses envelope_type='full'."""
-        return {}
+        """name -> {'path': tree path} of the full envelope's sigma, which
+        KFAC gives per-atom Kronecker blocks; empty for the other
+        envelopes (their parameters take diagonal blocks)."""
+        if self.cfg.envelope_type != "full":
+            return {}
+        return {f"envelope_{i}": {"path": ("envelope", i, "sigma")}
+                for i in range(len(params["envelope"]))}
 
 
 def make_network(supercell: Supercell, klist, cfg: NetworkConfig = None,

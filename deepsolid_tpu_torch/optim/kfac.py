@@ -1,27 +1,36 @@
-"""Complex-aware KFAC natural-gradient optimizer, `fisher_exact` mode.
+"""Complex-aware KFAC natural-gradient optimizer.
 
 Counterpart of deepsolid_tpu/optim/kfac.py, method for method and state
 key for key. The VMC Fisher F = E[(d log psi*)(d log psi*)^T] is
 approximated per dense layer as extra_scale * (A kron G) with
   A = E[x^T x] over (walkers x repeats)      (layer inputs, bias-augmented)
-  G = Re E[dy^H dy]                          (complex output tangents)
-and per remaining parameter (the envelopes) as a diagonal. dy is the
-per-walker tangent of a layer's output under the fisher_exact rule for a
-1-D normal predictive distribution of variance 0.5: cotangent sqrt(2) per
-walker, once on Re log psi and once on Im log psi.
+  G = Re E[dy^H dy]                          (complex output tangents),
+per atom of the full envelope's sigma the same way (its bilinear map
+ae . sigma, `env_blocks`), and per remaining parameter (the other
+envelope parameters) as a diagonal. dy is the per-walker tangent of a
+layer's output for a 1-D normal predictive distribution of variance 0.5.
+`estimation_mode` 'fisher_exact' takes cotangent sqrt(2) per walker, once
+on Re log psi and once on Im log psi; the Monte Carlo modes take one
+backward pass seeded with sqrt(2) z per (walker, Re/Im), z ~ N(0, 1)
+('fisher_gradients') or Rademacher ('fisher_curvature_prop'), whose
+factor expectation is the exact mode's.
 
-Layers are tapped by the network (models/network.py `dense`): one forward
-on a walker chunk records every layer's input and adds a zero `eps` to
-every layer's output; two backward passes over that one graph give d/d eps
-(the tangents, walker by walker) and the batch-summed gradients of the
+Layers are tapped by the network (models/network.py `dense`,
+models/envelopes.py `full_envelope`): one forward on a walker chunk
+records every layer's input and adds a zero `eps` to every layer's
+output; the backward passes over that one graph give d/d eps (the
+tangents, walker by walker) and the batch-summed gradients of the
 diagonal parameters. The network is batched, so no vmap is needed. There
 is no kernel of its own here: the reference's KFAC reaches no Pallas
 kernel either (its products and Cholesky solves are plain XLA), so the
 factor products are torch.matmul and the inverses torch.linalg's Cholesky.
 
 What differs from the reference, and why:
-  * only estimation_mode='fisher_exact' (the production mode); the Monte
-    Carlo modes and the full envelope's per-atom Kronecker blocks raise;
+  * the Monte Carlo draws come from a torch.Generator seeded from the
+    optimizer step and the data rank (`mc_seed`), where JAX folds the step
+    and the data axis into PRNGKey(230); each capture chunk takes the next
+    draws of that generator. update_curvature(draws=...) takes them from
+    the caller instead (the tests hand in JAX's);
   * the data axis is a process group, not a shard_map axis: `all_mean`
     (parallel.Mesh.all_mean) averages over the data ranks and `num_data`
     turns that mean into the sum the diagonal factor needs;
@@ -66,6 +75,17 @@ def _leaf_paths(tree, prefix=()):
         yield prefix, tree
 
 
+_MC_MODES = ("fisher_gradients", "fisher_curvature_prop")
+_ESTIMATION_MODES = ("fisher_exact",) + _MC_MODES
+_MC_SEED = 230
+_MC_RANK_STRIDE = 1000003  # folds the data rank into the step's seed
+
+
+def mc_seed(step: int, data_index: int) -> int:
+    """The Monte Carlo draws' seed of an optimizer step on a data rank."""
+    return (_MC_SEED + step) * _MC_RANK_STRIDE + data_index
+
+
 def _key_path(key: str):
     return tuple(int(p) if p.isdigit() else p for p in key.split("/"))
 
@@ -74,13 +94,19 @@ def _inner_product(a, b):
     return sum(torch.sum(x * y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
+def _trace(m: torch.Tensor) -> torch.Tensor:
+    return torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)
+
+
 def psd_inv_cholesky(factor: torch.Tensor, damping) -> torch.Tensor:
-    """inv(factor + damping * I) by a Cholesky solve. A factor that is not
+    """inv(factor + damping * I) by a Cholesky solve, for (..., d, d)
+    factors and a damping of their leading shape. A factor that is not
     positive definite gives non-finite entries, as in the reference, and
     no exception (cholesky_ex: no wait for the device)."""
-    eye = torch.eye(factor.shape[0], dtype=factor.dtype, device=factor.device)
-    chol, _ = torch.linalg.cholesky_ex(factor + damping * eye)
-    return torch.cholesky_solve(eye, chol)
+    eye = torch.eye(factor.shape[-1], dtype=factor.dtype, device=factor.device)
+    damping = torch.as_tensor(damping, dtype=factor.dtype, device=factor.device)
+    chol, _ = torch.linalg.cholesky_ex(factor + damping[..., None, None] * eye)
+    return torch.cholesky_solve(eye.expand_as(factor), chol)
 
 
 def pi_adjusted_inverse(factor_0, factor_1, damping,
@@ -88,24 +114,25 @@ def pi_adjusted_inverse(factor_0, factor_1, damping,
     """Pi-adjusted damped Kronecker inverse: each factor is normalized by
     its trace and damped by its share of `damping`. Factors whose traces
     multiply to zero (a layer that saw no curvature yet) give identity /
-    sqrt(damping) for both."""
+    sqrt(damping) for both. Leading axes of the factors are independent
+    blocks (the full envelope's atoms)."""
     damping = torch.as_tensor(damping, dtype=factor_0.dtype, device=factor_0.device)
-    norm_0 = all_mean(torch.trace(factor_0))
-    norm_1 = all_mean(torch.trace(factor_1))
+    norm_0 = all_mean(_trace(factor_0))
+    norm_1 = all_mean(_trace(factor_1))
     scale = norm_0 * norm_1
     ok = scale > 0.0
     # the guarded branch is computed on harmless stand-ins and discarded
     one = torch.ones_like(scale)
     s, n0, n1 = (torch.where(ok, v, one) for v in (scale, norm_0, norm_1))
-    dim_0, dim_1 = factor_0.shape[0], factor_1.shape[0]
+    dim_0, dim_1 = factor_0.shape[-1], factor_1.shape[-1]
     d0 = torch.sqrt(damping * dim_1 / (s * dim_0))
-    inv0 = psd_inv_cholesky(factor_0 / n0, d0) / torch.sqrt(s)
+    inv0 = psd_inv_cholesky(factor_0 / n0[..., None, None], d0) / torch.sqrt(s)[..., None, None]
     d1 = torch.sqrt(damping * dim_0 / (s * dim_1))
-    inv1 = psd_inv_cholesky(factor_1 / n1, d1) / torch.sqrt(s)
+    inv1 = psd_inv_cholesky(factor_1 / n1[..., None, None], d1) / torch.sqrt(s)[..., None, None]
 
     def guard(inv):
-        eye = torch.eye(inv.shape[0], dtype=inv.dtype, device=inv.device)
-        return torch.where(ok, inv, eye / torch.sqrt(damping))
+        eye = torch.eye(inv.shape[-1], dtype=inv.dtype, device=inv.device)
+        return torch.where(ok[..., None, None], inv, eye / torch.sqrt(damping))
 
     return guard(inv0), guard(inv1)
 
@@ -116,8 +143,11 @@ class KfacOptimizer:
 
     The state is the reference's dict: 'step' (int32), 'velocities' (a tree
     like the parameters), 'blocks' {layer: a_raw, g_raw, weight, a_inv,
-    g_inv, extra_scale}, 'env_blocks' (empty), 'diag' {path: raw, weight},
-    'damping' and 'rho'.
+    g_inv, extra_scale}, 'env_blocks' {envelope_i: the same, per atom:
+    a_* (natom, 3, 3), g_* (natom, 3 nparam, 3 nparam); empty unless the
+    envelope is 'full'}, 'diag' {path: raw, weight}, 'damping' and 'rho'.
+    `data_index` is this rank's index on the data axis (the Monte Carlo
+    draws' seed).
     """
 
     def __init__(self, network, learning_rate_schedule: Callable,
@@ -130,15 +160,12 @@ class KfacOptimizer:
                  damping_adaptation_decay: float = 0.9,
                  max_damping: float = 1.0, capture_chunk: int = 0,
                  estimation_mode: str = "fisher_exact",
-                 all_mean: Optional[Callable] = None, num_data: int = 1):
-        if estimation_mode != "fisher_exact":
-            raise NotImplementedError(
-                f"optim.kfac.estimation_mode={estimation_mode!r} is not ported: "
-                "only 'fisher_exact' (the Monte Carlo modes are not)")
-        if network.cfg.envelope_type == "full":
-            raise NotImplementedError(
-                "KFAC with network.detnet.envelope_type='full' is not ported: "
-                "the full envelope's per-atom Kronecker blocks are not")
+                 all_mean: Optional[Callable] = None, num_data: int = 1,
+                 data_index: int = 0):
+        if estimation_mode not in _ESTIMATION_MODES:
+            raise ValueError(
+                f"Unknown optim.kfac.estimation_mode={estimation_mode!r}; "
+                f"one of {_ESTIMATION_MODES}")
         self.network = network
         self.learning_rate_schedule = learning_rate_schedule
         self.damping = damping
@@ -157,6 +184,7 @@ class KfacOptimizer:
         self.estimation_mode = estimation_mode
         self.all_mean = all_mean or _identity
         self.num_data = num_data
+        self.data_index = data_index
 
     @classmethod
     def from_config(cls, cfg, network, learning_rate_schedule: Callable,
@@ -177,11 +205,17 @@ class KfacOptimizer:
             capture_chunk=cfg.optim.get("psi_chunk", 0),
             estimation_mode=k.get("estimation_mode", "fisher_exact"),
             all_mean=mesh.all_mean if mesh is not None else None,
-            num_data=mesh.num_data if mesh is not None else 1)
+            num_data=mesh.num_data if mesh is not None else 1,
+            data_index=mesh.data_index if mesh is not None else 0)
 
     # ---------------- layout helpers -----------------------------------------
     def _registry(self, params):
         return self.network.layer_registry(params)
+
+    def _env_registry(self, params):
+        """The full envelope's sigma parameters, with per-atom Kronecker
+        blocks (empty for the other envelopes)."""
+        return self.network.envelope_registry(params)
 
     def _dense_paths(self, params):
         reg = self._registry(params)
@@ -190,16 +224,21 @@ class KfacOptimizer:
             paths.add(info["path"] + ("w",))
             if info["has_bias"]:
                 paths.add(info["path"] + ("b",))
+        for info in self._env_registry(params).values():
+            paths.add(info["path"])
         return reg, paths
 
     def _diag_paths(self, params, dense_paths):
-        """All leaf paths not covered by dense blocks (the envelopes)."""
+        """All leaf paths not covered by Kronecker blocks (the envelopes'
+        other parameters)."""
         return [path for path, _ in _leaf_paths(params) if path not in dense_paths]
 
     def _tap_shapes(self, params):
         """(input, output) shapes of every tapped layer for one walker: the
         one-electron layers act on n rows, the two-electron layers on n x n
-        pairs, the orbital heads on their spin channel's electrons."""
+        pairs, the orbital heads and the full envelope on their spin
+        channel's electrons (the envelope's input ae (n_s, natom, 3), its
+        output ae . sigma (n_s, 3, natom, nparam))."""
         spec = self.network.spec
         n = spec.nelectron
         shapes = {}
@@ -209,6 +248,10 @@ class KfacOptimizer:
                 spec.active_spins[i],)
             w = _tree_get(params, info["path"])["w"]
             shapes[name] = (lead + (w.shape[0],), lead + (w.shape[1],))
+        for name, info in self._env_registry(params).items():
+            k, m, natom, npar = _tree_get(params, info["path"]).shape
+            n_s = spec.active_spins[info["path"][1]]
+            shapes[name] = ((n_s, natom, k), (n_s, m, natom, npar))
         return shapes
 
     # ---------------- state ---------------------------------------------------
@@ -236,6 +279,17 @@ class KfacOptimizer:
                 "a_inv": zeros(d_in, d_in), "g_inv": zeros(d_out, d_out),
                 "extra_scale": torch.tensor(extra_scale, dtype=dtype, device=device),
             }
+        env_blocks = {}
+        for name, info in self._env_registry(params).items():
+            k, m, natom, npar = _tree_get(params, info["path"]).shape
+            env_blocks[name] = {
+                "a_raw": zeros(natom, k, k), "g_raw": zeros(natom, m * npar, m * npar),
+                "weight": zeros(),
+                "a_inv": zeros(natom, k, k), "g_inv": zeros(natom, m * npar, m * npar),
+                # repeats = electrons the bilinear map is applied to
+                "extra_scale": torch.tensor(float(shapes[name][0][0]), dtype=dtype,
+                                            device=device),
+            }
         diag = {}
         for path in self._diag_paths(params, dense_paths):
             diag["/".join(map(str, path))] = {
@@ -244,7 +298,7 @@ class KfacOptimizer:
             "step": torch.zeros((), dtype=torch.int32, device=device),
             "velocities": tree_map(torch.zeros_like, params),
             "blocks": blocks,
-            "env_blocks": {},
+            "env_blocks": env_blocks,
             "diag": diag,
             # dynamic damping and the last reduction ratio (adaptive
             # damping); with fixed damping they stay at these values
@@ -253,12 +307,16 @@ class KfacOptimizer:
         }
 
     # ---------------- curvature capture ---------------------------------------
-    def _capture(self, params, data):
+    def _capture(self, params, data, draws=None):
         """(taps, dy, diag_grads) of a walker chunk: taps[name] the layer's
         input (B, ..., d_in), dy[name] = (dy_re, dy_im) the tangents of its
         output (B, ..., d_out) under cotangent sqrt(2) on Re and on Im of
         log psi, diag_grads[key] = (g_re, g_im) the same two gradients of
-        each diagonal parameter, summed over the chunk's walkers."""
+        each diagonal parameter, summed over the chunk's walkers.
+
+        In a Monte Carlo mode `draws` (B, 2) are the chunk's z per (walker,
+        Re/Im): one backward pass with cotangent sqrt(2) z gives the first
+        of each pair, and the second is zero."""
         reg, dense_paths = self._dense_paths(params)
         shapes = self._tap_shapes(params)
         batch = data.shape[0]
@@ -276,22 +334,29 @@ class KfacOptimizer:
         cot = math.sqrt(2.0)
         with torch.enable_grad():
             out, taps = self.network.logdet_with_taps(leaves, data, eps=eps)
-            # one forward graph, two backward passes over it
-            g_re = torch.autograd.grad(cot * out.real.sum(), inputs,
-                                       retain_graph=True, allow_unused=True)
-            g_im = torch.autograd.grad(cot * out.imag.sum(), inputs,
-                                       allow_unused=True)
+            if self.estimation_mode in _MC_MODES:
+                z = draws.to(dtype=out.real.dtype, device=out.device)
+                seed = cot * (z[:, 0] * out.real + z[:, 1] * out.imag)
+                grads = (torch.autograd.grad(seed.sum(), inputs, allow_unused=True),
+                         (None,) * len(inputs))
+            else:
+                # one forward graph, two backward passes over it
+                grads = (torch.autograd.grad(cot * out.real.sum(), inputs,
+                                             retain_graph=True, allow_unused=True),
+                         torch.autograd.grad(cot * out.imag.sum(), inputs,
+                                             allow_unused=True))
         pairs = [tuple(torch.zeros_like(x) if g is None else g for g in gs)
-                 for x, *gs in zip(inputs, g_re, g_im)]
+                 for x, *gs in zip(inputs, *grads)]
         dy = dict(zip(names, pairs[:len(names)]))
         diag_grads = dict(zip(diag_params, pairs[len(names):]))
         return {k: v.detach() for k, v in taps.items()}, dy, diag_grads
 
-    def _factor_sums(self, params, data):
+    def _factor_sums(self, params, data, draws=None):
         """Curvature factor SUMS over this walker chunk: (dense {name:
-        (a_sum, g_sum)}, diag {key: (g_re_sum, g_im_sum)}). Both add up
-        over walkers, so chunked capture equals whole-batch capture."""
-        taps, dy, diag_grads = self._capture(params, data)
+        (a_sum, g_sum)}, env {name: (a_sum, g_sum)} per atom, diag {key:
+        (g_re_sum, g_im_sum)}). All add up over walkers, so chunked
+        capture equals whole-batch capture."""
+        taps, dy, diag_grads = self._capture(params, data, draws)
         dense = {}
         for name, info in self._registry(params).items():
             x = taps[name]
@@ -300,29 +365,50 @@ class KfacOptimizer:
                 x2 = torch.cat([x2, torch.ones_like(x2[:, :1])], dim=1)
             d_re, d_im = (d.reshape(-1, d.shape[-1]) for d in dy[name])
             dense[name] = (x2.T @ x2, d_re.T @ d_re + d_im.T @ d_im)
-        return dense, diag_grads
+        env = {}
+        for name in self._env_registry(params):
+            x = taps[name]  # (B, n_s, natom, k)
+            # (B, n_s, m, natom, np) -> (B, n_s, natom, m np)
+            d_re, d_im = (d.permute(0, 1, 3, 2, 4).flatten(-2) for d in dy[name])
+            env[name] = (torch.einsum("bnak,bnal->akl", x, x),
+                         torch.einsum("bnak,bnal->akl", d_re, d_re)
+                         + torch.einsum("bnak,bnal->akl", d_im, d_im))
+        return dense, env, diag_grads
 
-    def update_curvature(self, state, params, data):
+    def mc_draws(self, step: int, batch: int, device) -> torch.Tensor:
+        """The Monte Carlo modes' z (batch, 2) of an optimizer step on this
+        data rank: N(0, 1) ('fisher_gradients') or Rademacher
+        ('fisher_curvature_prop'), in capture order (chunk after chunk)."""
+        gen = torch.Generator(device=device)
+        gen.manual_seed(mc_seed(step, self.data_index))
+        if self.estimation_mode == "fisher_curvature_prop":
+            bits = torch.randint(0, 2, (batch, 2), generator=gen, device=device)
+            return 2.0 * bits.double() - 1.0
+        return torch.randn((batch, 2), generator=gen, device=device,
+                           dtype=torch.float64)
+
+    def update_curvature(self, state, params, data, draws=None):
         """EMA update of every curvature factor from this rank's walkers,
         `capture_chunk` of them at a time (each chunk's graph is freed
-        before the next), averaged over the data ranks."""
+        before the next), averaged over the data ranks. A Monte Carlo mode
+        takes `draws` (batch, 2), or this step's `mc_draws`."""
         ema_old = self.cov_ema_decay
         batch = data.shape[0]
         chunk = self.capture_chunk
-        if chunk and 0 < chunk < batch:
-            if batch % chunk != 0:
-                raise ValueError(
-                    f"kfac capture_chunk={chunk} must divide the per-rank "
-                    f"walker batch ({batch})")
-            dense_s = diag_s = None
-            for part in data.split(chunk):
-                sums = self._factor_sums(params, part)
-                if dense_s is None:
-                    dense_s, diag_s = sums
-                else:
-                    dense_s, diag_s = tree_map(torch.add, (dense_s, diag_s), sums)
-        else:
-            dense_s, diag_s = self._factor_sums(params, data)
+        if self.estimation_mode in _MC_MODES and draws is None:
+            draws = self.mc_draws(int(state["step"]), batch, data.device)
+        if not (chunk and 0 < chunk < batch):
+            chunk = batch
+        if batch % chunk != 0:
+            raise ValueError(
+                f"kfac capture_chunk={chunk} must divide the per-rank "
+                f"walker batch ({batch})")
+        sums = None
+        for i, part in enumerate(data.split(chunk)):
+            part_draws = None if draws is None else draws[i * chunk:(i + 1) * chunk]
+            part_sums = self._factor_sums(params, part, part_draws)
+            sums = part_sums if sums is None else tree_map(torch.add, sums, part_sums)
+        dense_s, env_s, diag_s = sums
 
         shapes = self._tap_shapes(params)
         blocks = dict(state["blocks"])
@@ -330,6 +416,16 @@ class KfacOptimizer:
             n_rep = batch * (int(np.prod(shapes[name][0][:-1], dtype=np.int64)) or 1)
             a_sum, g_sum = dense_s[name]
             blocks[name] = {
+                **block,
+                "a_raw": block["a_raw"] * ema_old + self.all_mean(a_sum / n_rep),
+                "g_raw": block["g_raw"] * ema_old + self.all_mean(g_sum / n_rep),
+                "weight": block["weight"] * ema_old + 1.0,
+            }
+        env_blocks = dict(state["env_blocks"])
+        for name, block in env_blocks.items():
+            n_rep = batch * shapes[name][0][0]
+            a_sum, g_sum = env_s[name]
+            env_blocks[name] = {
                 **block,
                 "a_raw": block["a_raw"] * ema_old + self.all_mean(a_sum / n_rep),
                 "g_raw": block["g_raw"] * ema_old + self.all_mean(g_sum / n_rep),
@@ -348,17 +444,26 @@ class KfacOptimizer:
                 "raw": entry["raw"] * ema_old + (g_re**2 + g_im**2) / global_batch,
                 "weight": entry["weight"] * ema_old + 1.0,
             }
-        return {**state, "blocks": blocks, "diag": diag}
+        return {**state, "blocks": blocks, "env_blocks": env_blocks, "diag": diag}
 
     def refresh_inverses(self, state, damping):
-        blocks = dict(state["blocks"])
-        for name, block in blocks.items():
-            w = torch.clamp(block["weight"], min=1e-30)
-            a_inv, g_inv = pi_adjusted_inverse(
-                block["a_raw"] / w, block["g_raw"] / w,
-                damping / block["extra_scale"], self.all_mean)
-            blocks[name] = {**block, "a_inv": a_inv, "g_inv": g_inv}
-        return {**state, "blocks": blocks}
+        out = {}
+        for key in ("blocks", "env_blocks"):  # env blocks: one per atom
+            blocks = dict(state[key])
+            for name, block in blocks.items():
+                w = torch.clamp(block["weight"], min=1e-30)
+                a_inv, g_inv = pi_adjusted_inverse(
+                    block["a_raw"] / w, block["g_raw"] / w,
+                    damping / block["extra_scale"], self.all_mean)
+                blocks[name] = {**block, "a_inv": a_inv, "g_inv": g_inv}
+            out[key] = blocks
+        return {**state, **out}
+
+    @staticmethod
+    def _env_matrix(sigma):
+        """(k, m, natom, np) -> per atom (natom, k, m np)."""
+        k, m, natom, npar = sigma.shape
+        return sigma.permute(2, 0, 1, 3).reshape(natom, k, m * npar)
 
     @staticmethod
     def _layer_matrix(tree, info):
@@ -382,6 +487,14 @@ class KfacOptimizer:
                 node["b"] = result[-1]
             else:
                 node["w"] = result.reshape(node["w"].shape)
+        for name, info in self._env_registry(params).items():
+            block = state["env_blocks"][name]
+            sig = _tree_get(grads, info["path"])
+            k, m, natom, npar = sig.shape
+            res = block["a_inv"] @ self._env_matrix(sig) @ block["g_inv"]
+            res = res / block["extra_scale"]
+            _tree_get(out, info["path"][:-1])[info["path"][-1]] = (
+                res.reshape(natom, k, m, npar).permute(1, 2, 0, 3))
         for key, entry in state["diag"].items():
             path = _key_path(key)
             factor = entry["raw"] / torch.clamp(entry["weight"], min=1e-30)
@@ -399,6 +512,12 @@ class KfacOptimizer:
             block = state["blocks"][name]
             w = torch.clamp(block["weight"], min=1e-30)
             v = self._layer_matrix(vec, info)
+            total = total + (torch.sum(v * ((block["a_raw"] / w) @ v @ (block["g_raw"] / w)))
+                             * block["extra_scale"])
+        for name, info in self._env_registry(params).items():
+            block = state["env_blocks"][name]
+            w = torch.clamp(block["weight"], min=1e-30)
+            v = self._env_matrix(_tree_get(vec, info["path"]))
             total = total + (torch.sum(v * ((block["a_raw"] / w) @ v @ (block["g_raw"] / w)))
                              * block["extra_scale"])
         for key, entry in state["diag"].items():

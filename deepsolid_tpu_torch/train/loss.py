@@ -106,10 +106,13 @@ def clip_local_energy_diff(diff, clip_width: float, clip_type: str,
 
 
 def make_batch_local_energy(network, supercell, el_chunk: int = 0,
-                            mode: str = "forward", shard=None) -> Callable:
+                            mode: str = "forward", shard=None,
+                            partition_number: int = 3) -> Callable:
     """(params, data (B, 3N)) -> (kinetic (B,) complex, ewald (B,)),
-    evaluated `el_chunk` walkers at a time to bound jet memory."""
-    el_fun = make_local_energy(network, supercell, mode=mode, shard=shard)
+    evaluated `el_chunk` walkers at a time to bound the kinetic engine's
+    memory (`mode`, `partition_number`: hamiltonian.make_local_energy)."""
+    el_fun = make_local_energy(network, supercell, mode=mode,
+                               partition_number=partition_number, shard=shard)
 
     def batch_local_energy(params, data):
         n = data.shape[0]
@@ -161,19 +164,22 @@ def energy_statistics(ke: torch.Tensor, ew: torch.Tensor,
 def make_loss(network, supercell, el_chunk: int = 0, mode: str = "forward",
               clip_local_energy: float = 5.0, clip_type: str = "real",
               psi_chunk: int = 0, shard=None,
-              all_mean: Optional[Callable] = None) -> Callable:
+              all_mean: Optional[Callable] = None,
+              partition_number: int = 3) -> Callable:
     """total_energy(params, data) -> (loss, AuxiliaryLossData), evaluated
     without autograd; total_energy.value_and_grad(params, data) ->
     ((loss, aux), grads), grads a tree like params holding the clipped
     covariance estimator of dE/dparams on this rank's walkers (the mean
     over the data ranks is the training step's to take).
 
-    `shard` splits the forward-Laplacian's tangent columns over the deriv
-    ranks (E_L only: log psi and its gradient are computed whole on every
+    `mode` and `partition_number` choose the kinetic engine
+    (hamiltonian.make_local_energy). `shard` splits the forward-Laplacian's
+    tangent columns over the deriv ranks (E_L only: log psi and its gradient are computed whole on every
     rank). `psi_chunk` walkers at a time go through the backward pass.
     """
-    batch_local_energy = make_batch_local_energy(network, supercell, el_chunk,
-                                                 mode, shard=shard)
+    batch_local_energy = make_batch_local_energy(
+        network, supercell, el_chunk, mode, shard=shard,
+        partition_number=partition_number)
 
     @torch.no_grad()
     def total_energy(params, data):

@@ -8,15 +8,17 @@ k-list, restore a checkpoint (or initialize parameters and walkers),
 pretrain a run that starts from scratch and save it as step 0, burn in,
 then per iteration run the sampler (all-electron Metropolis, or per
 `mcmc.importance_sampling` / `mcmc.one_electron` Langevin or one-electron
-moves), evaluate the batch local energy with the forward-Laplacian
-engine and, when training, the gradient estimator and the update
+moves), evaluate the batch local energy with the kinetic engine of
+`optim.laplacian_mode` and, when training, the gradient estimator and the update
 ('kfac': curvature update, natural-gradient step and, under adaptive
 damping, the loss again on the same walkers; 'adam': the optax chain);
 under `debug.check_nan` discard an iteration that leaves a non-finite
 parameter or loss; write the train_stats CSV row (with the complex
 polarization under `log.complex_polarization`), structure_factor.csv
 and local_energies.csv when asked, adapt the proposal width and save
-checkpoints.
+checkpoints. With `log.trace_path` a torch.profiler trace of iterations
+[log.trace_start, + log.trace_steps) (counted from this run's first) is
+written there.
 
 Several ranks (torch.distributed initialized by the caller, see
 parallel.run_ranks) run this same function, SPMD: `parallel.deriv_devices`
@@ -57,6 +59,7 @@ from deepsolid_tpu_torch.system.cell import Supercell
 from deepsolid_tpu_torch.train import pretrain as pretrain_lib
 from deepsolid_tpu_torch.train.loss import chunk_batch_fn, make_loss
 from deepsolid_tpu_torch.utils import checkpoint as checkpoint_lib
+from deepsolid_tpu_torch.utils import profiling
 from deepsolid_tpu_torch.utils.tree import tree_leaves
 from deepsolid_tpu_torch.utils.writers import Writer
 
@@ -154,6 +157,8 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
     sc = cfg.system.cell
     if not isinstance(sc, Supercell):
         raise ValueError("cfg.system.cell must be a Supercell")
+    if cfg.system.get("ndim", 3) != 3:
+        raise ValueError(f"system.ndim={cfg.system.ndim}: only 3 is supported")
 
     deriv_devices = int(cfg.get("parallel", {}).get("deriv_devices", 1))
     if deriv_devices > 1:
@@ -225,7 +230,8 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
     total_energy = make_loss(
         net, sc, el_chunk=cfg.optim.el_chunk, mode=cfg.optim.laplacian_mode,
         clip_local_energy=cfg.optim.clip_el, clip_type=cfg.optim.clip_type,
-        psi_chunk=psi_chunk, shard=mesh.shard, all_mean=mesh.all_mean)
+        psi_chunk=psi_chunk, shard=mesh.shard, all_mean=mesh.all_mean,
+        partition_number=cfg.optim.get("partition_number", 3))
 
     optimizer = opt_state = None
     state_to_numpy = adam_lib.state_to_numpy
@@ -302,10 +308,16 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
             for _ in range(cfg.mcmc.burn_in):
                 data, _ = mcmc_step(params, data, gen, width)
 
+        # a window of the run's iterations under torch.profiler, opt-in
+        tracer = profiling.StepTracer(cfg.log.get("trace_path", ""),
+                                      start=cfg.log.get("trace_start", 10),
+                                      steps=cfg.log.get("trace_steps", 5))
         with (Writer(name=cfg.log.stats_file_name, schema=schema,
                      directory=save_path, iteration_key="step")
-              if writes else contextlib.nullcontext()) as writer:
+              if writes else contextlib.nullcontext()) as writer, \
+                contextlib.closing(tracer):
             for t in range(t_init, iterations):
+                tracer.step(t - t_init)
                 if cfg.debug.check_nan:
                     # every step returns new tensors and writes into none,
                     # so these references are the state before the step

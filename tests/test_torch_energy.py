@@ -71,8 +71,6 @@ def test_local_energy_matches_jax():
     tke, tew = tmake_le(tnet, tsc)(tp, t64(x))
     np.testing.assert_allclose(tke.numpy(), np.asarray(jke), rtol=1e-9, atol=1e-9)
     np.testing.assert_allclose(tew.numpy(), np.asarray(jew), rtol=1e-11, atol=1e-11)
-    with pytest.raises(NotImplementedError):
-        tmake_le(tnet, tsc, mode="partition")
 
 
 def _stats_inputs():

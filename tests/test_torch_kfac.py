@@ -307,27 +307,6 @@ def test_damping_is_clipped_to_its_range():
     assert float(out["rho"]) == -1.0 and float(out["damping"]) == pytest.approx(0.06)
 
 
-# ---- what is not ported raises ------------------------------------------------------------
-
-
-@pytest.mark.parametrize("mode", ["fisher_gradients", "fisher_curvature_prop"])
-def test_monte_carlo_estimation_modes_raise(mode):
-    _, tnet, _, _, _ = networks(**NET)
-    with pytest.raises(NotImplementedError, match="fisher_exact"):
-        tkfac.KfacOptimizer(tnet, schedule, estimation_mode=mode)
-
-
-def test_full_envelope_raises(tmp_path):
-    _, tnet, _, _, _ = networks(**{**NET, "envelope_type": "full"})
-    assert tnet.envelope_registry({}) == {}
-    with pytest.raises(NotImplementedError, match="full"):
-        tkfac.KfacOptimizer(tnet, schedule)
-    cfg = torch_cfg(tmp_path, optimizer="kfac", iterations=1)
-    cfg.network.detnet.envelope_type = "full"
-    with pytest.raises(NotImplementedError, match="full"):
-        tprocess.process(cfg, device="cpu")
-
-
 # ---- three KFAC iterations of process() ------------------------------------------------------
 
 KFAC = dict(adaptive_damping=True, damping_adaptation_interval=2, damping=0.05)

@@ -66,6 +66,7 @@ def _inference_cfg(tmp_path, monkeypatch, batch=2):
     cfg.pretrain.scf = "hf"
     cfg.batch_size = batch
     cfg.optim.optimizer = "none"
+    cfg.optim.laplacian_mode = "forward"  # the production run's engine
     cfg.optim.el_chunk = 1
     cfg.mcmc.burn_in = 0
     cfg.mcmc.steps = 1
@@ -92,10 +93,6 @@ def test_process_inference_on_the_cpu(tmp_path, monkeypatch):
 
 def test_process_refuses_training_and_a_missing_gpu(tmp_path, monkeypatch):
     cfg = _inference_cfg(tmp_path, monkeypatch)
-    cfg.optim.laplacian_mode = "partition"
-    with pytest.raises(NotImplementedError, match="forward"):
-        tprocess.process(cfg, max_iterations=1, device="cpu")
-    cfg.optim.laplacian_mode = "forward"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         tprocess.process(cfg, max_iterations=1)  # the default device is 'cuda'

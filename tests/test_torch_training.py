@@ -43,6 +43,7 @@ def torch_cfg(save_path, optimizer="adam", iterations=3, batch=8, **optim):
     cfg.precision = "float64"
     cfg.optim.optimizer = optimizer
     cfg.optim.iterations = iterations
+    cfg.optim.laplacian_mode = "forward"  # as jax_cfg's
     cfg.optim.lr.rate = 1e-2
     for key, value in optim.items():
         cfg.optim[key] = value
@@ -189,13 +190,29 @@ def test_slogdet_backward_matches_jax_grad():
     np.testing.assert_allclose(got, want, rtol=1e-11, atol=1e-12)
 
 
-def test_slogdet_backward_is_first_order_only():
-    a = torch.tensor(_complex((2, 3, 3), 6), requires_grad=True)
-    _, logabs = tslog.slogdet_op(a)
-    (g,) = torch.autograd.grad(logabs.sum(), a, create_graph=True)
-    # the gradient carries no graph of its own: nothing to differentiate again
-    with pytest.raises(RuntimeError, match="does not require grad|differentiable"):
-        torch.autograd.grad(g.real.sum(), a)
+def test_slogdet_backward_is_first_order_only(monkeypatch):
+    """The kernel runs once, in the forward: the backward rule is first
+    order in the kernel's outputs, and differentiating it again (which it
+    now allows) flows through the same rule without a second launch. The
+    second derivative equals torch.linalg.slogdet's. 1e-10: float64."""
+    from deepsolid_tpu_torch.ops.cuda import det_kernels
+
+    calls = []
+    plain = det_kernels.gj_inverse_slogdet
+
+    def counted(x):
+        calls.append(x.shape)
+        return plain(x)
+
+    monkeypatch.setattr(tslog, "gj_inverse_slogdet", counted)
+    grads = []
+    for fn in (tslog.slogdet_op, torch.linalg.slogdet):
+        a = torch.tensor(_complex((2, 3, 3), 6), requires_grad=True)
+        _, logabs = fn(a)
+        (g,) = torch.autograd.grad(logabs.sum(), a, create_graph=True)
+        grads.append(torch.autograd.grad((g * torch.conj(g)).real.sum(), a)[0])
+    assert calls == [(2, 3, 3)]
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-10, atol=1e-10)
 
 
 def test_log_psi_gradient_matches_jax():
