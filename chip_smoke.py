@@ -33,6 +33,24 @@ Phases, one JSON line each; any failure exits non-zero:
                 iterations), against the unsharded port on the same seed;
                 the ranks also drive the sharded jet algebra's dense_tanh
                 on a pair-shaped jet through the same group;
+     bootstrap - the production launch line, `python -m
+                torch.distributed.run --standalone --nproc-per-node=1 -m
+                deepsolid_tpu_torch --config=...diamond.py:C,C,3.567,2,sto-3g`
+                (1 inference iteration at 1024 walkers from a copy of the
+                checkpoint): the rank's joined line must read NCCL on
+                cuda:0, world 1, and its energy equal the same run in this
+                process within 1e-6 Ha/cell; an explicit one-rank NCCL
+                bootstrap in this process then reduces a complex64 tensor
+                on cuda:0 unchanged;
+     data_ranks - two gloo data ranks sharing the card (512 walkers each,
+                no MCMC step, one KFAC fisher_exact iteration continuing
+                the checkpoint's state) against one process on the same
+                1024 walkers: the update within 3e-4 relative, the energy
+                within 5e-4 Ha/cell, no host tensor handed to any
+                collective, and only rank 0's files;
+     nccl_ranks - where the host has two cards, the data_ranks check and
+                the sharded phase over two NCCL ranks on a card each; on
+                one card a skip line;
   6. training - 2 adam iterations at 1024 walkers from the checkpoint,
                 with the checkpoint written and restored;
   7. kfac     - 3 KFAC fisher_exact iterations at 1024 walkers with the
@@ -240,6 +258,8 @@ BCC_LI_SCAN_CHUNKS = (32, 64, 128)
 TRACE_BATCH = 128          # two E_L chunks
 TRACE_MCMC_STEPS = 2       # a short run: the trace holds every event of its window
 TRACE_ITERATIONS = 3
+BOOTSTRAP_TOLERANCE = 1e-6  # Ha/cell: torchrun's rank against this process, same card
+DATA_RANKS_ENERGY_TOLERANCE = 5e-4  # Ha/cell, the sharded limit: f32 sums in another order
 REFERENCE_ENERGY = -66.0  # Ha/cell, runs/ckpt_diamond/train_stats_r5_latest.csv
 ENERGY_WINDOW = 1.5       # Ha/cell, a sanity bound; the reference phase is the exact check
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 (non-tensor) FLOP/s
@@ -727,6 +747,28 @@ def read_launches():
     return {**dk.LAUNCHES, **jk.LAUNCHES}
 
 
+@contextlib.contextmanager
+def collective_tensors():
+    """Count, by "kind/device type", every tensor this process hands to a
+    collective of the mesh inside the block (the collective's own check,
+    parallel/mesh.py's `_staged`, wrapped): the counter it yields."""
+    import collections
+    from deepsolid_tpu_torch.parallel import mesh
+
+    counts = collections.Counter()
+    staged = mesh._staged
+
+    def counting(t, group, kind):
+        counts[f"{kind}/{t.device.type}"] += 1
+        return staged(t, group, kind)
+
+    mesh._staged = counting
+    try:
+        yield counts
+    finally:
+        mesh._staged = staged
+
+
 def read_shapes():
     """Launches by kernel, shape and kernel body since reset_launches, as
     the wrappers count them."""
@@ -833,7 +875,7 @@ def sharded_rank(rank, world_size):
     # fl.dense_tanh(..., shard=) on the pair stream's shape: every rank
     # makes the same jet from one seed, keeps its 3 of the 6 tangents and
     # must get the closed rule's value, Laplacian and its own jac rows
-    dev = torch.device("cuda", 0)
+    dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(1)
     rows, k, c = EL_CHUNK * 96 * 96, 32, 32
 
@@ -895,8 +937,9 @@ def scan_el_chunk(cfg, shard=None, scan="on"):
     return ((ke + ew) / sc.scale).cpu().numpy(), launches
 
 
-def sharded_phase(dev):
-    """deriv_devices = 2 on one card against the unsharded port."""
+def sharded_phase(dev, backend="gloo"):
+    """deriv_devices = 2 against the unsharded port: two gloo ranks on one
+    card, or two NCCL ranks on a card each."""
     import numpy as np
     from deepsolid_tpu_torch import parallel
 
@@ -907,7 +950,7 @@ def sharded_phase(dev):
 
     shutil.rmtree(os.path.join(REPO, "build", "chip_smoke_sharded"), ignore_errors=True)
     start = time.perf_counter()
-    ranks = parallel.run_ranks(sharded_rank, 2, backend="gloo", timeout=600.0)
+    ranks = parallel.run_ranks(sharded_rank, 2, backend=backend, timeout=600.0)
     wall = time.perf_counter() - start
     chunks = SHARD_BATCH // EL_CHUNK
     expect_b4b = 3 * chunks * SHARD_ITERATIONS
@@ -917,7 +960,9 @@ def sharded_phase(dev):
     sharded = statistics.median(
         SHARD_BATCH / it["seconds"]["local_energy"] for it in ranks[0]["iterations"])
     result = {
-        "phase": "sharded", "deriv_devices": 2, "backend": "gloo (two ranks on one card)",
+        "phase": "sharded", "deriv_devices": 2,
+        "backend": "gloo (two ranks on one card)" if backend == "gloo"
+        else f"{backend} (a card per rank)",
         "batch": SHARD_BATCH, "el_chunk": EL_CHUNK, "iterations": SHARD_ITERATIONS,
         "seconds": wall,
         "launches_per_rank": [r["launches"] for r in ranks],
@@ -932,9 +977,11 @@ def sharded_phase(dev):
         "peak_memory_bytes_per_rank": [r["peak_memory_bytes"] for r in ranks],
         "walkers_per_s_local_energy_sharded": sharded,
         "walkers_per_s_local_energy_unsharded": unsharded,
-        "note": "two ranks time-share one card and reduce through the host: "
-                "the sharded rate is not expected to exceed the unsharded one",
     }
+    if backend == "gloo":
+        result["note"] = ("two ranks time-share one card and reduce through the "
+                          "host: the sharded rate is not expected to exceed the "
+                          "unsharded one")
     result["ok"] = (
         all(r["launches"]["fused_dense_tanh_jet_mix_partial"] == expect_b4b
             and r["launches"]["fused_dense_tanh_jet_mix"] == 0
@@ -948,6 +995,269 @@ def sharded_phase(dev):
         and max(scan_diffs) <= ORB_SCAN_TOLERANCE
         and all(math.isfinite(e) and abs(e - REFERENCE_ENERGY) <= ENERGY_WINDOW
                 for e in result["energy_per_cell"]))
+    if backend != "gloo":
+        return result  # a part of the nccl_ranks line
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# ranks: torchrun's bootstrap, the data axis, NCCL with a card per rank
+# ---------------------------------------------------------------------------
+
+
+def bootstrap_argv(restore_path, save_path):
+    """The command line of the bootstrap phase's C-diamond inference run."""
+    overrides = {
+        "optim.optimizer": "none", "optim.iterations": 1, "batch_size": BATCH,
+        "optim.el_chunk": EL_CHUNK, "debug.deterministic": True,
+        # diamond_cfg's other settings
+        "precision": "float32", "optim.laplacian_mode": "forward", "mcmc.burn_in": 0,
+        "mcmc.steps": 20, "pretrain.scf": "hf",
+        "log.restore_path": restore_path, "log.save_path": save_path,
+    }
+    config = os.path.join(REPO, "deepsolid_tpu_torch", "configs", "diamond.py")
+    argv = [f"--config={config}:{CONFIG}"]
+    for key, value in overrides.items():
+        argv += [f"--config.{key}", str(value)]
+    return argv
+
+
+def run_session(argv, timeout):
+    """subprocess.run(argv) from the repository root in a session of its
+    own: on a timeout every process of the session (a launcher's ranks
+    too) is killed before TimeoutExpired is raised."""
+    import signal
+
+    with subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True, cwd=REPO, start_new_session=True) as proc:
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise
+    return subprocess.CompletedProcess(argv, proc.returncode, out, err)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def bootstrap_phase(dev):
+    """The production launch line, torchrun with one process, against the
+    same run in this process; then an explicit one-rank NCCL bootstrap in
+    this process and one reduction of a complex64 tensor through it."""
+    import csv
+    import re
+
+    import torch
+    import torch.distributed as dist
+    from deepsolid_tpu_torch import cli, parallel
+    from deepsolid_tpu_torch.parallel import distributed
+    from deepsolid_tpu_torch.train.process import process
+
+    build = os.path.join(REPO, "build")
+    ckpt = os.path.join(build, "chip_smoke_bootstrap_ckpt")
+    for name in ("chip_smoke_bootstrap_ckpt", "chip_smoke_bootstrap",
+                 "chip_smoke_bootstrap_local"):
+        shutil.rmtree(os.path.join(build, name), ignore_errors=True)
+    shutil.copytree(os.path.join(REPO, "runs", "ckpt_diamond"), ckpt)
+    launched_save = os.path.join(build, "chip_smoke_bootstrap")
+    start = time.perf_counter()
+    out = run_session(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node=1", "-m", "deepsolid_tpu_torch",
+         *bootstrap_argv(ckpt, launched_save)], timeout=300)
+    launched_seconds = time.perf_counter() - start
+    joined = [m.groupdict() for m in re.finditer(distributed.JOINED_PATTERN, out.stderr)]
+    stats = os.path.join(launched_save, "train_stats.csv")
+    rows = list(csv.DictReader(open(stats))) if os.path.exists(stats) else []
+    launched_energy = float(rows[0]["energy"]) if len(rows) == 1 else float("nan")
+
+    cfg, device = cli.parse(bootstrap_argv(ckpt, os.path.join(build, "chip_smoke_bootstrap_local")))
+    reset_launches()
+    _, _, energy = process(cfg, 1, device=device)
+    launches = read_launches()
+
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda", timeout=120.0)
+    try:
+        backend = dist.get_backend()
+        gen = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn(4096, dtype=torch.complex64, device=dev, generator=gen)
+        y = parallel._reduce_sum(x, dist.group.WORLD)
+        torch.cuda.synchronize(dev)
+        reduce_ok = backend == "nccl" and y.device == dev and torch.equal(y, x)
+    finally:
+        dist.destroy_process_group()
+    diff = abs(launched_energy - energy)
+    result = {
+        "phase": "bootstrap", "config": CONFIG, "batch": BATCH, "el_chunk": EL_CHUNK,
+        "launch": "python -m torch.distributed.run --standalone --nproc-per-node=1 "
+                  "-m deepsolid_tpu_torch",
+        "returncode": out.returncode, "seconds_launched": launched_seconds,
+        "joined": joined, "energy_per_cell_launched": launched_energy,
+        "energy_per_cell_in_process": energy, "abs_energy_diff_per_cell": diff,
+        "tolerance": BOOTSTRAP_TOLERANCE, "launches_in_process": launches,
+        "explicit_nccl_backend": backend, "nccl_reduce_ok": reduce_ok,
+    }
+    if out.returncode != 0:
+        result["stderr_tail"] = out.stderr[-3000:]
+    result["ok"] = (
+        out.returncode == 0 and reduce_ok
+        and [(j["world"], j["backend"], j["device"]) for j in joined]
+        == [("1", "nccl", "cuda:0")]
+        and math.isfinite(energy) and diff <= BOOTSTRAP_TOLERANCE)
+    emit(result)
+    return result
+
+
+def data_ranks_cfg(save_name):
+    """C-diamond at full width, 1024 fixed walkers (no MCMC step), one
+    KFAC fisher_exact iteration continuing the checkpoint's state."""
+    cfg = production_kfac(diamond_cfg("kfac", BATCH, save_name))
+    cfg.optim.psi_chunk = EL_CHUNK
+    cfg.optim.kfac.estimation_mode = "fisher_exact"
+    cfg.mcmc.steps = 0
+    return cfg
+
+
+def kfac_once(save_name):
+    """One KFAC iteration of data_ranks_cfg on this process's card (every
+    rank of an initialized world): its record."""
+    import torch
+    from deepsolid_tpu_torch.device import set_full_precision
+    from deepsolid_tpu_torch.optim.adam import tree_leaves
+    from deepsolid_tpu_torch.train.process import process
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    set_full_precision()
+    cfg = data_ranks_cfg(save_name)
+    t_start, _, _, _, _ = restore(find_last_checkpoint(cfg.log.restore_path))
+    recs = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with collective_tensors() as tensors:
+        params, data, energy = process(cfg, t_start + 1, device="cuda",
+                                       on_iteration=lambda t, row, s: recs.append(s))
+    torch.cuda.synchronize()
+    return {"params": [p.detach().cpu().numpy() for p in tree_leaves(params)],
+            "walkers": data.shape[0], "energy_per_cell": energy, "seconds": recs[0],
+            "launches": read_launches(),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "collective_tensors": dict(tensors)}
+
+
+def data_rank(rank, world_size, save_name):
+    return kfac_once(save_name)
+
+
+def data_ranks_check(phase, backend, one, start_params):
+    """Two data ranks (run_ranks with `backend`) against the one-process
+    record `one` of the same global batch: the update's relative error,
+    the energy, the tensors at collectives and the files rank 0 alone
+    writes."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch import parallel
+
+    save_name = f"chip_smoke_{phase}"
+    save_path = os.path.join(REPO, "build", save_name)
+    shutil.rmtree(save_path, ignore_errors=True)
+    # two full-batch KFAC ranks need ~19 GB each on one card: this
+    # process's cached blocks go back first
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    start = time.perf_counter()
+    ranks = parallel.run_ranks(data_rank, 2, (save_name,), backend=backend,
+                               timeout=600.0)
+    wall = time.perf_counter() - start
+
+    def norm(arrays):
+        return math.sqrt(sum(float((a.astype(np.float64) ** 2).sum()) for a in arrays))
+
+    update = norm([o - s for o, s in zip(one["params"], start_params)])
+    update_errs = [norm([g - o for g, o in zip(r["params"], one["params"])]) / update
+                   for r in ranks]
+    energy_diffs = [abs(r["energy_per_cell"] - one["energy_per_cell"]) for r in ranks]
+    host = [sum(n for k, n in r["collective_tensors"].items() if k.endswith("/cpu"))
+            for r in ranks]
+    files = sorted(os.listdir(save_path)) if os.path.isdir(save_path) else []
+    stats = os.path.join(save_path, "train_stats.csv")
+    stats_rows = len(open(stats).read().strip().splitlines()) - 1 if "train_stats.csv" in files else 0
+    steps = [r["seconds"]["step"] for r in ranks]
+    result = {
+        "phase": phase, "backend": backend, "deriv_devices": 1, "batch": BATCH,
+        "walkers_per_rank": [r["walkers"] for r in ranks], "mcmc_steps": 0,
+        "psi_chunk": EL_CHUNK, "el_chunk": EL_CHUNK, "seconds": wall,
+        "update_rel_err_by_rank": update_errs, "update_tolerance": KFAC_UPDATE_TOLERANCE,
+        "update_norm": update,
+        "energy_per_cell": [r["energy_per_cell"] for r in ranks],
+        "energy_per_cell_one_process": one["energy_per_cell"],
+        "abs_energy_diff_per_cell_by_rank": energy_diffs,
+        "energy_tolerance": DATA_RANKS_ENERGY_TOLERANCE,
+        "collective_tensors_by_rank": [r["collective_tensors"] for r in ranks],
+        "host_tensors_at_collectives": sum(host),
+        "walkers_per_s_iteration_by_rank": [r["walkers"] / t for r, t in zip(ranks, steps)],
+        "walkers_per_s_iteration_total": BATCH / max(steps),
+        "walkers_per_s_iteration_one_process": BATCH / one["seconds"]["step"],
+        "seconds_by_rank": [r["seconds"] for r in ranks],
+        "seconds_one_process": one["seconds"],
+        "peak_memory_bytes_by_rank": [r["peak_memory_bytes"] for r in ranks],
+        "peak_memory_bytes_one_process": one["peak_memory_bytes"],
+        "card_free_bytes_before_ranks": free_before,
+        "launches_by_rank": [r["launches"] for r in ranks],
+        "launches_one_process": one["launches"],
+        "files": files, "train_stats_rows": stats_rows,
+    }
+    result["ok"] = (
+        [r["walkers"] for r in ranks] == [BATCH // 2] * 2
+        and max(update_errs) <= KFAC_UPDATE_TOLERANCE
+        and max(energy_diffs) <= DATA_RANKS_ENERGY_TOLERANCE
+        and sum(host) == 0 and all(r["collective_tensors"] for r in ranks)
+        and stats_rows == 1 and sum(f.startswith("qmcjax_ckpt_") for f in files) == 1
+        and all(r["launches"][k] > 0 for r in ranks for k in (
+            "gj_inverse_slogdet", "fused_dense_tanh_jet", "fused_dense_tanh_jet_mix")))
+    return result
+
+
+def data_ranks_phase(dev):
+    """Two gloo data ranks sharing the card against one process on the
+    same global batch: one KFAC step. Returns the one-process record and
+    the start parameters, which the nccl_ranks phase holds its ranks to."""
+    import torch
+    from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.optim.adam import tree_leaves
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    shutil.rmtree(os.path.join(REPO, "build", "chip_smoke_data_ranks_one"), ignore_errors=True)
+    one = kfac_once("chip_smoke_data_ranks_one")
+    _, _, params, _, _ = restore(find_last_checkpoint(os.path.join(REPO, "runs", "ckpt_diamond")))
+    start_params = [p.numpy() for p in tree_leaves(params_from_jax(params, "cpu", torch.float32))]
+    result = data_ranks_check("data_ranks", "gloo", one, start_params)
+    emit(result)
+    return result, (one, start_params)
+
+
+def nccl_ranks_phase(dev, reference):
+    """Two NCCL ranks on a card each: the data_ranks check, and
+    deriv_devices = 2 against the unsharded port as the sharded phase.
+    One card: the skip line."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        result = {"phase": "nccl_ranks", "skipped": f"needs 2 cards, found {count}"}
+        emit(result)
+        return {**result, "ok": True}
+    data = data_ranks_check("nccl_ranks", "nccl", *reference)
+    sharded = sharded_phase(dev, backend="nccl")
+    result = {"phase": "nccl_ranks", "cards": count, "data": data, "sharded": sharded,
+              "ok": data["ok"] and sharded["ok"]}
     emit(result)
     return result
 
@@ -2424,6 +2734,19 @@ def main() -> int:
     idle = [r["name"] for r in kernels if r["launches"] <= 0]
     if idle:
         return fail(f"the driven paths launched no {idle}")
+
+    if not bootstrap_phase(dev)["ok"]:
+        return fail("the bootstrap phase failed its checks (torchrun's rank not "
+                    "on NCCL and cuda:0, its energy against this process's, or "
+                    "the explicit NCCL bootstrap's reduction)")
+    data_ranks, reference = data_ranks_phase(dev)
+    if not data_ranks["ok"]:
+        return fail("the data_ranks phase failed its checks (the KFAC update or "
+                    "the energy against one process, a host tensor at a "
+                    "collective, the files of rank 0, or a kernel never launched)")
+    if not nccl_ranks_phase(dev, reference)["ok"]:
+        return fail("the nccl_ranks phase failed its checks (the data_ranks or "
+                    "sharded checks over NCCL ranks on a card each)")
 
     if not training_phase(dev)["ok"]:
         return fail("the training phase failed its checks")

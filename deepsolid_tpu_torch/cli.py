@@ -13,6 +13,17 @@ replaces cfg.a.b, in the order given, coerced to the type of the value
 it replaces as ml_collections.config_flags does (tuples and lists
 through ast.literal_eval, booleans from true/false). A key the config
 does not hold raises. `--device` defaults to 'cuda'.
+
+Ranks, as the JAX command line's mesh over `jax.devices()`:
+  - under a launcher (`torchrun --nproc-per-node=N -m deepsolid_tpu_torch
+    ...`, on one host or with `--nnodes` on several) each process is one
+    rank of the launcher's world, SPMD;
+  - launched plainly with `--device cuda` on a host with more than one
+    visible card (CUDA_VISIBLE_DEVICES narrows them), it starts one rank
+    per card itself (parallel.run_ranks; NCCL);
+  - otherwise (one card, `--device cpu` or a numbered card) it runs in
+    this process.
+Only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -110,13 +121,40 @@ def parse(argv: Sequence[str]):
     return cfg, args.device
 
 
-def main(argv: Sequence[str] | None = None) -> None:
+def _rank(rank: int, world_size: int, argv: Sequence[str]) -> None:
+    """One rank the command line started: the same run as every other."""
     from deepsolid_tpu_torch.train import process
 
     logging.basicConfig(level=logging.INFO)
-    cfg, device = parse(sys.argv[1:] if argv is None else argv)
-    logging.info("System config:\n%s", cfg)
+    cfg, device = parse(argv)
     process.process(cfg, device=device)
+
+
+def main(argv: Sequence[str] | None = None) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from deepsolid_tpu_torch import parallel
+    from deepsolid_tpu_torch.parallel import distributed
+    from deepsolid_tpu_torch.train import process
+
+    logging.basicConfig(level=logging.INFO)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    cfg, device = parse(argv)
+    distributed.initialize(device=device)
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    if not dist.is_initialized() and cards > 1:
+        logging.info("One rank per card: %d ranks", cards)
+        parallel.run_ranks(_rank, cards, (argv,),
+                           backend=distributed.choose_backend("cuda", cards, cards),
+                           timeout=None)
+        return
+    logging.info("System config:\n%s", cfg)
+    try:
+        process.process(cfg, device=device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -211,9 +211,18 @@ def mul_row(a: Jet, b_val, b_jac3, b_lap, n_total: int, offset: int,
     i, c, tl = g // 3 - offset, g % 3, g - t0
     bj = b_jac3[c, :, :, i, :]  # (len, B, D, F)
     slab = a.jac[tl, :, :, i, :]  # (len, B, D, F)
+    prod = slab * bj
     cross = torch.zeros((rows,) + slab.shape[1:], dtype=slab.dtype,
                         device=slab.device)
-    cross.index_add_(0, i, slab * bj)
+    # a row's (up to) three tangents added in the order of their
+    # components, one strided slice of consecutive rows a component: the
+    # same sums as index_add_ on the CPU, without the card's atomics,
+    # whose order (and so the last bit) can vary from run to run
+    for comp in range(3):
+        s = (comp - lo) % 3
+        part = prod[s::3]
+        r0 = (lo + s) // 3 - offset
+        cross[r0:r0 + part.shape[0]] += part
     cross = cross.permute(1, 2, 0, 3)  # (B, D, rows, F)
     if shard is not None:
         cross = shard.all_sum(cross)

@@ -1,21 +1,24 @@
 """Ranks, the (data, deriv) mesh and the tangent shard.
 
-Counterpart of deepsolid_tpu/parallel/mesh.py and distributed.py, SPMD by
-process as torch.distributed does it: every rank runs the same program on
-its own walkers (data axis) or on its own slice of the 3N tangent columns
-of the forward-Laplacian jets (deriv axis). The world is laid out as the
-JAX package's mesh is, rank = data_index * deriv_devices + deriv_index,
-with one process group per data index for the tangent reductions.
+Counterpart of deepsolid_tpu/parallel/mesh.py, SPMD by process as
+torch.distributed does it: every rank runs the same program on its own
+walkers (data axis) or on its own slice of the 3N tangent columns of the
+forward-Laplacian jets (deriv axis). The world is laid out as the JAX
+package's mesh is, rank = data_index * deriv_devices + deriv_index, with
+one process group per data index for the tangent reductions. Joining a
+world (torchrun, an explicit coordinator) is parallel/distributed.py's.
 
 `None` stands for "unsharded" wherever a `TangentShard` or a `Mesh` is
 accepted, as `deriv_axis=None` does in the JAX package; nothing here is
 needed for a single-process run.
 
-The backend is the caller's choice: NCCL where every rank owns a GPU,
-gloo on the CPU and where several ranks share one GPU (NCCL refuses two
-ranks on one device). With gloo, CUDA tensors are reduced through the
-host: only small tensors are ever reduced (the tangent square sums, the
-cross terms and per-walker scalars), never the tangent stream.
+The backend is the caller's choice (distributed.choose_backend's rule):
+NCCL where every rank owns a GPU, gloo on the CPU and where several ranks
+share one GPU (NCCL refuses two ranks on one device). NCCL reduces on the
+rank's card, and a tensor handed to it must already lie there: anything
+else raises. With gloo, CUDA tensors are reduced through the host: only
+small tensors are ever reduced (the tangent square sums, the cross terms
+and per-walker scalars), never the tangent stream.
 """
 
 from __future__ import annotations
@@ -31,12 +34,26 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from deepsolid_tpu_torch.device import rank_device
+from deepsolid_tpu_torch.parallel import distributed
 
 
-def _reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+def _staged(t: torch.Tensor, group, kind: str) -> bool:
+    """Whether the group's backend takes `t` (handed to the collective
+    `kind`: 'all_sum', 'all_mean', 'broadcast_int' or 'gather_data')
+    through the host. A backend that reduces on the device (NCCL) takes
+    only tensors on this rank's current card and raises on any other."""
+    if dist.get_backend(group) != "nccl":
+        return t.device.type != "cpu"
+    card = torch.device("cuda", torch.cuda.current_device())
+    if t.device != card:
+        raise ValueError(f"{kind}: an NCCL collective takes tensors on this "
+                         f"rank's card {card}, got one on {t.device}")
+    return False
+
+
+def _reduce_sum(t: torch.Tensor, group, kind: str = "all_sum") -> torch.Tensor:
     """Sum of `t` over the ranks of `group`, as a new tensor."""
-    staged = dist.get_backend(group) == "gloo" and t.device.type != "cpu"
+    staged = _staged(t, group, kind)
     buf = t.detach().cpu() if staged else t.detach().clone()
     buf = buf.contiguous()
     # complex tensors reduce as their (re, im) pairs
@@ -93,15 +110,15 @@ class Mesh:
         equal values, so the mean over the whole world is the same."""
         if self.world_size == 1:
             return t
-        return _reduce_sum(t, dist.group.WORLD) / self.world_size
+        return _reduce_sum(t, dist.group.WORLD, "all_mean") / self.world_size
 
     def broadcast_int(self, value: int) -> int:
         """Rank 0's value on every rank."""
         if self.world_size == 1:
             return value
-        on_host = dist.get_backend() == "gloo"
-        buf = torch.tensor([value], dtype=torch.int64,
-                           device="cpu" if on_host else self.device)
+        buf = torch.tensor([value], dtype=torch.int64, device=self.device)
+        if _staged(buf, dist.group.WORLD, "broadcast_int"):
+            buf = buf.cpu()
         dist.broadcast(buf, src=0)
         return int(buf.item())
 
@@ -109,7 +126,7 @@ class Mesh:
         """The global walker batch (data axis concatenated) on the host."""
         if self.num_data == 1:
             return data.detach().cpu()
-        staged = dist.get_backend() == "gloo"
+        staged = _staged(data, dist.group.WORLD, "gather_data")
         local = data.detach().cpu() if staged else data.detach()
         parts = [torch.empty_like(local) for _ in range(self.world_size)]
         dist.all_gather(parts, local.contiguous())
@@ -152,10 +169,10 @@ def make_mesh(deriv_devices: int = 1, device="cpu") -> Mesh:
 
 def _rank_main(rank, world_size, backend, store, fn, args, results):
     try:
-        if torch.cuda.is_available():  # each rank on its own card, in turn
-            torch.cuda.set_device(rank_device(rank, torch.cuda.device_count()))
-        dist.init_process_group(backend, init_method=f"file://{store}",
-                                rank=rank, world_size=world_size)
+        # each rank on its own card, in turn, where there are cards
+        distributed.join(f"file://{store}", rank, world_size,
+                         device="cuda" if torch.cuda.is_available() else "cpu",
+                         backend=backend)
         try:
             results.put((rank, True, fn(rank, world_size, *args)))
         finally:
@@ -166,7 +183,7 @@ def _rank_main(rank, world_size, backend, store, fn, args, results):
 
 
 def run_ranks(fn: Callable, world_size: int, args: Sequence = (),
-              backend: str = "gloo", timeout: float = 600.0) -> list:
+              backend: str = "gloo", timeout: Optional[float] = 600.0) -> list:
     """Run fn(rank, world_size, *args) in `world_size` spawned processes
     joined in one process group, and return their results by rank.
 
@@ -175,8 +192,8 @@ def run_ranks(fn: Callable, world_size: int, args: Sequence = (),
     card, `rank_device(r, device_count)`, so a backend that needs a GPU
     per rank (NCCL) gets one where the host has enough. The store is a
     file in a fresh temporary directory, so runs side by side need no free
-    port. A rank that fails or outlives `timeout` seconds ends every rank
-    and raises here.
+    port. A rank that fails or outlives `timeout` seconds (None: no
+    limit, as the command line runs) ends every rank and raises here.
     """
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
@@ -190,9 +207,9 @@ def run_ranks(fn: Callable, world_size: int, args: Sequence = (),
             p.start()
         out, failure = {}, None
         try:
-            deadline = time.monotonic() + timeout
+            deadline = None if timeout is None else time.monotonic() + timeout
             while len(out) < world_size and failure is None:
-                left = deadline - time.monotonic()
+                left = 1.0 if deadline is None else deadline - time.monotonic()
                 if left <= 0:
                     failure = f"ranks did not finish within {timeout} s"
                     break
