@@ -58,6 +58,20 @@ Phases, one JSON line each; any failure exits non-zero:
                 every 2 optimizer steps), continuing the checkpoint's KFAC
                 state at optimizer step 582: the split of an iteration,
                 damping and rho, and the checkpoint written and restored;
+     north_star - C-diamond's KFAC step as production sets it, from the
+                same checkpoint state: a probe reads the peak memory of
+                KFAC's unchunked capture at 1024 walkers, then 3
+                iterations with psi_chunk unset as runs/diamond_run.py
+                sets it (or, where the capture does not fit 60 GB, the
+                largest of 256 and 512 that does) and the KFAC update of
+                8 of its final walkers against CPU f64; then batch 4096
+                (BASELINE.json's metric; the checkpoint's walkers grown by
+                the elastic restore) at the largest psi_chunk of 512,
+                1024, 2048, 4096 under 60 GB, 2 iterations: the second
+                one's seconds, split, walkers/s and peak memory beside the
+                card's name and power limit, each beside the kfac phase's
+                psi_chunk 64 split; B1 held and timed at the 4096 run's
+                sampler shape and at the unchunked (32768, 48, 48);
   8. pretrain - the production run script's path from its first step:
                 process() from scratch at 1024 walkers (orbital source,
                 parameters and walkers from the seed, 30 pretraining
@@ -70,8 +84,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 through the command line's config loader, at full width:
                 el_chunk and psi_chunk probed against the card's peak
                 memory, then 2 KFAC fisher_exact iterations from the
-                committed step-0 checkpoint (restored at t = 1: no
-                pretraining, no burn-in) with a fresh optimizer state;
+                committed step-0 checkpoint, a handoff (restored at
+                iteration 0: no pretraining, the run script's 100 burn-in
+                sweeps) with a fresh optimizer state;
                 both new phases report the kernel body each launch shape
                 took (as the wrappers count them; B1 must take the warp
                 body at Si's n = 14 and the mid body at bcc-Li's 81), and
@@ -88,6 +103,19 @@ Phases, one JSON line each; any failure exits non-zero:
                 observables of the final walkers against CPU f64; B1 (warp
                 body at n = 5), B2 and B3 held and timed at every shape the
                 path launched;
+     lih, graphene - LiH rock-salt 2x2x2 (16 atoms, 32 electrons, batch
+                2048) and graphene 1x1 (12 electrons in a slab cell with a
+                20 Bohr c axis, hexagonal features, batch 1024), each from
+                a cold UHF solved on the host into a scratch cache, then
+                its run script's path (runs/lih_run.py,
+                runs/graphene_run.py: el_chunk 256, psi_chunk unset,
+                loaded through the command line's config loader) from its
+                first step with the pretrain phase's cuts; E_L and the
+                Ewald term of 8 final walkers against CPU f64 with a TF32
+                control that must fail the limits, the Ewald's share of a
+                256-walker E_L chunk and a profile of one; B1 on the warp
+                body (n = 16, n = 6), B1, B2 and B3 held and timed at every
+                shape the path launched;
      diamond_importance - one C-diamond inference iteration from the
                 checkpoint with 6 importance sweeps (B1 at n = 48 with its
                 backward rule), and the drift of 8 checkpoint walkers
@@ -221,8 +249,31 @@ DRIFT_WALKERS = 8
 DRIFT_TOLERANCE = {"h10": 3e-5, "diamond": 3e-5}
 OBSERVABLE_TOLERANCE = 1e-5  # polarization and S(k) of the H10 walkers, card against CPU f64
 DIAMOND_IMPORTANCE_STEPS = 6
+# LiH rock-salt 2x2x2 and graphene 1x1 from a cold UHF, as runs/lih_run.py
+# and runs/graphene_run.py set them (psi_chunk unset), loaded through the
+# command line's config loader; the pretrain phase's cuts
+COLD_SYSTEMS = {
+    "lih": dict(config="rock_salt.py", spec="Li,H,4.02,2,sto-3g", batch=2048,
+                el_chunk=256, burn_in=200, pretrain_iterations=1000,
+                label="LiH 2x2x2"),
+    "graphene": dict(config="graphene.py", spec="C,C,2.46,1,20,sto-3g", batch=1024,
+                     el_chunk=256, burn_in=200, pretrain_iterations=500,
+                     label="graphene"),
+}
+COLD_KFAC_ITERATIONS = 2
+COLD_REFERENCE_WALKERS = 8
+# C-diamond 2x2x2's KFAC step as production sets it, from the checkpoint:
+# (a) runs/diamond_run.py's batch with psi_chunk unset where the unchunked
+# capture fits (else the largest fallback that does), (b) BASELINE.json's
+# batch 4096 at the largest psi_chunk candidate under PROBE_LIMIT_BYTES
+NORTH_STAR_ITERATIONS = 3
+NORTH_STAR_FALLBACK_PSI_CHUNKS = (256, 512)
+NORTH_STAR_BATCH = 4096
+NORTH_STAR_BATCH_ITERATIONS = 2
+NORTH_STAR_PSI_CHUNKS = (512, 1024, 2048, 4096)
 # the Gauss-Jordan body each system's launches must take (by n alone)
-B1_BODY = {"si": "warp", "bcc_li": "mid", "h10": "warp"}
+B1_BODY = {"si": "warp", "bcc_li": "mid", "h10": "warp", "lih": "warp",
+           "graphene": "warp", "north_star_4096": "registers"}
 BCC_LI_REFERENCE_WALKERS = 2
 SI_REFERENCE_WALKERS = 8
 # E_L card f32 against CPU f64 per primitive cell: median and max limits
@@ -265,9 +316,21 @@ ENERGY_WINDOW = 1.5       # Ha/cell, a sanity bound; the reference phase is the 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+_START = time.perf_counter()
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the script's seconds so
+    far (`script_seconds`), which say what each phase costs."""
+    if "phase" in obj:
+        obj = {**obj, "script_seconds": round(time.perf_counter() - _START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1351,6 +1414,26 @@ def training_phase(dev):
     return result
 
 
+@contextlib.contextmanager
+def logged_warnings():
+    """The messages of the warnings logged inside the block (the list it
+    yields)."""
+    import logging
+
+    messages = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    handler = Keep(logging.WARNING)
+    logging.getLogger().addHandler(handler)
+    try:
+        yield messages
+    finally:
+        logging.getLogger().removeHandler(handler)
+
+
 def production_kfac(cfg):
     """The production run's optimizer settings (runs/diamond_run.py) on
     `cfg`, adapting the damping every KFAC_ADAPT_EVERY optimizer steps."""
@@ -1360,16 +1443,18 @@ def production_kfac(cfg):
     return cfg
 
 
-def kfac_phase(dev, mode="fisher_exact", iterations=KFAC_ITERATIONS, phase="kfac"):
-    """KFAC iterations of estimation mode `mode` at 1024 walkers,
-    continuing the checkpoint's KFAC state."""
+def kfac_phase(dev, mode="fisher_exact", iterations=KFAC_ITERATIONS, phase="kfac",
+               batch=BATCH, psi_chunk=EL_CHUNK):
+    """KFAC iterations of estimation mode `mode` at `batch` walkers (the
+    checkpoint's 1024 tiled by the elastic restore where larger) and
+    `psi_chunk` (0: unset), continuing the checkpoint's KFAC state."""
     import torch
     from deepsolid_tpu_torch.optim.adam import tree_leaves
     from deepsolid_tpu_torch.train.process import process
     from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
 
-    cfg = production_kfac(diamond_cfg("kfac", BATCH, f"chip_smoke_{phase}_{mode}"))
-    cfg.optim.psi_chunk = EL_CHUNK
+    cfg = production_kfac(diamond_cfg("kfac", batch, f"chip_smoke_{phase}_{mode}"))
+    cfg.optim.psi_chunk = psi_chunk
     cfg.optim.kfac.estimation_mode = mode
     shutil.rmtree(cfg.log.save_path, ignore_errors=True)
     t_start, _, _, start_state, _ = restore(find_last_checkpoint(cfg.log.restore_path))
@@ -1385,13 +1470,15 @@ def kfac_phase(dev, mode="fisher_exact", iterations=KFAC_ITERATIONS, phase="kfac
         iters.append(rec)
         emit(rec)
 
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     start = time.perf_counter()
-    params, _, energy = process(cfg, t_start + iterations, device="cuda",
-                                on_iteration=on_iteration)
+    with logged_warnings() as warnings:
+        params, _, energy = process(cfg, t_start + iterations, device="cuda",
+                                    on_iteration=on_iteration)
     wall = time.perf_counter() - start
-    launches = read_launches()
+    launches, shapes = read_launches(), read_shapes()
     peak = torch.cuda.max_memory_allocated(dev)
 
     # the state was restored: the optimizer's own counter continues the
@@ -1409,14 +1496,14 @@ def kfac_phase(dev, mode="fisher_exact", iterations=KFAC_ITERATIONS, phase="kfac
     params_finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
 
     ckpt_ok, factors_finite, ckpt = kfac_checkpoint_ok(
-        cfg.log.save_path, t_start + iterations, BATCH, 288, params, iters, dev)
+        cfg.log.save_path, t_start + iterations, batch, 288, params, iters, dev)
 
     keys = ("mcmc", "local_energy", "gradient", "curvature", "update", "step")
     plain = [r for r in iters if not r["adapted"]] or iters
     med = med_seconds
     result = {
-        "phase": phase, "optimizer": f"kfac {mode}", "batch": BATCH,
-        "el_chunk": EL_CHUNK, "psi_chunk": EL_CHUNK, "iterations": len(iters),
+        "phase": phase, "optimizer": f"kfac {mode}", "batch": batch,
+        "el_chunk": EL_CHUNK, "psi_chunk": psi_chunk, "iterations": len(iters),
         "damping_adaptation_interval": KFAC_ADAPT_EVERY,
         "seconds": wall, "energy_per_cell": energy,
         "loss_per_cell": [r["energy"] for r in iters],
@@ -1424,11 +1511,14 @@ def kfac_phase(dev, mode="fisher_exact", iterations=KFAC_ITERATIONS, phase="kfac
         "damping": [r["damping"] for r in iters], "rho": [r["rho"] for r in iters],
         "adapted": [r["adapted"] for r in iters],
         "seconds_per_iteration": {k: med(k, iters) for k in keys},
+        "seconds_per_iteration_all": [r["seconds"] for r in iters],
         "seconds_adapt": [r["seconds"].get("adapt") for r in iters],
-        "walkers_per_s_local_energy": BATCH / med("local_energy", iters),
-        "walkers_per_s_iteration_without_adaptation": BATCH / med("step", plain),
-        "walkers_per_s_iteration_all": BATCH / med("step", iters),
+        "walkers_per_s_local_energy": batch / med("local_energy", iters),
+        "walkers_per_s_iteration_without_adaptation": batch / med("step", plain),
+        "walkers_per_s_iteration_all": batch / med("step", iters),
         "peak_memory_bytes": peak, "launches": launches,
+        "launch_shapes": shapes, "b1_bodies": b1_bodies(shapes),
+        "elastic_restore_logged": any("Elastic restore" in w for w in warnings),
         "state_restored": restored, "checkpoint": ckpt,
         "checkpoint_restores": ckpt_ok, "parameters_finite": params_finite,
         "factors_finite": factors_finite,
@@ -1691,8 +1781,6 @@ def si_phase(dev):
 def bcc_li_cfg(el_chunk, psi_chunk):
     """runs/bcc_li_run.py's settings, loaded as the command line loads them
     (deepsolid_tpu_torch.cli): the port's POSCAR copy, 3x3x3, sto-3g."""
-    from deepsolid_tpu_torch import cli
-
     overrides = {
         "batch_size": BATCH, "precision": "float32", "optim.optimizer": "kfac",
         "optim.laplacian_mode": "forward", "optim.el_chunk": el_chunk,
@@ -1704,19 +1792,28 @@ def bcc_li_cfg(el_chunk, psi_chunk):
         "log.save_path": os.path.join(REPO, "build", "chip_smoke_bcc_li"),
         "debug.deterministic": True,
     }
-    argv = [f"--config={BCC_LI_CONFIG_FILE}:{BCC_LI_POSCAR},3,sto-3g"]
+    return cli_config(f"{BCC_LI_CONFIG_FILE}:{BCC_LI_POSCAR},3,sto-3g", overrides)
+
+
+def cli_config(config, overrides):
+    """The config the command line builds from `--config=config` and one
+    `--config.key value` pair per entry of `overrides`."""
+    from deepsolid_tpu_torch import cli
+
+    argv = [f"--config={config}"]
     for key, value in overrides.items():
         argv += [f"--config.{key}", str(value)]
     cfg, _ = cli.parse(argv)
     return cfg
 
 
-def bcc_li_probe(dev, cfg, net, params, x):
+def memory_probe(dev, cfg, net, params, x, el_chunks, psi_chunks):
     """Peak device memory of one E_L chunk of each candidate `el_chunk` and
     of KFAC's curvature capture (the largest psi_chunk-chunked pass: one
-    tapped forward, two backward passes) of each candidate `psi_chunk`;
-    the largest candidate under PROBE_LIMIT_BYTES that divides the batch
-    is taken. A candidate that runs out of memory reads None."""
+    tapped forward, two backward passes) of each candidate `psi_chunk`, on
+    the first walkers of `x`; the largest candidate under
+    PROBE_LIMIT_BYTES that divides the batch (the rows of `x`) is taken.
+    A candidate that runs out of memory reads None."""
     import torch
     from deepsolid_tpu_torch.hamiltonian import make_local_energy
     from deepsolid_tpu_torch.optim import kfac as kfac_lib
@@ -1743,12 +1840,12 @@ def bcc_li_probe(dev, cfg, net, params, x):
         opt.update_curvature(opt.init(params), params, x[:n])
 
     with torch.no_grad():
-        el = {c: peak(lambda: el_fn(params, x[:c])) for c in BCC_LI_EL_CHUNKS}
-    psi = {c: peak(lambda: capture(c)) for c in BCC_LI_PSI_CHUNKS}
+        el = {c: peak(lambda: el_fn(params, x[:c])) for c in el_chunks}
+    psi = {c: peak(lambda: capture(c)) for c in psi_chunks}
 
     def choose(readings):
         fits = [c for c, b in readings.items()
-                if b is not None and b < PROBE_LIMIT_BYTES and BATCH % c == 0]
+                if b is not None and b < PROBE_LIMIT_BYTES and len(x) % c == 0]
         return max(fits) if fits else None
 
     return {"el_chunk_peak_bytes": el, "psi_chunk_peak_bytes": psi,
@@ -1776,7 +1873,7 @@ def bcc_li_phase(dev):
     t_start, start_data, start_params, _, _ = restore(find_last_checkpoint(BCC_LI_CKPT))
     params = params_from_jax(start_params, dev, torch.float32)
     x = torch.as_tensor(np.asarray(start_data), dtype=torch.float32, device=dev)
-    probe = bcc_li_probe(dev, cfg, net, params, x)
+    probe = memory_probe(dev, cfg, net, params, x, BCC_LI_EL_CHUNKS, BCC_LI_PSI_CHUNKS)
     emit({"phase": "bcc_li_probe", **probe})
     del params, x
     if probe["el_chunk"] is None or probe["psi_chunk"] is None:
@@ -1784,9 +1881,11 @@ def bcc_li_phase(dev):
 
     cfg = bcc_li_cfg(probe["el_chunk"], probe["psi_chunk"])
     shutil.rmtree(cfg.log.save_path, ignore_errors=True)
-    iters, pretrained = [], []
+    iters, pretrained, first = [], [], []
 
     def on_iteration(t, row, seconds):
+        if not first:  # the iteration's start: set-up and burn-in lie before it
+            first.append(time.perf_counter() - seconds["step"])
         row.pop("local_energy")
         rec = {"phase": "bcc_li_iteration", "step": t, **row, "seconds": seconds,
                "adapted": "adapt" in seconds}
@@ -1797,23 +1896,24 @@ def bcc_li_phase(dev):
     reset_launches()
     start = time.perf_counter()
     params, _, energy = process(
-        cfg, t_start + BCC_LI_ITERATIONS, device="cuda", on_iteration=on_iteration,
+        cfg, BCC_LI_ITERATIONS, device="cuda", on_iteration=on_iteration,
         on_pretrain=lambda *args: pretrained.append(args))
     wall = time.perf_counter() - start
     launches, shapes = read_launches(), read_shapes()
     peak = torch.cuda.max_memory_allocated(dev)
 
-    # B1 on the restored run's path only: per iteration the sampler's 20
-    # proposals and its first evaluation, E_L, the gradient's and KFAC's
-    # capture forward passes, each chunked, two spins each; E_L again on an
-    # iteration that adapts the damping. Pretraining or burn-in would add
-    # sweeps of their own.
+    # B1 on the restored run's path only: the burn-in's sweeps, then per
+    # iteration the sampler's 20 proposals and its first evaluation, E_L,
+    # the gradient's and KFAC's capture forward passes, each chunked, two
+    # spins each; E_L again on an iteration that adapts the damping.
+    # Pretraining would add sweeps of its own.
     n_psi, n_el = BATCH // cfg.optim.psi_chunk, BATCH // cfg.optim.el_chunk
     adapted = sum(r["adapted"] for r in iters)
-    b1_want = 2 * (len(iters) * ((cfg.mcmc.steps + 1) * n_psi + n_el + 2 * n_psi)
-                   + adapted * n_el)
+    sweep = (cfg.mcmc.steps + 1) * n_psi
+    b1_want = 2 * (cfg.mcmc.burn_in * sweep
+                   + len(iters) * (sweep + n_el + 2 * n_psi) + adapted * n_el)
     ckpt_ok, factors_finite, ckpt = (kfac_checkpoint_ok(
-        cfg.log.save_path, t_start + BCC_LI_ITERATIONS, BATCH, 3 * sum(sc.nelec),
+        cfg.log.save_path, BCC_LI_ITERATIONS, BATCH, 3 * sum(sc.nelec),
         params, iters, dev) if iters else (False, False, ""))
     plain = [r for r in iters if not r["adapted"]] or iters
     keys = ("mcmc", "local_energy", "gradient", "curvature", "update", "step")
@@ -1822,7 +1922,9 @@ def bcc_li_phase(dev):
         "electrons": list(sc.nelec), "atoms": sc.natom, "batch": BATCH,
         "el_chunk": cfg.optim.el_chunk, "psi_chunk": cfg.optim.psi_chunk,
         "restored_step": t_start, "steps": [r["step"] for r in iters],
-        "pretraining_iterations": len(pretrained), "seconds": wall,
+        "pretraining_iterations": len(pretrained), "burn_in": cfg.mcmc.burn_in,
+        "seconds_setup_and_burn_in": first[0] - start if first else None,
+        "seconds": wall,
         "energy_per_cell": energy, "loss_per_cell": [r["energy"] for r in iters],
         "damping": [r["damping"] for r in iters], "rho": [r["rho"] for r in iters],
         "adapted": [r["adapted"] for r in iters],
@@ -1837,7 +1939,7 @@ def bcc_li_phase(dev):
         "factors_finite": factors_finite,
     }
     result["ok"] = (
-        t_start == 1 and result["steps"] == list(range(1, 1 + BCC_LI_ITERATIONS))
+        t_start == 1 and result["steps"] == list(range(BCC_LI_ITERATIONS))
         and not pretrained and launches["gj_inverse_slogdet"] == b1_want
         and result["b1_bodies"] == {81: [B1_BODY["bcc_li"]]}
         and launches["fused_dense_tanh_jet"] > 0 and launches["fused_dense_tanh_jet_mix"] > 0
@@ -1938,28 +2040,17 @@ def h10_phase(dev):
     from deepsolid_tpu_torch.observables import (make_complex_polarization,
                                                   make_structure_factor)
     from deepsolid_tpu_torch.sampling.mcmc import make_mcmc_step
-    from deepsolid_tpu_torch.train.process import build_network, orbital_source
+    from deepsolid_tpu_torch.train.process import build_network
 
     cfg = h10_cfg()
     sc = cfg.system.cell
-    shutil.rmtree(H10_SCF_CACHE, ignore_errors=True)
-    os.makedirs(H10_SCF_CACHE)
-    cache = os.environ.get("DEEPSOLID_TPU_SCF_CACHE")
-    os.environ["DEEPSOLID_TPU_SCF_CACHE"] = H10_SCF_CACHE
-    try:
-        start = time.perf_counter()
-        source = orbital_source(cfg, sc)  # the cold UHF
-        uhf_seconds = time.perf_counter() - start
-        emit({"phase": "h10_source", "config": H10_CONFIG, "basis": cfg.system.basis,
-              "level": cfg.pretrain.scf, "seconds_cold_uhf": uhf_seconds,
-              "cache_files": sorted(os.listdir(H10_SCF_CACHE))})
+    with scf_cache(H10_SCF_CACHE) as cache:
+        source, uhf = cold_source(cfg, cache)
+        emit({"phase": "h10_source", "config": H10_CONFIG, **uhf})
         result, params, data = scratch_run(dev, cfg, source, "h10", H10_KFAC_ITERATIONS,
                                            emit_iterations=False)
-    finally:
-        os.environ["DEEPSOLID_TPU_SCF_CACHE"] = cache
-        shutil.rmtree(H10_SCF_CACHE, ignore_errors=True)
     net = build_network(cfg, sc, klist_override=source.klist)
-    result.update(config=H10_CONFIG, seconds_cold_uhf=uhf_seconds,
+    result.update(config=H10_CONFIG, seconds_cold_uhf=uhf["seconds_cold_uhf"],
                   mcmc_steps=cfg.mcmc.steps, importance_sampling=True,
                   b1_bodies=b1_bodies(result["launch_shapes"]))
     samplers = h10_samplers(dev, cfg, net, params, data)
@@ -2048,6 +2139,239 @@ def diamond_importance_phase(dev, source):
         and drift_err <= DRIFT_TOLERANCE["diamond"])
     emit(result)
     return result
+
+
+@contextlib.contextmanager
+def scf_cache(path):
+    """DEEPSOLID_TPU_SCF_CACHE pointed at an empty directory `path` inside
+    the block (a cold UHF solves there); the directory goes afterwards."""
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    cache = os.environ.get("DEEPSOLID_TPU_SCF_CACHE")
+    os.environ["DEEPSOLID_TPU_SCF_CACHE"] = path
+    try:
+        yield path
+    finally:
+        os.environ["DEEPSOLID_TPU_SCF_CACHE"] = cache
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def cold_source(cfg, cache):
+    """The run's orbital source from a cold UHF solved on the host into the
+    empty cache directory `cache`: (source, its record: seconds, e_tot,
+    converged)."""
+    import numpy as np
+    from deepsolid_tpu_torch.train.process import orbital_source
+
+    start = time.perf_counter()
+    source = orbital_source(cfg, cfg.system.cell)
+    seconds = time.perf_counter() - start
+    files = sorted(os.listdir(cache))
+    e_tot = converged = None
+    if len(files) == 1:
+        with np.load(os.path.join(cache, files[0])) as f:
+            e_tot, converged = float(f["e_tot"]), bool(f["converged"])
+    return source, {"basis": cfg.system.basis, "level": cfg.pretrain.scf,
+                    "seconds_cold_uhf": seconds, "e_tot": e_tot,
+                    "converged": converged, "cache_files": files}
+
+
+def cold_cfg(system):
+    """The run script's settings of COLD_SYSTEMS[system], loaded as the
+    command line loads them, from its first step with the pretrain phase's
+    cuts (from_scratch: pretraining iterations, burn-in)."""
+    spec = COLD_SYSTEMS[system]
+    overrides = {
+        "batch_size": spec["batch"], "precision": "float32", "optim.optimizer": "kfac",
+        "optim.laplacian_mode": "forward", "optim.el_chunk": spec["el_chunk"],
+        "mcmc.burn_in": spec["burn_in"], "mcmc.steps": 20, "pretrain.method": "net",
+        "pretrain.scf": "hf", "pretrain.iterations": spec["pretrain_iterations"],
+        "optim.kfac.adaptive_damping": True,
+        "optim.kfac.damping_adaptation_interval": 10,
+        "log.save_path": os.path.join(REPO, "build", f"chip_smoke_{system}"),
+        "debug.deterministic": True,
+    }
+    config = os.path.join(REPO, "deepsolid_tpu_torch", "configs", spec["config"])
+    return from_scratch(cli_config(f"{config}:{spec['spec']}", overrides))
+
+
+def ewald_share(dev, cfg, klist, params, x):
+    """Device ms of one E_L chunk (walkers `x`, numpy parameters `params`)
+    and of its Ewald sum alone, and the Ewald's share of the chunk."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.hamiltonian import make_local_energy
+    from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.ops.ewald import EwaldSum
+    from deepsolid_tpu_torch.train.process import build_network
+
+    sc = cfg.system.cell
+    el_fn = make_local_energy(build_network(cfg, sc, klist_override=klist), sc)
+    ewald = EwaldSum.build(sc)
+    p = params_from_jax(params, dev, torch.float32)
+    x = torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        el_ms = time_ms(lambda: el_fn(p, x), warmup=1, reps=3)
+        ewald_ms = time_ms(lambda: ewald.energy(x), warmup=1, reps=5)
+    return {"walkers": len(x), "local_energy_ms": el_ms, "ewald_ms": ewald_ms,
+            "ewald_share": ewald_ms / el_ms}
+
+
+def cold_phase(dev, system):
+    """COLD_SYSTEMS[system] at full width from a cold UHF solved on the
+    host into a scratch cache, then its run script's path from the first
+    step (pretraining, the step-0 checkpoint, burn-in, KFAC iterations
+    from a fresh state, psi_chunk unset); E_L and the Ewald term of 8
+    final walkers against CPU f64 with a TF32 control, the Ewald's share
+    of an E_L chunk and a profile of one. Returns the record."""
+    from deepsolid_tpu_torch.models.network import params_to_numpy
+
+    spec = COLD_SYSTEMS[system]
+    cfg = cold_cfg(system)
+    sc = cfg.system.cell
+    with scf_cache(os.path.join(REPO, "build", f"chip_smoke_{system}_scf")) as cache:
+        source, uhf = cold_source(cfg, cache)
+        emit({"phase": f"{system}_source", "config": spec["spec"], **uhf})
+        result, params, data = scratch_run(dev, cfg, source, system,
+                                           COLD_KFAC_ITERATIONS, emit_iterations=False)
+    np_params = params_to_numpy(params)
+    reference = el_reference_record(dev, cfg, source.klist, np_params,
+                                    data[:COLD_REFERENCE_WALKERS].cpu().numpy())
+    chunk = data[:cfg.optim.el_chunk].cpu().numpy()
+    share = ewald_share(dev, cfg, source.klist, np_params, chunk)
+    profile = profile_phase(dev, cfg, source.klist, np_params, chunk,
+                            f"one {len(chunk)}-walker {spec['label']} local-energy chunk")
+    result.update(
+        config=spec["spec"], run_script=f"runs/{system}_run.py", atoms=sc.natom,
+        mcmc_steps=cfg.mcmc.steps, uhf=uhf,
+        b1_bodies=b1_bodies(result["launch_shapes"]),
+        kfac_walkers_per_s_iteration=[cfg.batch_size / r["step"]
+                                      for r in result["kfac_seconds_per_iteration"]],
+        reference=reference, ewald=share,
+        profile_device_idle_share=profile["device_idle_share"])
+    result["ok"] = (
+        result["ok"] and bool(uhf["converged"])
+        and result["b1_bodies"] == {sc.nelec[0]: [B1_BODY[system]]}
+        and all(math.isfinite(e) for e in result["kfac_energy_per_cell"])
+        and reference["ok"])
+    emit(result)
+    return result
+
+
+def cold_kernel_rows(dev, gen, system, record):
+    """B1, B2 and B3 at the shapes the path of COLD_SYSTEMS[system] gives
+    them, from its config: B1 on the whole batch (sampler, gradient and
+    capture with psi_chunk unset) and on one E_L chunk, batch or el_chunk
+    x determinants matrices of one spin's n; B2 and B3 on one E_L chunk,
+    B3's first layer as wide as the path launched it."""
+    cfg = cold_cfg(system)
+    sc = cfg.system.cell
+    n, n_spin = sum(sc.nelec), sc.nelec[0]
+    dets, chunk = cfg.network.detnet.determinants, cfg.optim.el_chunk
+    rows = [b1_row(dev, gen, cfg.batch_size * dets, n_spin, system),
+            b1_row(dev, gen, chunk * dets, n_spin, system)]
+    for row in rows:
+        row["ok"] = row["ok"] and row["variant"] == B1_BODY[system]
+    k0 = min(r["shape"][2] for r in record["launch_shapes"]
+             if r["kernel"] == "fused_dense_tanh_jet_mix")
+    label = COLD_SYSTEMS[system]["label"] + " "
+    return rows + [b2_row(dev, gen, n, chunk, system, label),
+                   b3_row(dev, gen, n, chunk, system, label, k0=k0)]
+
+
+def north_star_phase(dev, source, kfac):
+    """C-diamond 2x2x2's KFAC step as production sets it, continuing the
+    checkpoint's state at optimizer step 582 with the kfac phase's other
+    settings: (a) runs/diamond_run.py's 1024 walkers with psi_chunk unset
+    where the probe puts the unchunked capture under the memory limit
+    (else the largest fallback under it), and its KFAC update of 8 final
+    walkers against CPU f64; (b) BASELINE.json's batch 4096 (the
+    checkpoint's walkers tiled by the elastic restore) at the largest
+    psi_chunk candidate under the limit. Each beside the kfac phase's
+    psi_chunk 64 split. Returns the record and the 4096 run's."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.train.process import build_network
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    cfg = production_kfac(diamond_cfg("kfac", BATCH, "chip_smoke_north_star_probe"))
+    net = build_network(cfg, cfg.system.cell, klist_override=source.klist)
+    _, data, start_params, _, _ = restore(find_last_checkpoint(cfg.log.restore_path),
+                                          NORTH_STAR_BATCH)
+    params = params_from_jax(start_params, dev, torch.float32)
+    x = torch.as_tensor(np.asarray(data), dtype=torch.float32, device=dev)
+
+    def probe(batch, candidates):
+        got = memory_probe(dev, cfg, net, params, x[:batch], (), candidates)
+        emit({"phase": "north_star_probe", "batch": batch, **got})
+        return got
+
+    probes = [probe(BATCH, (BATCH,))]
+    psi_chunk = 0 if probes[0]["psi_chunk"] == BATCH else None
+    if psi_chunk is None:  # the unchunked capture does not fit
+        probes.append(probe(BATCH, NORTH_STAR_FALLBACK_PSI_CHUNKS))
+        psi_chunk = probes[-1]["psi_chunk"]
+    probes.append(probe(NORTH_STAR_BATCH, NORTH_STAR_PSI_CHUNKS))
+    big_chunk = probes[-1]["psi_chunk"]
+    del params, x
+    torch.cuda.empty_cache()
+    result = {"phase": "north_star", "probes": probes, "psi_chunk": psi_chunk,
+              "psi_chunk_batch_4096": big_chunk}
+    if psi_chunk is None or big_chunk is None:
+        result["ok"] = False
+        emit(result)
+        return result, None
+
+    unset = kfac_phase(dev, iterations=NORTH_STAR_ITERATIONS, phase="north_star_1024",
+                       batch=BATCH, psi_chunk=psi_chunk)
+    # the run's own last state and 8 of its walkers, one KFAC update
+    # further, card f32 against CPU f64
+    cfg.optim.psi_chunk = psi_chunk
+    _, walkers, last_params, last_state, _ = restore(find_last_checkpoint(
+        os.path.join(REPO, "build", "chip_smoke_north_star_1024_fisher_exact")))
+    upd_rel, upd_norm, _ = kfac_update_rel_err(dev, cfg, net, last_params,
+                                               np.asarray(walkers[:8], np.float64),
+                                               last_state)
+    torch.cuda.empty_cache()
+    big = kfac_phase(dev, iterations=NORTH_STAR_BATCH_ITERATIONS, phase="north_star_4096",
+                     batch=NORTH_STAR_BATCH, psi_chunk=big_chunk)
+    last = big["seconds_per_iteration_all"][-1]
+    result.update(
+        kfac_psi_chunk_64=kfac["seconds_per_iteration_all"],
+        batch_1024={k: unset[k] for k in (
+            "psi_chunk", "seconds_per_iteration", "seconds_per_iteration_all",
+            "walkers_per_s_iteration_without_adaptation", "walkers_per_s_iteration_all",
+            "peak_memory_bytes", "energy_per_cell", "ok")},
+        kfac_update_rel_err_global_norm=upd_rel, kfac_update_global_norm_cpu_f64=upd_norm,
+        kfac_update_tolerance=KFAC_UPDATE_TOLERANCE,
+        batch_4096={k: big[k] for k in (
+            "psi_chunk", "seconds_per_iteration_all", "energy_per_cell",
+            "elastic_restore_logged", "peak_memory_bytes", "b1_bodies", "ok")},
+        step_seconds_batch_4096=last["step"], split_batch_4096=last,
+        walkers_per_s_batch_4096=NORTH_STAR_BATCH / last["step"],
+        card=nvidia_smi())
+    result["ok"] = (unset["ok"] and big["ok"] and big["elastic_restore_logged"]
+                    and upd_rel <= KFAC_UPDATE_TOLERANCE
+                    and big["b1_bodies"] == {cfg.system.cell.nelec[0]:
+                                             [B1_BODY["north_star_4096"]]})
+    emit(result)
+    return result, big
+
+
+def north_star_kernel_rows(dev, gen, big):
+    """B1 at the 4096-walker run's sampler and capture shape (psi_chunk x
+    determinants matrices of one spin's n), with the unchunked sampler's
+    (4096 x determinants) beside it where the run chunked."""
+    cfg = diamond_cfg("kfac", NORTH_STAR_BATCH, "")
+    dets, n = cfg.network.detnet.determinants, cfg.system.cell.nelec[0]
+    row = b1_row(dev, gen, big["psi_chunk"] * dets, n, "north_star_4096")
+    if big["psi_chunk"] != NORTH_STAR_BATCH:
+        row["unchunked_sampler_shape"] = b1_row(dev, gen, NORTH_STAR_BATCH * dets, n,
+                                                "north_star_4096")
+        row["ok"] = row["ok"] and row["unchunked_sampler_shape"]["ok"]
+    row["ok"] = row["ok"] and row["variant"] == B1_BODY["north_star_4096"]
+    return [row]
 
 
 @contextlib.contextmanager
@@ -2432,8 +2756,9 @@ def system_el_reference(dev, cfg, klist, params, x):
     plain path on the CPU in float32, each against the plain path on the
     CPU in float64, and the card's path with TF32 matmuls as the control
     the check must catch. Returns {"card": (median, max), "cpu_f32":
-    (median, max), "card_tf32": (median, max)} of the absolute differences
-    and the float64 values."""
+    (median, max), "card_tf32": (median, max), "ewald": (median, max) of
+    the card's Ewald term} of the absolute differences and the float64
+    values."""
     import numpy as np
     import torch
     from deepsolid_tpu_torch.device import set_full_precision
@@ -2449,24 +2774,54 @@ def system_el_reference(dev, cfg, klist, params, x):
         with torch.no_grad():
             ke, ew = el_fn(params_from_jax(params, device, dtype),
                            torch.as_tensor(x, dtype=dtype, device=device))
-        return (ke + ew).cpu().to(torch.complex128)
+        return (ke + ew).cpu().to(torch.complex128), ew.cpu().to(torch.complex128)
 
-    cpu = el("cpu", torch.float64)
+    cpu, cpu_ewald = el("cpu", torch.float64)
 
-    def diffs(got):
-        d = ((got - cpu).abs() / sc.scale).numpy()
+    def diffs(got, want=cpu):
+        d = ((got - want).abs() / sc.scale).numpy()
         return float(np.median(d)), float(d.max())
 
-    got = {"card": diffs(el(dev, torch.float32)),
-           "cpu_f32": diffs(el("cpu", torch.float32)),
-           "el_cpu_f64_per_cell": (cpu.real / sc.scale).tolist()}
+    card, card_ewald = el(dev, torch.float32)
+    got = {"card": diffs(card), "ewald": diffs(card_ewald, cpu_ewald),
+           "cpu_f32": diffs(el("cpu", torch.float32)[0]),
+           "el_cpu_f64_per_cell": (cpu.real / sc.scale).tolist(),
+           "ewald_cpu_f64_per_cell": (cpu_ewald.real / sc.scale).tolist()}
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     try:
-        got["card_tf32"] = diffs(el(dev, torch.float32))
+        got["card_tf32"] = diffs(el(dev, torch.float32)[0])
     finally:
         set_full_precision()
     return got
+
+
+def el_reference_record(dev, cfg, klist, params, x):
+    """E_L per primitive cell of the walkers `x` (numpy) under the numpy
+    parameters `params`, card f32 against CPU f64 at the reference limits,
+    beside the port's own CPU f32 error and the Ewald term's card error;
+    the card's TF32 control must fail the limits. Returns the record with
+    its check in "ok"."""
+    start = time.perf_counter()
+    got = system_el_reference(dev, cfg, klist, params, x)
+    tol_median, tol_max = EL_TOLERANCE_MEDIAN, EL_TOLERANCE_MAX
+    (card_median, card_max), (f32_median, f32_max) = got["card"], got["cpu_f32"]
+    tf32_median, tf32_max = got["card_tf32"]
+    tf32_fails = not (tf32_median <= tol_median and tf32_max <= tol_max)
+    return {
+        "walkers": len(x), "el_cpu_f64_per_cell": got["el_cpu_f64_per_cell"],
+        "median_abs_diff_per_cell": card_median, "max_abs_diff_per_cell": card_max,
+        "tolerance_median": tol_median, "tolerance_max": tol_max,
+        "cpu_f32_median_abs_diff_per_cell": f32_median,
+        "cpu_f32_max_abs_diff_per_cell": f32_max,
+        "tf32_control_median_abs_diff_per_cell": tf32_median,
+        "tf32_control_max_abs_diff_per_cell": tf32_max,
+        "tf32_control_fails_check": tf32_fails,
+        "ewald_cpu_f64_per_cell": got["ewald_cpu_f64_per_cell"],
+        "ewald_median_abs_diff_per_cell": got["ewald"][0],
+        "ewald_max_abs_diff_per_cell": got["ewald"][1],
+        "ok": card_median <= tol_median and card_max <= tol_max and tf32_fails,
+        "seconds": time.perf_counter() - start}
 
 
 def reference_phase(dev, source, systems):
@@ -2588,21 +2943,7 @@ def reference_phase(dev, source, systems):
     # beside the card says how much of the error is f32's, not the kernels',
     # and each system's TF32 control must fail them as diamond's does
     for name, (sys_cfg, klist, sys_params, sys_x) in systems.items():
-        start = time.perf_counter()
-        got = system_el_reference(dev, sys_cfg, klist, sys_params, sys_x)
-        (card_median, card_max), (f32_median, f32_max) = got["card"], got["cpu_f32"]
-        tf32_median, tf32_max = got["card_tf32"]
-        tf32_fails = not (tf32_median <= tol_median and tf32_max <= tol_max)
-        result[name] = {
-            "walkers": len(sys_x), "el_cpu_f64_per_cell": got["el_cpu_f64_per_cell"],
-            "median_abs_diff_per_cell": card_median, "max_abs_diff_per_cell": card_max,
-            "cpu_f32_median_abs_diff_per_cell": f32_median,
-            "cpu_f32_max_abs_diff_per_cell": f32_max,
-            "tf32_control_median_abs_diff_per_cell": tf32_median,
-            "tf32_control_max_abs_diff_per_cell": tf32_max,
-            "tf32_control_fails_check": tf32_fails,
-            "ok": card_median <= tol_median and card_max <= tol_max and tf32_fails,
-            "seconds": time.perf_counter() - start}
+        result[name] = el_reference_record(dev, sys_cfg, klist, sys_params, sys_x)
     # a check the TF32 control passes could not guard the precision flags
     result["ok"] = (all(result[name]["ok"] for name in systems)
                     and median <= tol_median and worst <= tol_max
@@ -2677,9 +3018,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     set_full_precision()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -2757,6 +3096,20 @@ def main() -> int:
                     "non-finite parameter or factor, no damping adaptation, "
                     "the checkpoint, or the energy window)")
 
+    north_star, big = north_star_phase(dev, source, kfac)
+    if not north_star["ok"]:
+        return fail("the north_star phase failed its checks (no psi_chunk under "
+                    "the memory limit, the kfac phase's checks at batch 1024 with "
+                    "psi_chunk unset or at batch 4096, the elastic restore, the "
+                    "KFAC update against CPU f64, or B1 at n = 48 not on the "
+                    "registers body)")
+    shaped = north_star_kernel_rows(dev, gen, big)
+    kernels += shaped
+    bad = with_path_launches(shaped, {"north_star_4096": big})
+    if bad:
+        return fail(f"B1 at the 4096-walker shape disagrees with its plain "
+                    f"version or the path launched none: {bad}")
+
     if not pretrain_phase(dev, source)["ok"]:
         return fail("the pretrain phase failed its checks (the loss did not "
                     "fall, a non-finite loss, walker or energy, the step-0 "
@@ -2799,6 +3152,20 @@ def main() -> int:
     if bad:
         return fail(f"kernels at the H10 shapes disagree with their plain "
                     f"versions or the h10 path launched none at a shape: {bad}")
+    for system in COLD_SYSTEMS:
+        record = cold_phase(dev, system)
+        if not record["ok"]:
+            return fail(f"the {system} phase failed its checks (the cold UHF, the "
+                        f"pretraining loss did not fall, a non-finite value, a "
+                        f"checkpoint, B1 not on the warp body, a kernel of the "
+                        f"path never launched, or E_L against CPU f64 or its "
+                        f"TF32 control)")
+        shaped = cold_kernel_rows(dev, gen, system, record)
+        kernels += shaped
+        bad = with_path_launches(shaped, {system: record})
+        if bad:
+            return fail(f"kernels at the {system} shapes disagree with their plain "
+                        f"versions or the path launched none at a shape: {bad}")
     if not diamond_importance_phase(dev, source)["ok"]:
         return fail("the diamond_importance phase failed its checks (the "
                     "energy window, pmove, B1 at n = 48 not on the registers "

@@ -15,15 +15,19 @@ one launch between two CUDA events, which for a launch shorter than its
 host call (~20 us through ctypes) reads the host; the Gauss-Jordan rows
 also give `graph_ms`, per launch of a CUDA graph of 20 launches.
 
-The Gauss-Jordan kernel is timed at the launch shapes of the three
-production systems (GJ_SHAPES, complex64): C-diamond 2x2x2's (8192, 48,
-48) and (512, 48, 48), bcc-Li 3x3x3's (4096, 81, 81) sampler and (256, 81,
-81) E_L launches, Si's (512, 14, 14) and (1024, 14, 14) and the run
-script's (8192, 14, 14), each with the body it takes and its bound. The
-jet kernels at the C-diamond 2x2x2 main path's shapes: the one-electron jet
-kernels on 6144 rows, d_out 256, T = 288 (closed) or 144 (open), d_in 16,
-320 or 256; the two-electron (pair) jet kernels on 589,824 rows, d_out 32,
-d_in 4 and 32, T = 6 (closed) and 3 (open). For the wide jet variant the
+The Gauss-Jordan kernel is timed at the launch shapes of the production
+systems (GJ_SHAPES, complex64): C-diamond 2x2x2's (8192, 48, 48), (512,
+48, 48) and, at batch 4096 unchunked, (32768, 48, 48), bcc-Li 3x3x3's
+(4096, 81, 81) sampler and (256, 81, 81) E_L launches, Si's (512, 14, 14)
+and (1024, 14, 14) and the run script's (8192, 14, 14), LiH 2x2x2's
+(16384, 16, 16) and (2048, 16, 16) and graphene's (8192, 6, 6) and (2048,
+6, 6), each with the body it takes and its bound. The jet kernels at the
+C-diamond 2x2x2 main path's shapes: the one-electron jet kernels on 6144
+rows, d_out 256, T = 288 (closed) or 144 (open), d_in 16, 320 or 256; the
+two-electron (pair) jet kernels on 589,824 rows, d_out 32, d_in 4 and 32,
+T = 6 (closed) and 3 (open); and at one 256-walker E_L chunk of LiH 2x2x2
+(T = 96 on 8192 rows; 262,144 pair rows) and of graphene (T = 36 on 3072
+rows; 36,864 pair rows). For the wide jet variant the
 current design is timed at each slice count of --slices beside the one
 jet_kernels.kernel_variant chooses; --baseline-slices is the slice count
 the other design is handed at the wide shapes (6 for the 128 x 64-tile
@@ -51,20 +55,28 @@ ROWS, D_OUT = WALKERS * 96, 256          # one-electron stream
 PAIR_ROWS, PAIR_D_OUT = WALKERS * 96 * 96, 32  # two-electron stream
 PEAK_BYTES = 3.35e12  # H100 SXM HBM bytes/s (NVIDIA data sheet, 700 W)
 PEAK_FP32 = 67e12     # H100 SXM FP32 FLOP/s outside the tensor cores
+# E_L chunks of LiH rock-salt 2x2x2 (32 electrons) and graphene 1x1 (12)
+# at their run scripts' el_chunk
+COLD_WALKERS, LIH_N, GRAPHENE_N = 256, 32, 12
 # (matrices, n) of each Gauss-Jordan launch shape
 GJ_SHAPES = ((8192, 48), (512, 48), (4096, 81), (256, 81), (512, 14),
-             (1024, 14), (8192, 14))
-# (T, rows, d_in, d_out, mix rule, open form)
-JET_SHAPES = ((288, ROWS, 16, D_OUT, True, False),
-              (288, ROWS, 320, D_OUT, True, False),
-              (144, ROWS, 16, D_OUT, True, True),
-              (144, ROWS, 320, D_OUT, True, True),
-              (144, ROWS, 256, D_OUT, False, True),
-              (6, PAIR_ROWS, 4, PAIR_D_OUT, False, False),
-              (6, PAIR_ROWS, 32, PAIR_D_OUT, False, False),
-              (3, PAIR_ROWS, 4, PAIR_D_OUT, False, True),
-              (3, PAIR_ROWS, 32, PAIR_D_OUT, False, True),
-              (6, PAIR_ROWS - 13, 32, PAIR_D_OUT, False, False))
+             (1024, 14), (8192, 14), (16384, 16), (2048, 16), (8192, 6),
+             (2048, 6), (32768, 48))
+# (T, rows, d_in, d_out, mix rule, open form, walkers of the rows)
+JET_SHAPES = ((288, ROWS, 16, D_OUT, True, False, WALKERS),
+              (288, ROWS, 320, D_OUT, True, False, WALKERS),
+              (144, ROWS, 16, D_OUT, True, True, WALKERS),
+              (144, ROWS, 320, D_OUT, True, True, WALKERS),
+              (144, ROWS, 256, D_OUT, False, True, WALKERS),
+              (6, PAIR_ROWS, 4, PAIR_D_OUT, False, False, WALKERS),
+              (6, PAIR_ROWS, 32, PAIR_D_OUT, False, False, WALKERS),
+              (3, PAIR_ROWS, 4, PAIR_D_OUT, False, True, WALKERS),
+              (3, PAIR_ROWS, 32, PAIR_D_OUT, False, True, WALKERS),
+              (6, PAIR_ROWS - 13, 32, PAIR_D_OUT, False, False, WALKERS),
+              *((3 * n, COLD_WALKERS * n, d_in, D_OUT, True, False, COLD_WALKERS)
+                for n in (LIH_N, GRAPHENE_N) for d_in in (16, 320)),
+              *((6, COLD_WALKERS * n * n, d_in, PAIR_D_OUT, False, False, COLD_WALKERS)
+                for n in (LIH_N, GRAPHENE_N) for d_in in (4, 32)))
 
 
 def baseline_library(directory: Path, name: str, signatures) -> ctypes.CDLL:
@@ -203,10 +215,10 @@ def main() -> None:
               flush=True)
         del a
 
-    for t_dim, rows, d_in, d_out, mixed, open_sum in JET_SHAPES:
+    for t_dim, rows, d_in, d_out, mixed, open_sum, walkers in JET_SHAPES:
         val, jac, lap = rnd(rows, d_in), rnd(t_dim, rows, d_in), rnd(rows, d_in)
         w, b = rnd(d_in, d_out) / math.sqrt(d_in), rnd(d_out)
-        mix = ((rnd(WALKERS, d_out), rnd(WALKERS, d_out), rnd(t_dim, WALKERS, d_out))
+        mix = ((rnd(walkers, d_out), rnd(walkers, d_out), rnd(t_dim, walkers, d_out))
                if mixed else None)
         chosen = jk.kernel_variant(t_dim, rows, d_in, d_out, mixed, sms)
         wide = chosen > 0

@@ -5,8 +5,9 @@ Mirrors deepsolid_tpu/train/process.py: build the orbital source when
 the run pretrains or takes its k-list from the SCF (a basis with
 klist_policy 'auto'), build the network on that source's occupied
 k-list, restore a checkpoint (or initialize parameters and walkers),
-pretrain a run that starts from scratch and save it as step 0, burn in,
-then per iteration run the sampler (all-electron Metropolis, or per
+pretrain a run that starts from scratch and save it as step 0, burn in
+(from scratch, or restored from that step-0 handoff), then per iteration
+run the sampler (all-electron Metropolis, or per
 `mcmc.importance_sampling` / `mcmc.one_electron` Langevin or one-electron
 moves), evaluate the batch local energy with the kinetic engine of
 `optim.laplacian_mode` and, when training, the gradient estimator and the update
@@ -218,9 +219,20 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
         params = net.init(np.random.default_rng(
             888 if cfg.debug.deterministic else seed))
     params = params_from_jax(params, device=device, dtype=dtype)
-    # pretraining and burn-in belong to a run's first iteration only; the
-    # restored inference run's clock reset below does not make it one
-    first_iteration = t_init == 0
+    # What the run does before its first iteration, decided here once. A
+    # run from scratch (or from a step -1 checkpoint) pretrains and burns
+    # in. A handoff checkpoint, step 0 with no optimizer state as
+    # pretraining saves it below, starts a training run at iteration 0 and
+    # burns in without pretraining again: the JAX package restores it at
+    # t = 1 and skips the burn-in, a departure pinned in
+    # tests/test_torch_handoff.py. Any other restore resumes at t + 1 and
+    # does neither, and a restored inference run restarts its own clock.
+    handoff = (restore_file is not None and t_init == 1 and opt_state_ckpt is None
+               and optimizer_name != "none")
+    pretrains = t_init == 0 and wants_pretrain(cfg)
+    burns_in = (t_init == 0 or handoff) and cfg.mcmc.burn_in > 0
+    if handoff or (optimizer_name == "none" and opt_state_ckpt is not None):
+        t_init = 0
 
     psi_chunk = cfg.optim.get("psi_chunk", 0)
     mcmc_step = make_mcmc_step(
@@ -262,8 +274,6 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
             logging.warning(
                 "Checkpoint %s holds the state of another optimizer; "
                 "kfac starts from a fresh state.", restore_file)
-    elif opt_state_ckpt is not None:
-        t_init = 0  # a restored inference run restarts its own clock
     schema = list(TRAIN_SCHEMA)
     log_damping = (optimizer_name == "kfac"
                    and cfg.optim.kfac.get("adaptive_damping", False))
@@ -294,7 +304,7 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
                 state_to_numpy(opt_state), np.asarray(width))
 
     with torch.no_grad():
-        if first_iteration and wants_pretrain(cfg):
+        if pretrains:
             params, data = pretrain_lib.pretrain(
                 cfg, sc, net, params, data, gen, source=source,
                 all_mean=mesh.all_mean, on_pretrain=on_pretrain)
@@ -303,7 +313,7 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
                 checkpoint_lib.save(save_path, 0, global_data.numpy(),
                                     params_to_numpy(params), None, None)
 
-        if first_iteration and cfg.mcmc.burn_in > 0:
+        if burns_in:
             logging.info("Burning in MCMC chain for %d steps", cfg.mcmc.burn_in)
             for _ in range(cfg.mcmc.burn_in):
                 data, _ = mcmc_step(params, data, gen, width)

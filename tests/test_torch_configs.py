@@ -1,9 +1,11 @@
 """The port's configs, POSCAR reader, et-dz basis and the systems they
-build (Si diamond, bcc-Li 3x3x3) against the JAX package, in float64.
+build (Si diamond, bcc-Li 3x3x3, graphene 1x1, LiH rock-salt 2x2x2)
+against the JAX package, in float64.
 
 Every config is built from the strings of the production run scripts
 (runs/*_run.py). Si and bcc-Li take their UHF sources from the committed
-cache (runs/scf_cache): no SCF runs here.
+cache (runs/scf_cache), graphene and LiH the free-electron k-list: no SCF
+runs here.
 """
 
 import os
@@ -54,6 +56,9 @@ JAX_POSCAR = os.path.join(REPO, "deepsolid_tpu", "configs", "poscar", "bcc_li.va
 PORT_POSCAR = os.path.join(REPO, "deepsolid_tpu_torch", "configs", "poscar", "bcc_li.vasp")
 BCC_LI_CKPT = os.path.join(REPO, "runs", "ckpt_bcc_li", "qmcjax_ckpt_000000.npz")
 NARROW = dict(hidden_dims=((16, 4),) * 2, determinants=1)
+# systems with no committed UHF solution: their networks take the
+# free-electron k-list of both packages (LiH 2x2x2's cold UHF takes ~50 s)
+FREE_ELECTRON_KLIST = ("graphene", "lih_sto3g")
 
 # (port module, JAX module, input string): the run scripts' systems, and
 # each config's own docstring example where no run script uses it
@@ -217,26 +222,31 @@ def test_atomic_uhf_matches_jax():
 
 def _narrow_pair(name, monkeypatch):
     """(port net, JAX net, JAX params as numpy, walkers, supercells) of the
-    system at a narrow width on its source's k-list; one walker from a
+    system at a narrow width on its source's k-list (the free-electron
+    k-list for the systems of FREE_ELECTRON_KLIST); one walker from a
     numpy seed, spread over the cell."""
-    tcfg, jcfg, tsrc, jsrc = _sources(name, monkeypatch)
+    if name in FREE_ELECTRON_KLIST:
+        (tcfg, jcfg), tklist, jklist = both_configs(name), None, None
+    else:
+        tcfg, jcfg, tsrc, jsrc = _sources(name, monkeypatch)
+        tklist, jklist = tsrc.klist, jsrc.klist
     for cfg in (tcfg, jcfg):
         cfg.network.detnet.hidden_dims = NARROW["hidden_dims"]
         cfg.network.detnet.determinants = NARROW["determinants"]
     tsc, jsc = tcfg.system.cell, jcfg.system.cell
-    tnet = tprocess.build_network(tcfg, tsc, klist_override=tsrc.klist)
-    jnet = jbuild_network(jcfg, jsc, klist_override=jsrc.klist)
+    tnet = tprocess.build_network(tcfg, tsc, klist_override=tklist)
+    jnet = jbuild_network(jcfg, jsc, klist_override=jklist)
     params = jax.tree_util.tree_map(np.asarray, jnet.init(jax.random.PRNGKey(3)))
     n = sum(tsc.nelec)
     x = (np.random.RandomState(6).uniform(size=(1, n, 3)) @ tsc.lattice).reshape(1, -1)
     return tnet, jnet, params, x, tsc, jsc
 
 
-@pytest.mark.parametrize("name", ["si_sto3g", "bcc_li_poscar"])
+@pytest.mark.parametrize("name", ["si_sto3g", "bcc_li_poscar", "graphene", "lih_sto3g"])
 def test_system_logpsi_matches_jax(name, monkeypatch):
     tnet, jnet, params, x, _, _ = _narrow_pair(name, monkeypatch)
     got = tnet.logdet(params_from_jax(params, dtype=torch.float64), torch.from_numpy(x))
-    want = jax.vmap(jnet.logdet, in_axes=(None, 0))(params, jnp.asarray(x))
+    want = jax.jit(jax.vmap(jnet.logdet, in_axes=(None, 0)))(params, jnp.asarray(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-8)
 
 
@@ -244,6 +254,9 @@ def test_system_logpsi_matches_jax(name, monkeypatch):
     "si_sto3g",
     # 162 electrons: JAX traces and compiles the forward Laplacian for ~30 s
     pytest.param("bcc_li_poscar", marks=pytest.mark.slow),
+    # hexagonal features and the Ewald sum of a slab with a 20 Bohr c axis
+    "graphene",
+    "lih_sto3g",
 ])
 def test_system_local_energy_matches_jax(name, monkeypatch):
     """E_L = kinetic + Ewald of one walker per primitive cell, 1e-8 Ha."""
@@ -252,7 +265,8 @@ def test_system_local_energy_matches_jax(name, monkeypatch):
     _, ke = make_logpsi_and_kinetic(tnet)(tp, tx)
     _, ew = tmake_le(tnet, tsc)(tp, tx)
     jel = jmake_le(jnet.logdet, jsc, mode="forward", network=jnet)
-    jke, jew = jax.vmap(jel, in_axes=(None, 0))(params, jnp.asarray(x))
+    # jitted: op by op, JAX's forward Laplacian takes ~10x as long
+    jke, jew = jax.jit(jax.vmap(jel, in_axes=(None, 0)))(params, jnp.asarray(x))
     scale = tsc.scale
     np.testing.assert_allclose(ke.numpy() / scale, np.asarray(jke) / scale, rtol=0,
                                atol=1e-8)

@@ -282,8 +282,9 @@ def test_process_pretrains_from_scratch_and_restarts_from_step_0(tmp_path):
     tprocess.process(h2_run_cfg(tmp_path, 2, 20), device="cpu",
                      on_pretrain=lambda *a: again.append(a),
                      on_iteration=lambda t, row, s: steps.append((t, row["energy"])))
+    # the step-0 handoff restores as iteration 0 (burn-in, no pretraining)
     assert again == []
-    assert [t for t, _ in steps] == [1] and np.isfinite(steps[0][1])
+    assert [t for t, _ in steps] == [0, 1] and np.isfinite([e for _, e in steps]).all()
     assert sorted(os.listdir(tmp_path)) == [
         "qmcjax_ckpt_000000.npz", "qmcjax_ckpt_000001.npz", "train_stats.csv"]
 
