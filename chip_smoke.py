@@ -163,7 +163,28 @@ Phases, one JSON line each; any failure exits non-zero:
                 check must catch; E_L of 8 Si walkers (after the si phase)
                 and 2 bcc-Li checkpoint walkers the same way, each with its
                 own TF32 control;
- 18. profile  - torch.profiler over one 64-walker C-diamond local-energy
+ 18. float64  - precision='float64' on the card through the kernels'
+                float64 bodies (B1's complex128 shared-memory body, the
+                general jet body in double): el_chunk and psi_chunk from a
+                float64 probe of the card's peak memory; C-diamond 2x2x2 at
+                full width from runs/ckpt_diamond cast to float64, one
+                inference and 2 KFAC fisher_exact iterations (batch 1024)
+                through process(), the inference iteration again through
+                `python -m deepsolid_tpu_torch --config.precision float64`
+                (its energy within 1e-6 Ha/cell of process()'s): their
+                split, walkers/s beside the float32 phases', peak memory,
+                B1's exact launch count, every launch on a float64 body and
+                no plain version called; one
+                E_L chunk over two deriv ranks on the card (B4a, B4b) against
+                one process; the reference phase's walkers card float64
+                against CPU float64 (E_L <= 1e-9 Ha/cell, the gradient's and
+                KFAC update's norms <= 1e-10 relative; the card's float32
+                readings must fail both); float32's bias on the 1024
+                checkpoint walkers beside the 1e-4 Ha/atom budget; a
+                profile of one float64 E_L chunk; each float64 body against
+                its plain version at the production shapes, B1 also on the
+                edge matrices;
+ 19. profile  - torch.profiler over one 64-walker C-diamond local-energy
                 chunk and one bcc-Li chunk (el_chunk walkers): kernels by
                 device time and the device's idle share.
 Launch counts are set to 0 just before each driven path and read just
@@ -309,14 +330,35 @@ BCC_LI_SCAN_CHUNKS = (32, 64, 128)
 TRACE_BATCH = 128          # two E_L chunks
 TRACE_MCMC_STEPS = 2       # a short run: the trace holds every event of its window
 TRACE_ITERATIONS = 3
+# float64 phase: precision='float64' on the card through the float64 bodies
+F64_EL_CHUNKS = (32, 64, 128)        # el_chunk candidates, probed at float64
+F64_PSI_CHUNKS = (BATCH,)            # psi_chunk unset where the capture fits,
+F64_FALLBACK_PSI_CHUNKS = (256, 512)  # else the largest of these under the limit
+F64_KFAC_ITERATIONS = 2
+# Ha/cell, max |E_L card f64 - CPU f64| (and sharded), and relative, the
+# gradient's and KFAC update's norms: 3000x and 2000x the first readings
+# (3.0e-13 diamond, 7.2e-14 bcc-Li; 5.0e-14 both norms), 1e-7 and 1e-8
+# before them; float32's 2^-29 coarser rounding reads 1e-5-1e-3 and fails
+F64_EL_TOLERANCE = 1e-9
+F64_REL_TOLERANCE = 1e-10
+F32_BIAS_BUDGET = 2e-4     # Ha per 2-atom primitive cell: 1e-4 Ha/atom
+F64_SHARD_WALKERS = 32     # one E_L chunk over two deriv ranks on the card
+JET_F64_TOLERANCE = 1e-10  # relative, a float64 jet body against its plain version
+B1_F64_SHAPES = ((BATCH * 8, 48), (EL_CHUNK * 8, 48), (4096, 81), (8192, 14),
+                 (16384, 16), (16384, 5))  # C-diamond, bcc-Li, Si, LiH, H10
 BOOTSTRAP_TOLERANCE = 1e-6  # Ha/cell: torchrun's rank against this process, same card
 DATA_RANKS_ENERGY_TOLERANCE = 5e-4  # Ha/cell, the sharded limit: f32 sums in another order
 REFERENCE_ENERGY = -66.0  # Ha/cell, runs/ckpt_diamond/train_stats_r5_latest.csv
 ENERGY_WINDOW = 1.5       # Ha/cell, a sanity bound; the reference phase is the exact check
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 (non-tensor) FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 (non-tensor)
+# FLOP/s, FP64 on the tensor cores and FP64 FMA outside them
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_FP64_TENSOR = 67e12
+PEAK_FP64_FMA = 34e12
 _START = time.perf_counter()
+# CPU float64 readings shared by the reference and float64 phases
+_CPU_F64 = {}
 
 
 def nvidia_smi() -> str:
@@ -357,9 +399,11 @@ def time_ms(fn, warmup: int = 3, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = None):
+    """The least time for `nbytes` moved and `flops` done: bytes at the
+    memory rate, operations at `peak` (default the FP32 peak)."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FP32 * 1e3
+    t_ops = flops / (peak or PEAK_FP32) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -369,22 +413,28 @@ def max_errs(got, want):
     return err, err / scale
 
 
-def gj_edge_cases(dev, gen, errs):
+def gj_edge_cases(dev, gen, errs, dtype=None, tol=5e-3):
     """The Gauss-Jordan kernel against its plain version on matrices that
     exercise the pivot rule, at n = 48, 14 and 81 (the registers, warp and
     mid bodies at the three systems' sizes), and on generic matrices at
     both ends of every body's range: `errs(a)` gives (inverse, sign,
-    log|det|) errors. One record per case, with the body that took it."""
+    log|det|) errors, each held to `tol`. One record per case, with the
+    body that took it. complex128 (`dtype`) has one body, up to n = 118."""
     import torch
     from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
 
+    dtype = dtype or torch.complex64
+
     def rnd_c(nb, n):
         return torch.complex(torch.randn((nb, n, n), generator=gen, device=dev),
-                             torch.randn((nb, n, n), generator=gen, device=dev))
+                             torch.randn((nb, n, n), generator=gen, device=dev)).to(dtype)
+
+    def body(n):
+        return dk.launcher(dk._lib(), dtype, n, dev)[0]
 
     cases = {}
     for n in (48, 14, 81):
-        eye = torch.eye(n, device=dev).to(torch.complex64)
+        eye = torch.eye(n, device=dev).to(dtype)
         tie = rnd_c(4, n)
         tie[:, 3, 0], tie[:, 7, 0] = 5.0, 5.0j   # equal |.|^2 in the first pivot column
         if n > 40:
@@ -396,16 +446,17 @@ def gj_edge_cases(dev, gen, errs):
             f"tie{sfx}": tie,
         })
     # warp 1-16 (two matrices a warp) and 17-32, shared 33-47, mid 49-96,
-    # shared from 97 to the shared-memory limit
-    for n in (1, 13, 16, 17, 32, 33, 47, 49, 96, 97, 168):
+    # shared from 97 to the shared-memory limit (complex128's at 118)
+    top = 168 if dtype == torch.complex64 else 118
+    for n in (1, 13, 16, 17, 32, 33, 47, 49, 96, 97, top):
         cases[f"generic_{n}"] = rnd_c(16, n) / math.sqrt(2 * n)
     out = []
     for name, a in cases.items():
         inv, sg, ld = errs(a)
-        out.append({"case": name, "body": dk.variant(dk._lib(), a.shape[-1], dev),
+        out.append({"case": name, "body": body(a.shape[-1]),
                     "max_rel_err_inverse": inv, "max_abs_err_sign": sg,
                     "max_abs_err_logdet": ld,
-                    "ok": inv <= 5e-3 and sg <= 5e-3 and ld <= 5e-3})
+                    "ok": inv <= tol and sg <= tol and ld <= tol})
     # a zero pivot: log 0 = -inf on both, no fault; a NaN entry: NaN on both
     for n in (48, 14, 81):
         zero = rnd_c(2, n)
@@ -418,8 +469,8 @@ def gj_edge_cases(dev, gen, errs):
             same = bool(torch.equal(torch.isfinite(got), torch.isfinite(want))
                         and not torch.isfinite(got[0]))
             if name.startswith("nan_entry"):  # the matrix without the NaN is untouched by it
-                same = same and abs(float(got[1] - want[1])) <= 5e-3
-            out.append({"case": name, "body": dk.variant(dk._lib(), n, dev),
+                same = same and abs(float(got[1] - want[1])) <= tol
+            out.append({"case": name, "body": body(n),
                         "logdet": got.tolist(), "logdet_plain": want.tolist(),
                         "ok": same})
     torch.cuda.synchronize()
@@ -437,33 +488,41 @@ def gj_errs(a):
     return inv, float((got[1] - want[1]).abs().max()), float((got[2] - want[2]).abs().max())
 
 
-def b1_row(dev, gen, nb, n, path="main"):
-    """The Gauss-Jordan kernel on `nb` Gaussian n x n complex64 matrices
-    against its plain version, timed beside its bound and
-    torch.linalg.inv + slogdet. `path` names the driven path whose launch
-    count the row reports."""
+def b1_row(dev, gen, nb, n, path="main", dtype=None):
+    """The Gauss-Jordan kernel on `nb` Gaussian n x n complex64 (or
+    `dtype`) matrices against its plain version, timed beside its bound
+    and torch.linalg.inv + slogdet. `path` names the driven path whose
+    launch count the row reports."""
     import torch
     from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
     from deepsolid_tpu_torch.ops.cuda.time_kernels import graph_ms
 
-    a = torch.complex(torch.randn((nb, n, n), generator=gen, device=dev),
-                      torch.randn((nb, n, n), generator=gen, device=dev)) / math.sqrt(2 * n)
+    dtype = dtype or torch.complex64
+    c128 = dtype == torch.complex128
+    a = (torch.complex(torch.randn((nb, n, n), generator=gen, device=dev),
+                       torch.randn((nb, n, n), generator=gen, device=dev))
+         / math.sqrt(2 * n)).to(dtype)
     inv_err, sg_err, ld_err = gj_errs(a)
     # Gaussian matrices: the worst-conditioned of 8192 amplifies f32
-    # rounding-order differences to ~1e-3 of the inverse's scale
-    b1_bytes = 2 * a.numel() * 8 + nb * (8 + 4)
+    # rounding-order differences to ~1e-3 of the inverse's scale; the
+    # same amplification of f64's 2^-53 stays below 1e-9
+    tol = 1e-9 if c128 else 5e-3
+    item = a.element_size()  # 8 or 16 bytes a complex entry
+    b1_bytes = 2 * a.numel() * item + nb * (item + item // 2)
     b1_flops = 8.0 * n**3 * nb  # n^3 complex multiply-adds
-    bnd, by = bound_ms(b1_bytes, b1_flops)
+    bnd, by = bound_ms(b1_bytes, b1_flops, PEAK_FP64_TENSOR if c128 else None)
+    extra = ({"bound_ms_fp64_fma": bound_ms(b1_bytes, b1_flops, PEAK_FP64_FMA)[0]}
+             if c128 else {})
     return {
         "name": "gj_inverse_slogdet", "route": "cuda",
         "source": "deepsolid_tpu_torch/ops/cuda/csrc/gj_inverse.cu",
         "replaces": "deepsolid_tpu/ops/pallas/det_kernels.py:172",
-        "per": f"one launch on ({nb}, {n}, {n}) complex64", "path": path,
-        "shapes": [[nb, n, n]],
-        "variant": dk.variant(dk._lib(), n, dev),
+        "per": f"one launch on ({nb}, {n}, {n}) {str(dtype)[6:]}", "path": path,
+        "dtype": str(dtype)[6:], "shapes": [[nb, n, n]],
+        "variant": dk.launcher(dk._lib(), dtype, n, dev)[0],
         "max_abs_err": ld_err, "max_rel_err_inverse": inv_err,
-        "max_abs_err_sign": sg_err, "tolerance": 5e-3,
-        "ok": inv_err <= 5e-3 and ld_err <= 5e-3 and sg_err <= 5e-3,
+        "max_abs_err_sign": sg_err, "tolerance": tol,
+        "ok": inv_err <= tol and ld_err <= tol and sg_err <= tol, **extra,
         "ms": time_ms(lambda: dk.gj_inverse_slogdet(a)),
         "graph_ms": graph_ms(lambda: dk.gj_inverse_slogdet(a)),
         "plain_ms": time_ms(lambda: dk.gj_inverse_slogdet_plain(a), reps=5),
@@ -483,22 +542,36 @@ def recorded(fn):
     return out, key[2]
 
 
-def jet_bytes_flops(t, r, k, c, mix_groups=0):
-    nbytes = 4 * ((t + 2) * r * k + k * c + c + (t + 2) * r * c
-                  + (t + 2) * mix_groups * c)
+def jet_bytes_flops(t, r, k, c, mix_groups=0, item=4):
+    nbytes = item * ((t + 2) * r * k + k * c + c + (t + 2) * r * c
+                     + (t + 2) * mix_groups * c)
     return nbytes, 2.0 * (t + 2) * r * k * c
 
 
-def b3_row(dev, gen, n, groups, path="main", system="", k0=16):
+def jet_bound(nbytes, flops, dtype):
+    """(bound ms, bound_by, extra keys) of a jet row: float64 rows are
+    bound at the FP64 tensor-core peak, with the FMA-only bound beside."""
+    import torch
+
+    if dtype != torch.float64:
+        return (*bound_ms(nbytes, flops), {})
+    return (*bound_ms(nbytes, flops, PEAK_FP64_TENSOR),
+            {"bound_ms_fp64_fma": bound_ms(nbytes, flops, PEAK_FP64_FMA)[0]})
+
+
+def b3_row(dev, gen, n, groups, path="main", system="", k0=16, dtype=None):
     """The mix jet kernel on the three one-electron layers of one E_L chunk
     of `groups` walkers of n electrons (T = 3n; layer 0: k0 -> 256, k0 16
     for two atoms per primitive cell, layers 1, 2: 320 -> 256) against its
-    plain version, timed beside its bound."""
+    plain version, timed beside its bound; float32 or `dtype`."""
     import torch
     from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
 
+    dtype = dtype or torch.float32
+    tol = JET_F64_TOLERANCE if dtype == torch.float64 else 1e-5
+
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     t3, c3 = 3 * n, 256
     err = rel = 0.0
@@ -518,35 +591,39 @@ def b3_row(dev, gen, n, groups, path="main", system="", k0=16):
         total += count * t_k
         plain += count * time_ms(lambda: jk.fused_dense_tanh_jet_mix_plain(*args))
         mm += count * time_ms(lambda: torch.matmul(args[1], args[6]))
-        b_, f_ = jet_bytes_flops(t3, groups * n, k, c3, groups)
+        b_, f_ = jet_bytes_flops(t3, groups * n, k, c3, groups, args[0].element_size())
         nbytes, flops = nbytes + count * b_, flops + count * f_
         del args
     torch.cuda.empty_cache()
-    bnd, by = bound_ms(nbytes, flops)
+    bnd, by, extra = jet_bound(nbytes, flops, dtype)
     return {
         "name": "fused_dense_tanh_jet_mix", "route": "cuda",
         "source": "deepsolid_tpu_torch/ops/cuda/csrc/dense_tanh_jet.cu",
         "replaces": "deepsolid_tpu/ops/pallas/jet_kernels.py:534",
         "per": (f"the three one-electron layers of one {groups}-walker {system}chunk "
                 f"(T={t3}, {groups * n} rows, {k0}->256, 2x 320->256)"),
-        "path": path, "variant": variants,
+        "path": path, "variant": variants, "dtype": str(dtype)[6:],
         "shapes": [[t3, groups * n, k, c3] for k in (k0, 320)],
         "max_abs_err": err, "max_rel_err": rel,
-        "tolerance": 1e-5, "ok": rel <= 1e-5,
+        "tolerance": tol, "ok": rel <= tol,
         "ms": total, "ms_per_shape": ms, "plain_ms": plain,
-        "library_ms": None, "matmul_ms": mm, "bound_ms": bnd, "bound_by": by,
+        "library_ms": None, "matmul_ms": mm, "bound_ms": bnd, "bound_by": by, **extra,
     }
 
 
-def b2_row(dev, gen, n, groups, path="main", system=""):
+def b2_row(dev, gen, n, groups, path="main", system="", dtype=None):
     """The plain jet kernel on the two pair layers of one E_L chunk of
     `groups` walkers of n electrons (T = 6, groups * n^2 rows; 4 -> 32 and
-    32 -> 32) against its plain version, timed beside its bound."""
+    32 -> 32) against its plain version, timed beside its bound; float32
+    or `dtype`."""
     import torch
     from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
 
+    dtype = dtype or torch.float32
+    tol = JET_F64_TOLERANCE if dtype == torch.float64 else 1e-5
+
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     rows, ms, variants = groups * n * n, [], []
     err = rel = 0.0
@@ -562,23 +639,23 @@ def b2_row(dev, gen, n, groups, path="main", system=""):
         variants.append(variant)
         plain += time_ms(lambda: jk.fused_dense_tanh_jet_plain(*args))
         mm += time_ms(lambda: torch.matmul(args[1], args[3]))
-        b_, f_ = jet_bytes_flops(6, rows, k, c)
+        b_, f_ = jet_bytes_flops(6, rows, k, c, item=args[0].element_size())
         nbytes, flops = nbytes + b_, flops + f_
         del args
     torch.cuda.empty_cache()
-    bnd, by = bound_ms(nbytes, flops)
+    bnd, by, extra = jet_bound(nbytes, flops, dtype)
     return {
         "name": "fused_dense_tanh_jet", "route": "cuda",
         "source": "deepsolid_tpu_torch/ops/cuda/csrc/dense_tanh_jet.cu",
         "replaces": "deepsolid_tpu/ops/pallas/jet_kernels.py:263",
         "per": (f"both two-electron layers of one {groups}-walker {system}chunk "
                 f"(T=6, {rows} rows, 4->32 and 32->32)"),
-        "path": path, "variant": variants,
+        "path": path, "variant": variants, "dtype": str(dtype)[6:],
         "shapes": [[6, rows, k, 32] for k in (4, 32)],
         "max_abs_err": err, "max_rel_err": rel,
-        "tolerance": 1e-5, "ok": rel <= 1e-5,
+        "tolerance": tol, "ok": rel <= tol,
         "ms": sum(ms), "ms_per_shape": ms, "plain_ms": plain,
-        "library_ms": None, "matmul_ms": mm, "bound_ms": bnd, "bound_by": by,
+        "library_ms": None, "matmul_ms": mm, "bound_ms": bnd, "bound_by": by, **extra,
     }
 
 
@@ -967,10 +1044,10 @@ def sharded_rank(rank, world_size):
             "scan_el": scan_el, "scan_launches": scan_launches}
 
 
-def scan_el_chunk(cfg, shard=None, scan="on"):
-    """E_L per cell (numpy) of the checkpoint's first EL_CHUNK walkers on
-    the card with DEEPSOLID_TPU_ORB_SCAN=`scan`, over `shard`'s ranks when
-    given, and the kernel launches it made."""
+def scan_el_chunk(cfg, shard=None, scan="on", dtype=None, walkers=EL_CHUNK):
+    """E_L per cell (numpy) of the checkpoint's first `walkers` walkers on
+    the card in float32 (or `dtype`) with DEEPSOLID_TPU_ORB_SCAN=`scan`,
+    over `shard`'s ranks when given, and the kernel launches it made."""
     import numpy as np
     import torch
     from deepsolid_tpu_torch.hamiltonian import make_local_energy
@@ -982,14 +1059,15 @@ def scan_el_chunk(cfg, shard=None, scan="on"):
     sc = cfg.system.cell
     net = build_network(cfg, sc, klist_override=orbital_source(cfg, sc).klist)
     _, data, params, _, _ = restore(find_last_checkpoint(cfg.log.restore_path))
-    x = torch.as_tensor(np.asarray(data[:EL_CHUNK]), dtype=torch.float32, device=dev)
+    dtype = dtype or torch.float32
+    x = torch.as_tensor(np.asarray(data[:walkers]), dtype=dtype, device=dev)
     old = os.environ.get(ORB_SCAN_ENV)
     os.environ[ORB_SCAN_ENV] = scan
     try:
         reset_launches()
         with torch.no_grad():
             ke, ew = make_local_energy(net, sc, shard=shard)(
-                params_from_jax(params, dev, torch.float32), x)
+                params_from_jax(params, dev, dtype), x)
         torch.cuda.synchronize(dev)
         launches = read_launches()
     finally:
@@ -1069,13 +1147,14 @@ def sharded_phase(dev, backend="gloo"):
 # ---------------------------------------------------------------------------
 
 
-def bootstrap_argv(restore_path, save_path):
-    """The command line of the bootstrap phase's C-diamond inference run."""
+def bootstrap_argv(restore_path, save_path, precision="float32", el_chunk=EL_CHUNK):
+    """The command line of the bootstrap phase's C-diamond inference run
+    (and of the float64 phase's, in `precision` at `el_chunk`)."""
     overrides = {
         "optim.optimizer": "none", "optim.iterations": 1, "batch_size": BATCH,
-        "optim.el_chunk": EL_CHUNK, "debug.deterministic": True,
+        "optim.el_chunk": el_chunk, "debug.deterministic": True,
         # diamond_cfg's other settings
-        "precision": "float32", "optim.laplacian_mode": "forward", "mcmc.burn_in": 0,
+        "precision": precision, "optim.laplacian_mode": "forward", "mcmc.burn_in": 0,
         "mcmc.steps": 20, "pretrain.scf": "hf",
         "log.restore_path": restore_path, "log.save_path": save_path,
     }
@@ -1444,10 +1523,11 @@ def production_kfac(cfg):
 
 
 def kfac_phase(dev, mode="fisher_exact", iterations=KFAC_ITERATIONS, phase="kfac",
-               batch=BATCH, psi_chunk=EL_CHUNK):
+               batch=BATCH, psi_chunk=EL_CHUNK, precision="float32", el_chunk=EL_CHUNK):
     """KFAC iterations of estimation mode `mode` at `batch` walkers (the
     checkpoint's 1024 tiled by the elastic restore where larger) and
-    `psi_chunk` (0: unset), continuing the checkpoint's KFAC state."""
+    `psi_chunk` (0: unset), continuing the checkpoint's KFAC state, in
+    `precision` at `el_chunk`."""
     import torch
     from deepsolid_tpu_torch.optim.adam import tree_leaves
     from deepsolid_tpu_torch.train.process import process
@@ -1456,6 +1536,8 @@ def kfac_phase(dev, mode="fisher_exact", iterations=KFAC_ITERATIONS, phase="kfac
     cfg = production_kfac(diamond_cfg("kfac", batch, f"chip_smoke_{phase}_{mode}"))
     cfg.optim.psi_chunk = psi_chunk
     cfg.optim.kfac.estimation_mode = mode
+    cfg.precision, cfg.optim.el_chunk = precision, el_chunk
+    dtype = torch.float64 if precision == "float64" else torch.float32
     shutil.rmtree(cfg.log.save_path, ignore_errors=True)
     t_start, _, _, start_state, _ = restore(find_last_checkpoint(cfg.log.restore_path))
     start_step = int(start_state["step"])
@@ -1496,14 +1578,15 @@ def kfac_phase(dev, mode="fisher_exact", iterations=KFAC_ITERATIONS, phase="kfac
     params_finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
 
     ckpt_ok, factors_finite, ckpt = kfac_checkpoint_ok(
-        cfg.log.save_path, t_start + iterations, batch, 288, params, iters, dev)
+        cfg.log.save_path, t_start + iterations, batch, 288, params, iters, dev, dtype)
 
     keys = ("mcmc", "local_energy", "gradient", "curvature", "update", "step")
     plain = [r for r in iters if not r["adapted"]] or iters
     med = med_seconds
     result = {
         "phase": phase, "optimizer": f"kfac {mode}", "batch": batch,
-        "el_chunk": EL_CHUNK, "psi_chunk": psi_chunk, "iterations": len(iters),
+        "precision": precision,
+        "el_chunk": el_chunk, "psi_chunk": psi_chunk, "iterations": len(iters),
         "damping_adaptation_interval": KFAC_ADAPT_EVERY,
         "seconds": wall, "energy_per_cell": energy,
         "loss_per_cell": [r["energy"] for r in iters],
@@ -1585,10 +1668,12 @@ def med_seconds(key, recs):
     return statistics.median(r["seconds"][key] for r in recs)
 
 
-def kfac_checkpoint_ok(save_path, t_next_want, batch, n3, params, iters, dev):
-    """The last checkpoint of a KFAC run restores: its clock, walkers,
-    parameters and a state at the run's optimizer step, damping and rho
-    with finite factors. Returns (ok, factors finite, file name)."""
+def kfac_checkpoint_ok(save_path, t_next_want, batch, n3, params, iters, dev,
+                       dtype=None):
+    """The last checkpoint of a KFAC run in `dtype` (default float32)
+    restores: its clock, walkers, parameters and a state at the run's
+    optimizer step, damping and rho with finite factors. Returns (ok,
+    factors finite, file name)."""
     import numpy as np
     import torch
     from deepsolid_tpu_torch.optim import kfac as kfac_lib
@@ -1598,15 +1683,17 @@ def kfac_checkpoint_ok(save_path, t_next_want, batch, n3, params, iters, dev):
     ckpt = find_last_checkpoint(save_path)
     if not ckpt:
         return False, False, ""
+    dtype = dtype or torch.float32
+    as_np = np.float64 if dtype == torch.float64 else np.float32
     t_next, data, ck_params, raw, _ = restore(ckpt)
-    state = kfac_lib.state_from_numpy(raw, dev, torch.float32)
+    state = kfac_lib.state_from_numpy(raw, dev, dtype)
     again = kfac_lib.state_to_numpy(state)
     finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(
         [state["blocks"], state["env_blocks"], state["diag"], state["velocities"]]))
     ok = (t_next == t_next_want and data.shape == (batch, n3)
           and int(state["step"]) == iters[-1]["optimizer_step"] + 1
-          and float(state["damping"]) == np.float32(iters[-1]["damping"])
-          and float(state["rho"]) == np.float32(iters[-1]["rho"])
+          and float(state["damping"]) == as_np(iters[-1]["damping"])
+          and float(state["rho"]) == as_np(iters[-1]["rho"])
           and all(np.array_equal(a, b) for a, b in
                   zip(tree_leaves(again), tree_leaves(raw)))
           and all(np.array_equal(a, b.cpu().numpy()) for a, b in
@@ -2750,7 +2837,33 @@ def trace_phase(dev):
     return result
 
 
-def system_el_reference(dev, cfg, klist, params, x):
+def system_el(cfg, klist, params, x, device, dtype, name=None):
+    """(E_L, its Ewald term), complex128 on the host, of the walkers `x`
+    (numpy) under the numpy parameter tree `params` on `device` in
+    `dtype`. The CPU float64 values of a `name`d system are computed once
+    and shared by the reference and float64 phases."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.hamiltonian import make_local_energy
+    from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.train.process import build_network
+
+    key = (name, str(device), dtype)
+    if name is not None and key in _CPU_F64:
+        return _CPU_F64[key]
+    sc = cfg.system.cell
+    el_fn = make_local_energy(build_network(cfg, sc, klist_override=klist), sc)
+    with torch.no_grad():
+        ke, ew = el_fn(params_from_jax(params, device, dtype),
+                       torch.as_tensor(np.asarray(x, np.float64), dtype=dtype,
+                                       device=device))
+    out = (ke + ew).cpu().to(torch.complex128), ew.cpu().to(torch.complex128)
+    if name is not None and device == "cpu" and dtype == torch.float64:
+        _CPU_F64[key] = out
+    return out
+
+
+def system_el_reference(dev, cfg, klist, params, x, name=None):
     """E_L per primitive cell of the walkers `x` (numpy) under the numpy
     parameter tree `params`: the card's f32 kernel path, and the port's
     plain path on the CPU in float32, each against the plain path on the
@@ -2762,19 +2875,11 @@ def system_el_reference(dev, cfg, klist, params, x):
     import numpy as np
     import torch
     from deepsolid_tpu_torch.device import set_full_precision
-    from deepsolid_tpu_torch.hamiltonian import make_local_energy
-    from deepsolid_tpu_torch.models.network import params_from_jax
-    from deepsolid_tpu_torch.train.process import build_network
 
     sc = cfg.system.cell
-    el_fn = make_local_energy(build_network(cfg, sc, klist_override=klist), sc)
-    x = np.asarray(x, np.float64)
 
     def el(device, dtype):
-        with torch.no_grad():
-            ke, ew = el_fn(params_from_jax(params, device, dtype),
-                           torch.as_tensor(x, dtype=dtype, device=device))
-        return (ke + ew).cpu().to(torch.complex128), ew.cpu().to(torch.complex128)
+        return system_el(cfg, klist, params, x, device, dtype, name)
 
     cpu, cpu_ewald = el("cpu", torch.float64)
 
@@ -2796,14 +2901,14 @@ def system_el_reference(dev, cfg, klist, params, x):
     return got
 
 
-def el_reference_record(dev, cfg, klist, params, x):
+def el_reference_record(dev, cfg, klist, params, x, name=None):
     """E_L per primitive cell of the walkers `x` (numpy) under the numpy
     parameters `params`, card f32 against CPU f64 at the reference limits,
     beside the port's own CPU f32 error and the Ewald term's card error;
     the card's TF32 control must fail the limits. Returns the record with
     its check in "ok"."""
     start = time.perf_counter()
-    got = system_el_reference(dev, cfg, klist, params, x)
+    got = system_el_reference(dev, cfg, klist, params, x, name)
     tol_median, tol_max = EL_TOLERANCE_MEDIAN, EL_TOLERANCE_MAX
     (card_median, card_max), (f32_median, f32_max) = got["card"], got["cpu_f32"]
     tf32_median, tf32_max = got["card_tf32"]
@@ -2824,16 +2929,17 @@ def el_reference_record(dev, cfg, klist, params, x):
         "seconds": time.perf_counter() - start}
 
 
-def reference_phase(dev, source, systems):
-    """E_L, the energy gradient and the KFAC update of 8 checkpoint
-    walkers: the card's f32 kernel path against the port's plain path on
-    the CPU in float64. `systems` maps a name to (cfg, k-list, numpy
-    parameters, walkers) of another system whose E_L is held the same
-    way (Si, bcc-Li)."""
+def diamond_values(dev, source, device, dtype, el_only=False):
+    """E_L (complex128 on the host) of the 8 C-diamond checkpoint walkers
+    on `device` in `dtype`, and unless `el_only` the energy gradient's
+    leaves, the KFAC update's leaves (the checkpoint's state takes one
+    curvature update, then the preconditioned step; the update is the
+    step's velocities), the pretraining loss against the cached UHF
+    orbitals and its gradient's leaves. The CPU float64 values are
+    computed once and shared by the reference and float64 phases."""
     import numpy as np
     import torch
     from deepsolid_tpu_torch.configs import diamond
-    from deepsolid_tpu_torch.device import set_full_precision
     from deepsolid_tpu_torch.models.network import params_from_jax
     from deepsolid_tpu_torch.optim import kfac as kfac_lib
     from deepsolid_tpu_torch.optim.adam import learning_rate_schedule, tree_leaves
@@ -2842,66 +2948,69 @@ def reference_phase(dev, source, systems):
     from deepsolid_tpu_torch.train.process import build_network
     from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
 
+    key = ("diamond", str(device), dtype, el_only)
+    if key in _CPU_F64:
+        return _CPU_F64[key]
     cfg = diamond.get_config(CONFIG)
     sc = cfg.system.cell
     net = build_network(cfg, sc, klist_override=source.klist)
-    _, data, params, opt_state, _ = restore(
+    _, data, params_np, opt_state, _ = restore(
         find_last_checkpoint(os.path.join(REPO, "runs", "ckpt_diamond")))
-    x = np.asarray(data[:8], np.float64)
     total_energy = make_loss(net, sc, clip_local_energy=cfg.optim.clip_el,
                              clip_type=cfg.optim.clip_type)
-    gpu_params = params_from_jax(params, dev, torch.float32)
-    gpu_x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    params = params_from_jax(params_np, device, dtype)
+    x = torch.as_tensor(np.asarray(data[:8], np.float64), dtype=dtype, device=device)
 
-    def card_el():
-        _, aux = total_energy(gpu_params, gpu_x)
-        return aux.local_energy.cpu().to(torch.complex128)
+    def host(leaves):
+        return [t.detach().cpu().double() for t in leaves]
 
-    (_, gpu_aux), gpu_grad = total_energy.value_and_grad(gpu_params, gpu_x)
-    gpu = gpu_aux.local_energy.cpu().to(torch.complex128)
-    (_, cpu_aux), cpu_grad = total_energy.value_and_grad(
-        params_from_jax(params, "cpu", torch.float64),
-        torch.as_tensor(x, dtype=torch.float64))
-    cpu = cpu_aux.local_energy
-    # the energy gradient of these 8 walkers: relative error in the global norm
-    diff2 = sum(float(((g.cpu().double() - c) ** 2).sum())
-                for g, c in zip(tree_leaves(gpu_grad), tree_leaves(cpu_grad)))
-    norm2 = sum(float((c ** 2).sum()) for c in tree_leaves(cpu_grad))
-    grad_rel = math.sqrt(diff2 / norm2)
-
-    # the KFAC update of the same walkers and gradients: the checkpoint's
-    # state takes one curvature update, then the preconditioned step; the
-    # update is the step's velocities
-    def kfac_update(p, walkers, grads, device, dtype):
-        opt = kfac_lib.KfacOptimizer.from_config(
-            production_kfac(cfg), net, learning_rate_schedule(cfg))
-        state = kfac_lib.state_from_numpy(opt_state, device, dtype)
-        state = opt.update_curvature(state, p, walkers)
-        return opt.step_fn(p, state, grads, state["damping"])[1]["velocities"]
-
-    gpu_upd = kfac_update(gpu_params, gpu_x, gpu_grad, dev, torch.float32)
-    cpu_upd = kfac_update(params_from_jax(params, "cpu", torch.float64),
-                          torch.as_tensor(x, dtype=torch.float64), cpu_grad,
-                          "cpu", torch.float64)
-    upd_diff2 = sum(float(((g.cpu().double() - c) ** 2).sum())
-                    for g, c in zip(tree_leaves(gpu_upd), tree_leaves(cpu_upd)))
-    upd_norm2 = sum(float((c ** 2).sum()) for c in tree_leaves(cpu_upd))
-    upd_rel = math.sqrt(upd_diff2 / upd_norm2)
-
-    # the pretraining loss against the cached UHF orbitals and its gradient
+    if el_only:
+        _, aux = total_energy(params, x)
+        return {"el": aux.local_energy.cpu().to(torch.complex128)}
+    (_, aux), grads = total_energy.value_and_grad(params, x)
+    opt = kfac_lib.KfacOptimizer.from_config(
+        production_kfac(cfg), net, learning_rate_schedule(cfg))
+    state = opt.update_curvature(kfac_lib.state_from_numpy(opt_state, device, dtype),
+                                 params, x)
+    update = opt.step_fn(params, state, grads, state["damping"])[1]["velocities"]
     pre_vg = pretrain_lib.make_value_and_grad(
         pretrain_lib.make_loss_per_walker(net, source, cfg.network.detnet.full_det))
-    gpu_pre_loss, gpu_pre_grad = pre_vg(gpu_params, gpu_x)
-    cpu_pre_loss, cpu_pre_grad = pre_vg(params_from_jax(params, "cpu", torch.float64),
-                                        torch.as_tensor(x, dtype=torch.float64))
-    pre_loss_rel = abs(float(gpu_pre_loss) - float(cpu_pre_loss)) / abs(float(cpu_pre_loss))
-    pre_diff2 = sum(float(((g.cpu().double() - c) ** 2).sum())
-                    for g, c in zip(tree_leaves(gpu_pre_grad), tree_leaves(cpu_pre_grad)))
-    pre_norm2 = sum(float((c ** 2).sum()) for c in tree_leaves(cpu_pre_grad))
-    pre_grad_rel = math.sqrt(pre_diff2 / pre_norm2)
+    pre_loss, pre_grad = pre_vg(params, x)
+    out = {"el": aux.local_energy.cpu().to(torch.complex128),
+           "grad": host(tree_leaves(grads)), "update": host(tree_leaves(update)),
+           "pre_loss": float(pre_loss), "pre_grad": host(tree_leaves(pre_grad)),
+           "scale": sc.scale}
+    if device == "cpu" and dtype == torch.float64:
+        _CPU_F64[key] = out
+    return out
+
+
+def rel_global(got, want):
+    """Relative error in the global norm of a list of leaves, and the norm."""
+    diff2 = sum(float(((g - w) ** 2).sum()) for g, w in zip(got, want))
+    norm2 = sum(float((w ** 2).sum()) for w in want)
+    return math.sqrt(diff2 / norm2), math.sqrt(norm2)
+
+
+def reference_phase(dev, source, systems):
+    """E_L, the energy gradient and the KFAC update of 8 checkpoint
+    walkers: the card's f32 kernel path against the port's plain path on
+    the CPU in float64. `systems` maps a name to (cfg, k-list, numpy
+    parameters, walkers) of another system whose E_L is held the same
+    way (Si, bcc-Li)."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.device import set_full_precision
+
+    cpu = diamond_values(dev, source, "cpu", torch.float64)
+    gpu = diamond_values(dev, source, dev, torch.float32)
+    grad_rel, grad_norm = rel_global(gpu["grad"], cpu["grad"])
+    upd_rel, upd_norm = rel_global(gpu["update"], cpu["update"])
+    pre_loss_rel = abs(gpu["pre_loss"] - cpu["pre_loss"]) / abs(cpu["pre_loss"])
+    pre_grad_rel, pre_norm = rel_global(gpu["pre_grad"], cpu["pre_grad"])
 
     def diffs(el):
-        d = ((el - cpu).abs() / sc.scale).numpy()
+        d = ((el - cpu["el"]).abs() / cpu["scale"]).numpy()
         return float(np.median(d)), float(d.max())
 
     # f32 against f64 rounding in the kinetic energy's cancelling terms
@@ -2909,17 +3018,18 @@ def reference_phase(dev, source, systems):
     # that and below the TF32 bias the full-f32 policy exists to prevent
     # (-3.7 mHa/atom, 7.4 mHa per 2-atom cell)
     tol_median, tol_max = EL_TOLERANCE_MEDIAN, EL_TOLERANCE_MAX
-    median, worst = diffs(gpu)
+    median, worst = diffs(gpu["el"])
     # control: the same evaluation with TF32 matmuls must fail the check
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     try:
-        tf32_median, tf32_worst = diffs(card_el())
+        tf32_median, tf32_worst = diffs(
+            diamond_values(dev, source, dev, torch.float32, el_only=True)["el"])
     finally:
         set_full_precision()
     result = {
         "phase": "reference", "walkers": 8,
-        "el_cpu_f64_per_cell": (cpu.real / sc.scale).tolist(),
+        "el_cpu_f64_per_cell": (cpu["el"].real / cpu["scale"]).tolist(),
         "median_abs_diff_per_cell": median, "max_abs_diff_per_cell": worst,
         "tolerance_median": tol_median, "tolerance_max": tol_max,
         "tf32_control_median_abs_diff_per_cell": tf32_median,
@@ -2927,15 +3037,15 @@ def reference_phase(dev, source, systems):
         "tf32_control_fails_check": not (tf32_median <= tol_median
                                          and tf32_worst <= tol_max),
         "gradient_rel_err_global_norm": grad_rel,
-        "gradient_global_norm_cpu_f64": math.sqrt(norm2),
+        "gradient_global_norm_cpu_f64": grad_norm,
         "gradient_tolerance": GRADIENT_TOLERANCE,
         "kfac_update_rel_err_global_norm": upd_rel,
-        "kfac_update_global_norm_cpu_f64": math.sqrt(upd_norm2),
+        "kfac_update_global_norm_cpu_f64": upd_norm,
         "kfac_update_tolerance": KFAC_UPDATE_TOLERANCE,
-        "pretrain_loss_cpu_f64": float(cpu_pre_loss),
+        "pretrain_loss_cpu_f64": cpu["pre_loss"],
         "pretrain_loss_rel_err": pre_loss_rel,
         "pretrain_gradient_rel_err_global_norm": pre_grad_rel,
-        "pretrain_gradient_global_norm_cpu_f64": math.sqrt(pre_norm2),
+        "pretrain_gradient_global_norm_cpu_f64": pre_norm,
         "pretrain_loss_tolerance": PRETRAIN_LOSS_TOLERANCE,
         "pretrain_gradient_tolerance": PRETRAIN_GRADIENT_TOLERANCE,
     }
@@ -2943,7 +3053,8 @@ def reference_phase(dev, source, systems):
     # beside the card says how much of the error is f32's, not the kernels',
     # and each system's TF32 control must fail them as diamond's does
     for name, (sys_cfg, klist, sys_params, sys_x) in systems.items():
-        result[name] = el_reference_record(dev, sys_cfg, klist, sys_params, sys_x)
+        result[name] = el_reference_record(dev, sys_cfg, klist, sys_params, sys_x,
+                                           name)
     # a check the TF32 control passes could not guard the precision flags
     result["ok"] = (all(result[name]["ok"] for name in systems)
                     and median <= tol_median and worst <= tol_max
@@ -2956,18 +3067,460 @@ def reference_phase(dev, source, systems):
     return result
 
 
-def profile_phase(dev, cfg, klist, params, x, what):
+@contextlib.contextmanager
+def plain_calls():
+    """Count, by name, every call of a kernel's plain version inside the
+    block (each module's function wrapped): the counter it yields."""
+    import collections
+    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+    from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
+
+    counts = collections.Counter()
+    saved = []
+    for module, name in ((dk, "gj_inverse_slogdet_plain"),
+                         (jk, "fused_dense_tanh_jet_plain"),
+                         (jk, "fused_dense_tanh_jet_mix_plain"),
+                         (jk, "fused_dense_tanh_jet_partial_plain"),
+                         (jk, "fused_dense_tanh_jet_mix_partial_plain")):
+        fn = getattr(module, name)
+
+        def counting(*args, fn=fn, name=name):
+            counts[name] += 1
+            return fn(*args)
+
+        saved.append((module, name, fn))
+        setattr(module, name, counting)
+    try:
+        yield counts
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def float64_bodies_only(shapes):
+    """The launch-shape records whose body is not a float64 one."""
+    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+    from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
+
+    f64 = {dk.BODY_C128, jk.variant_label(jk.FLOAT64)}
+    return [r for r in shapes if r["variant"] not in f64]
+
+
+def open_row(dev, gen, name, cases, dtype):
+    """An open ("partial") jet kernel against its plain version on each of
+    `cases` ((tangents, groups, rows per group, d_in, d_out, count); groups
+    0 for the plain rule), timed beside its bound: the row's shapes are
+    (tangents, rows, d_in, d_out)."""
+    import torch
+    from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    fn, plain = getattr(jk, name), getattr(jk, name + "_plain")
+    err = rel = total = plain_ms = nbytes = flops = 0.0
+    ms, variants = [], []
+    for t, groups, n, k, c, count in cases:
+        if groups:
+            args = (rnd(groups, n, k), rnd(t, groups, n, k), rnd(groups, n, k),
+                    rnd(groups, c), rnd(groups, c), rnd(t, groups, c),
+                    rnd(k, c) / math.sqrt(k), rnd(c))
+        else:
+            args = (rnd(n, k), rnd(t, n, k), rnd(n, k), rnd(k, c) / math.sqrt(k), rnd(c))
+        got, variant = recorded(lambda: fn(*args))
+        e, r_ = max_errs(got, plain(*args))
+        err, rel = max(err, e), max(rel, r_)
+        del got
+        t_k = time_ms(lambda: fn(*args))
+        ms.append(t_k)
+        variants.append(variant)
+        total += count * t_k
+        plain_ms += count * time_ms(lambda: plain(*args))
+        rows = max(groups, 1) * n
+        b_, f_ = jet_bytes_flops(t, rows, k, c, groups, args[0].element_size())
+        nbytes += count * (b_ + args[0].element_size() * rows * c)  # and s_local
+        flops += count * f_
+        del args
+    torch.cuda.empty_cache()
+    bnd, by, extra = jet_bound(nbytes, flops, dtype)
+    tol = JET_F64_TOLERANCE if dtype == torch.float64 else 1e-5
+    return {
+        "name": name, "route": "cuda",
+        "source": "deepsolid_tpu_torch/ops/cuda/csrc/dense_tanh_jet.cu",
+        "replaces": ("deepsolid_tpu/ops/pallas/jet_kernels.py:555" if "mix" in name
+                     else "deepsolid_tpu/ops/pallas/jet_kernels.py:166"),
+        "per": "; ".join(f"{count}x (T_local={t}, {max(groups, 1) * n} rows, {k}->{c})"
+                         for t, groups, n, k, c, count in cases),
+        "dtype": str(dtype)[6:], "variant": variants,
+        "shapes": [[t, max(groups, 1) * n, k, c] for t, groups, n, k, c, _ in cases],
+        "max_abs_err": err, "max_rel_err": rel, "tolerance": tol, "ok": rel <= tol,
+        "ms": total, "ms_per_shape": ms, "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": bnd, "bound_by": by, **extra,
+    }
+
+
+def float64_kernel_rows(dev, gen, el_chunk, b1_path_shapes):
+    """Each float64 body against its float64 plain version on the card: B1
+    (complex128) at the float64 path's shapes (`b1_path_shapes`), at the
+    production shapes of every system and on the edge matrices, B2 and B3
+    on one C-diamond E_L chunk of `el_chunk` walkers, B4a and B4b at the
+    float64 sharded chunk's shapes. Each row lists in "path_shapes" the
+    shapes the float64 path launches."""
+    import torch
+    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+
+    f64, c128 = torch.float64, torch.complex128
+    edge = gj_edge_cases(dev, gen, gj_errs, c128, tol=1e-9)
+    try:  # one past the body's largest matrix: refused before any launch
+        dk.gj_inverse_slogdet(torch.zeros(1, 119, 119, dtype=c128, device=dev))
+        refused = False
+    except ValueError:
+        refused = True
+    b1_shapes = list(dict.fromkeys(list(b1_path_shapes) + list(B1_F64_SHAPES)))
+    rows = [b1_row(dev, gen, nb, n, "float64", c128) for nb, n in b1_shapes]
+    for row in rows:
+        row["path_shapes"] = [s for s in row["shapes"] if tuple(s[:2]) in b1_path_shapes]
+    rows[0].update(edge_cases=edge, refuses_n_119=refused,
+                   ok=rows[0]["ok"] and refused and all(c["ok"] for c in edge))
+    t_loc, w = 3 * 96 // 2, F64_SHARD_WALKERS
+    rows += [b2_row(dev, gen, 96, el_chunk, "float64", dtype=f64),
+             b3_row(dev, gen, 96, el_chunk, "float64", dtype=f64),
+             open_row(dev, gen, "fused_dense_tanh_jet_partial",
+                      [(3, 0, w * 96 * 96, 32, 32, 1), (3, 0, w * 96 * 96, 4, 32, 1)], f64),
+             open_row(dev, gen, "fused_dense_tanh_jet_mix_partial",
+                      [(t_loc, w, 96, 16, 256, 1), (t_loc, w, 96, 320, 256, 2)], f64)]
+    for row in rows:
+        row["path"] = "float64"
+        row.setdefault("path_shapes", row["shapes"][:1] if row["name"] ==
+                       "fused_dense_tanh_jet_partial" else row["shapes"])
+    return rows
+
+
+def float64_sharded_rank(rank, world_size):
+    """One of two deriv ranks sharing the card at float64: one E_L chunk of
+    checkpoint walkers over the ranks (B4b), and the sharded jet algebra's
+    dense_tanh on a pair-shaped float64 jet (B4a)."""
+    import torch
+    from deepsolid_tpu_torch import parallel
+    from deepsolid_tpu_torch.device import set_full_precision
+    from deepsolid_tpu_torch.ops import fwdlap as fl
+
+    set_full_precision()
+    cfg = diamond_cfg("none", SHARD_BATCH, "chip_smoke_float64_sharded",
+                      deriv_devices=world_size)
+    cfg.precision = "float64"
+    shard = parallel.make_mesh(world_size).shard
+    with plain_calls() as plain:
+        el, launches = scan_el_chunk(cfg, shard, scan="off", dtype=torch.float64,
+                                     walkers=F64_SHARD_WALKERS)
+        shapes = read_shapes()
+        dev = torch.device("cuda", torch.cuda.current_device())
+        gen = torch.Generator(device=dev).manual_seed(1)
+        rows, k = F64_SHARD_WALKERS * 96 * 96, 32
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
+
+        jet = fl.Jet(rnd(rows, k), rnd(6, rows, k), rnd(rows, k))
+        w, b = rnd(k, 32) / math.sqrt(k), rnd(32)
+        t_loc = 6 // world_size
+        sl = slice(shard.t0(t_loc), shard.t0(t_loc) + t_loc)
+        reset_launches()
+        got = fl.dense_tanh(fl.Jet(jet.val, jet.jac[sl], jet.lap), w, b, shard=shard)
+        algebra_launches, algebra_shapes = read_launches(), read_shapes()
+        want = fl.dense_tanh(jet, w, b)
+        _, rel = max_errs((got.val, got.jac, got.lap), (want.val, want.jac[sl], want.lap))
+        torch.cuda.synchronize()
+    return {"rank": rank, "el": el, "launches": launches, "launch_shapes": shapes,
+            "algebra_launches": algebra_launches, "algebra_shapes": algebra_shapes,
+            "algebra_max_rel_err": rel, "plain_calls": dict(plain),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def float64_against_cpu(dev, source, systems, f32_reference):
+    """E_L of the reference phase's walkers (8 C-diamond, 8 Si, 2 bcc-Li),
+    the diamond walkers' energy gradient, KFAC update and pretraining loss
+    and gradient, card float64 against CPU float64; the card's float32
+    readings of the reference phase are the control that must fail."""
+    import numpy as np
+    import torch
+
+    f64 = torch.float64
+    cpu = diamond_values(dev, source, "cpu", f64)
+    card = diamond_values(dev, source, dev, f64)
+    d = ((card["el"] - cpu["el"]).abs() / cpu["scale"]).numpy()
+    el = {"diamond": (float(np.median(d)), float(d.max()))}
+    for name, (sys_cfg, klist, sys_params, sys_x) in systems.items():
+        want = system_el(sys_cfg, klist, sys_params, sys_x, "cpu", f64, name)[0]
+        got = system_el(sys_cfg, klist, sys_params, sys_x, dev, f64)[0]
+        d = ((got - want).abs() / sys_cfg.system.cell.scale).numpy()
+        el[name] = (float(np.median(d)), float(d.max()))
+    grad_rel, _ = rel_global(card["grad"], cpu["grad"])
+    upd_rel, _ = rel_global(card["update"], cpu["update"])
+    pre_grad_rel, _ = rel_global(card["pre_grad"], cpu["pre_grad"])
+    pre_loss_rel = abs(card["pre_loss"] - cpu["pre_loss"]) / abs(cpu["pre_loss"])
+    control = {
+        "diamond": f32_reference["max_abs_diff_per_cell"],
+        **{name: f32_reference[name]["max_abs_diff_per_cell"] for name in systems},
+        "gradient": f32_reference["gradient_rel_err_global_norm"],
+        "kfac_update": f32_reference["kfac_update_rel_err_global_norm"]}
+    control_fails = (all(control[k] > F64_EL_TOLERANCE for k in el)
+                     and control["gradient"] > F64_REL_TOLERANCE
+                     and control["kfac_update"] > F64_REL_TOLERANCE)
+    out = {
+        "el_median_max_abs_diff_per_cell": el, "el_tolerance_max": F64_EL_TOLERANCE,
+        "gradient_rel_err_global_norm": grad_rel, "kfac_update_rel_err_global_norm": upd_rel,
+        "pretrain_loss_rel_err": pre_loss_rel,
+        "pretrain_gradient_rel_err_global_norm": pre_grad_rel,
+        "rel_tolerance": F64_REL_TOLERANCE,
+        "float32_control": control, "float32_control_fails_checks": control_fails}
+    out["ok"] = (all(m <= F64_EL_TOLERANCE for _, m in el.values())
+                 and max(grad_rel, upd_rel, pre_grad_rel, pre_loss_rel) <= F64_REL_TOLERANCE
+                 and control_fails)
+    return out
+
+
+def float32_bias(dev, source, el_chunk):
+    """E_L of the 1024 C-diamond checkpoint walkers in float32 and float64
+    on the card: the batch-mean difference per primitive cell, its
+    standard error, the per-walker median and max, beside the 1e-4
+    Ha/atom budget; and the float64 E_L's walkers/s."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.configs import diamond
+    from deepsolid_tpu_torch.hamiltonian import make_local_energy
+    from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.train.process import build_network
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    cfg = diamond.get_config(CONFIG)
+    sc = cfg.system.cell
+    el_fn = make_local_energy(build_network(cfg, sc, klist_override=source.klist), sc)
+    _, data, params_np, _, _ = restore(
+        find_last_checkpoint(os.path.join(REPO, "runs", "ckpt_diamond")))
+    data = data[:BATCH]
+    out, seconds = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        params = params_from_jax(params_np, dev, dtype)
+        x = torch.as_tensor(np.asarray(data, np.float64), dtype=dtype, device=dev)
+        torch.cuda.synchronize(dev)
+        start = time.perf_counter()
+        with torch.no_grad():
+            els = [sum(el_fn(params, x[i:i + el_chunk]))
+                   for i in range(0, len(x), el_chunk)]
+        torch.cuda.synchronize(dev)
+        seconds[dtype] = time.perf_counter() - start
+        out[dtype] = (torch.cat(els).real.double() / sc.scale).cpu().numpy()
+        del params, x, els
+    d = out[torch.float32] - out[torch.float64]
+    return {"walkers": len(d), "el_chunk": el_chunk,
+            "el_mean_f64_per_cell": float(out[torch.float64].mean()),
+            "mean_diff_f32_minus_f64_per_cell": float(d.mean()),
+            "standard_error_per_cell": float(d.std(ddof=1) / math.sqrt(len(d))),
+            "median_abs_diff_per_cell": float(np.median(np.abs(d))),
+            "max_abs_diff_per_cell": float(np.abs(d).max()),
+            "budget_per_cell": F32_BIAS_BUDGET,
+            "seconds_f32": seconds[torch.float32], "seconds_f64": seconds[torch.float64],
+            "walkers_per_s_local_energy_f32": len(d) / seconds[torch.float32],
+            "walkers_per_s_local_energy_f64": len(d) / seconds[torch.float64]}
+
+
+def float64_phase(dev, source, main, north_star, systems, f32_reference, gen):
+    """precision='float64' on the card: C-diamond 2x2x2 at full width from
+    its checkpoint (cast to float64) through process(), with el_chunk and
+    psi_chunk from a float64 probe, one inference and F64_KFAC_ITERATIONS
+    KFAC iterations: every B1 and jet launch on a float64 body, no plain
+    version called, B1's exact count; the inference iteration again through
+    the command line (its energy equal to process()'s within the bootstrap
+    phase's 1e-6 Ha/cell); two deriv ranks on the card (B4a,
+    B4b); card against CPU float64; float32's bias on 1024 walkers; and
+    each float64 body against its plain version. Returns the record and
+    the kernel rows."""
+    import csv
+
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch import parallel
+    from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.train.process import build_network
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    start = time.perf_counter()
+    cfg = production_kfac(diamond_cfg("kfac", BATCH, "chip_smoke_float64_probe"))
+    cfg.precision = "float64"
+    net = build_network(cfg, cfg.system.cell, klist_override=source.klist)
+    _, data, params_np, _, _ = restore(find_last_checkpoint(cfg.log.restore_path))
+    params = params_from_jax(params_np, dev, torch.float64)
+    x = torch.as_tensor(np.asarray(data), dtype=torch.float64, device=dev)
+    probe = memory_probe(dev, cfg, net, params, x, F64_EL_CHUNKS, F64_PSI_CHUNKS)
+    if probe["psi_chunk"] is None:
+        probe["fallback"] = memory_probe(dev, cfg, net, params, x, (),
+                                         F64_FALLBACK_PSI_CHUNKS)
+        probe["psi_chunk"] = probe["fallback"]["psi_chunk"]
+    emit({"phase": "float64_probe", **probe})
+    del params, x
+    torch.cuda.empty_cache()
+    el_chunk, psi_chunk = probe["el_chunk"], probe["psi_chunk"]
+    if el_chunk is None or psi_chunk is None:
+        result = {"phase": "float64", "ok": False, "probe": probe}
+        emit(result)
+        return result, []
+    psi_chunk = 0 if psi_chunk == BATCH else psi_chunk
+    n_psi, n_el = (BATCH // psi_chunk if psi_chunk else 1), BATCH // el_chunk
+    sweep = (cfg.mcmc.steps + 1) * n_psi
+
+    # one inference iteration, then KFAC continuing the checkpoint's state
+    inf_cfg = diamond_cfg("none", BATCH, "chip_smoke_float64_run")
+    inf_cfg.precision, inf_cfg.optim.el_chunk = "float64", el_chunk
+    inf_cfg.optim.psi_chunk = psi_chunk
+    shutil.rmtree(inf_cfg.log.save_path, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with plain_calls() as plain:
+        _, inf_recs, inf_energy, inf_launches = inference_run(inf_cfg, 1)
+        inf_shapes = read_shapes()
+        inf_peak = torch.cuda.max_memory_allocated(dev)
+        kfac = kfac_phase(dev, iterations=F64_KFAC_ITERATIONS, phase="float64_kfac",
+                          batch=BATCH, psi_chunk=psi_chunk, precision="float64",
+                          el_chunk=el_chunk)
+    adapted = sum(kfac["adapted"])
+    b1_want = {"inference": 2 * (sweep + n_el),
+               "kfac": 2 * (kfac["iterations"] * (sweep + n_el + 2 * n_psi)
+                            + adapted * n_el)}
+    b1_got = {"inference": inf_launches["gj_inverse_slogdet"],
+              "kfac": kfac["launches"]["gj_inverse_slogdet"]}
+    not_f64 = float64_bodies_only(inf_shapes + kfac["launch_shapes"])
+
+    # the command line: the same inference iteration through
+    # `python -m deepsolid_tpu_torch --config.precision float64`
+    cli_save = os.path.join(REPO, "build", "chip_smoke_float64_cli")
+    shutil.rmtree(cli_save, ignore_errors=True)
+    torch.cuda.empty_cache()
+    cli_start = time.perf_counter()
+    cli_out = run_session([sys.executable, "-m", "deepsolid_tpu_torch", "--device", "cuda",
+                           *bootstrap_argv(inf_cfg.log.restore_path, cli_save, "float64",
+                                           el_chunk)], timeout=300)
+    cli_seconds = time.perf_counter() - cli_start
+    stats = os.path.join(cli_save, "train_stats.csv")
+    cli_rows = list(csv.DictReader(open(stats))) if os.path.exists(stats) else []
+    cli_energy = float(cli_rows[0]["energy"]) if len(cli_rows) == 1 else float("nan")
+    cli_diff = abs(cli_energy - inf_energy)
+
+    # two deriv ranks sharing the card: the open bodies on the path (each
+    # rank needs ~11 GB, so this process first returns its cached blocks)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    ranks = parallel.run_ranks(float64_sharded_rank, 2, backend="gloo", timeout=600.0)
+    with plain_calls() as plain_unsharded:
+        want_el, _ = scan_el_chunk(inf_cfg, scan="off", dtype=torch.float64,
+                                   walkers=F64_SHARD_WALKERS)
+    shard_diff = max(float(np.abs(r["el"] - want_el).max()) for r in ranks)
+    for r in ranks:
+        not_f64 += float64_bodies_only(r["launch_shapes"] + r["algebra_shapes"])
+    plain_total = (sum(plain.values()) + sum(plain_unsharded.values())
+                   + sum(sum(r["plain_calls"].values()) for r in ranks))
+
+    against_cpu = float64_against_cpu(dev, source, systems, f32_reference)
+    bias = float32_bias(dev, source, el_chunk)
+    profile = profile_phase(dev, inf_cfg, source.klist, params_np, data[:el_chunk],
+                            f"one {el_chunk}-walker C-diamond local-energy chunk "
+                            f"in float64", torch.float64)
+
+    k_rec = {k: kfac[k] for k in (
+        "seconds_per_iteration", "seconds_per_iteration_all", "walkers_per_s_local_energy",
+        "walkers_per_s_iteration_without_adaptation", "walkers_per_s_iteration_all",
+        "peak_memory_bytes", "energy_per_cell", "adapted", "ok")}
+    f32_el = main["walkers_per_s_local_energy_median"]
+    f32_iter = north_star["batch_1024"]["walkers_per_s_iteration_without_adaptation"]
+    result = {
+        "phase": "float64", "config": CONFIG, "batch": BATCH, "precision": "float64",
+        "el_chunk": el_chunk, "psi_chunk": psi_chunk, "probe": probe,
+        "inference": {"seconds": inf_recs[0]["seconds"], "energy_per_cell": inf_energy,
+                      "walkers_per_s_local_energy":
+                          BATCH / inf_recs[0]["seconds"]["local_energy"],
+                      "walkers_per_s_iteration": BATCH / inf_recs[0]["seconds"]["step"],
+                      "peak_memory_bytes": inf_peak, "launches": inf_launches,
+                      "launch_shapes": inf_shapes},
+        "command_line": {"returncode": cli_out.returncode, "seconds": cli_seconds,
+                         "energy_per_cell": cli_energy,
+                         "abs_energy_diff_per_cell_against_process": cli_diff,
+                         "tolerance": BOOTSTRAP_TOLERANCE,
+                         **({"stderr_tail": cli_out.stderr[-3000:]}
+                            if cli_out.returncode else {})},
+        "kfac": k_rec, "kfac_launches": kfac["launches"],
+        "kfac_launch_shapes": kfac["launch_shapes"],
+        "b1_launches": b1_got, "b1_launches_expected": b1_want,
+        "launches_not_on_a_float64_body": not_f64, "plain_version_calls": plain_total,
+        "walkers_per_s_local_energy_f64": k_rec["walkers_per_s_local_energy"],
+        "walkers_per_s_local_energy_f32_main": f32_el,
+        "local_energy_ratio_f64_over_f32": k_rec["walkers_per_s_local_energy"] / f32_el,
+        "walkers_per_s_iteration_f64": k_rec["walkers_per_s_iteration_without_adaptation"],
+        "walkers_per_s_iteration_f32_north_star_1024": f32_iter,
+        "iteration_ratio_f64_over_f32":
+            k_rec["walkers_per_s_iteration_without_adaptation"] / f32_iter,
+        "sharded": {"walkers": F64_SHARD_WALKERS,
+                    "max_abs_el_diff_per_cell": shard_diff,
+                    "tolerance": F64_EL_TOLERANCE,
+                    "launches_per_rank": [r["launches"] for r in ranks],
+                    "algebra_launches_per_rank": [r["algebra_launches"] for r in ranks],
+                    "algebra_max_rel_err": max(r["algebra_max_rel_err"] for r in ranks),
+                    "peak_memory_bytes_per_rank": [r["peak_memory_bytes"] for r in ranks]},
+        "against_cpu_f64": against_cpu, "float32_bias": bias,
+        "profile_device_idle_share": profile["device_idle_share"], "card": nvidia_smi(),
+    }
+    result["ok"] = (
+        kfac["ok"] and b1_got == b1_want and not not_f64 and plain_total == 0
+        and cli_out.returncode == 0 and cli_diff <= BOOTSTRAP_TOLERANCE
+        and all(inf_launches[k] > 0 and kfac["launches"][k] > 0
+                for k in ("fused_dense_tanh_jet", "fused_dense_tanh_jet_mix"))
+        and math.isfinite(inf_energy) and abs(inf_energy - REFERENCE_ENERGY) <= ENERGY_WINDOW
+        and all(r["launches"]["fused_dense_tanh_jet_mix_partial"] == 3
+                and r["launches"]["gj_inverse_slogdet"] == 2
+                and r["algebra_launches"]["fused_dense_tanh_jet_partial"] == 1
+                and r["algebra_max_rel_err"] <= JET_F64_TOLERANCE for r in ranks)
+        and shard_diff <= F64_EL_TOLERANCE and against_cpu["ok"]
+        and math.isfinite(bias["mean_diff_f32_minus_f64_per_cell"]))
+
+    # the kernel rows, each with the float64 path's launches at its shapes
+    rows = float64_kernel_rows(dev, gen, el_chunk,
+                               ((BATCH * 8 // n_psi, 48), (el_chunk * 8, 48)))
+    path = {"launches": {k: inf_launches[k] + kfac["launches"][k] for k in inf_launches},
+            "launch_shapes": inf_shapes + kfac["launch_shapes"]}
+    for r in ranks[:1]:
+        for k in ("fused_dense_tanh_jet_partial", "fused_dense_tanh_jet_mix_partial"):
+            path["launches"][k] += r["launches"][k] + r["algebra_launches"][k]
+        path["launch_shapes"] += r["launch_shapes"] + r["algebra_shapes"]
+    def launched(kernel, shape):
+        return sum(s["launches"] for s in path["launch_shapes"]
+                   if s["kernel"] == kernel and s["shape"] == shape)
+
+    for row in rows:
+        row["launches"] = path["launches"][row["name"]]
+        row["launches_at_shape"] = [launched(row["name"], s) for s in row["shapes"]]
+        emit({"phase": "kernel", **row})
+    # every row holds; every kernel launched on the path, at each shape the
+    # path gives it (the others are the other systems' production shapes)
+    result["kernel_rows_ok"] = all(
+        r["ok"] and r["launches"] > 0
+        and all(launched(r["name"], s) > 0 for s in r["path_shapes"]) for r in rows)
+    result["ok"] = result["ok"] and result["kernel_rows_ok"]
+    result["seconds"] = time.perf_counter() - start
+    emit(result)
+    return result, rows
+
+
+def profile_phase(dev, cfg, klist, params, x, what, dtype=None):
     """Where one local-energy chunk (walkers `x`, numpy parameters `params`)
-    spends the card's time."""
+    spends the card's time, in float32 or `dtype`."""
     import numpy as np
     import torch
     from deepsolid_tpu_torch.hamiltonian import make_local_energy
     from deepsolid_tpu_torch.models.network import params_from_jax
     from deepsolid_tpu_torch.train.process import build_network
 
+    dtype = dtype or torch.float32
     net = build_network(cfg, cfg.system.cell, klist_override=klist)
-    params = params_from_jax(params, dev, torch.float32)
-    x = torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    params = params_from_jax(params, dev, dtype)
+    x = torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
     el_fn = make_local_energy(net, cfg.system.cell)
     return profile_fn(dev, lambda: el_fn(params, x), what)
 
@@ -3201,12 +3754,23 @@ def main() -> int:
     if not full_envelope_phase(dev, si_reference)["ok"]:
         return fail("the full_envelope phase failed its checks (the run, its "
                     "per-atom KFAC blocks, the KFAC update or E_L against CPU f64)")
-    if not reference_phase(dev, source, {"si": si_reference,
-                                         "bcc_li": bcc_li_reference})["ok"]:
+    systems = {"si": si_reference, "bcc_li": bcc_li_reference}
+    reference = reference_phase(dev, source, systems)
+    if not reference["ok"]:
         return fail("card E_L (C-diamond, Si or bcc-Li), its gradient, the "
                     "KFAC update or the pretraining loss or its gradient "
                     "disagrees with the CPU float64 reference, or the TF32 "
                     "control passed the check")
+    float64, shaped = float64_phase(dev, source, main_result, north_star, systems,
+                                    reference, gen)
+    kernels += shaped
+    if not float64["ok"]:
+        return fail("the float64 phase failed its checks (no el_chunk or "
+                    "psi_chunk under the memory limit, the KFAC checks, B1's "
+                    "exact launch count, a launch on a float32 body or a call "
+                    "of a plain version, the sharded E_L, card float64 against "
+                    "CPU float64 or the float32 control, or a float64 body "
+                    "against its plain version or never launched at a path shape)")
     from deepsolid_tpu_torch.configs import diamond
     from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
 
@@ -3222,7 +3786,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi, flush=True)
-    emit({"kernels": [{k: r[k] for k in keys} for r in kernels]})
+    emit({"kernels": [{**{k: r[k] for k in keys}, "dtype": r.get(
+        "dtype", "complex64" if r["name"] == "gj_inverse_slogdet" else "float32")}
+        for r in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -62,6 +62,10 @@
 //     each slice writes its partial square sums to scratch the wrapper
 //     allocates, and a small second kernel closes the Laplacian in a fixed
 //     order (no atomics: two launches on the same inputs agree bit for bit).
+// float64 (precision='float64'): the general variant templated on its
+// scalar type serves every shape and both rules, closed and open, through
+// dense_tanh_jet_launch_f64 (FP64 fma, tanh in double, no TF32 anywhere);
+// the pair and wide variants are float32 only.
 // The open form changes no product: the pair and general variants store
 // the square sum they hold in registers instead of folding it into lap_o
 // (a compile-time flag), and the wide variant runs a second finishing
@@ -79,18 +83,29 @@ constexpr int kBM = 64;        // rows per block
 constexpr int kBK = 16;        // k-slice staged in shared memory
 constexpr int kThreads = 256;  // 16 x 16 threads
 
-template <int TN>
+// The general variant's arithmetic by scalar type: float (the float32
+// runs) or double (the float64 runs; fma and tanh in double).
+__device__ __forceinline__ float fma_s(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_s(double a, double b, double c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ float tanh_s(float x) { return tanhf(x); }
+__device__ __forceinline__ double tanh_s(double x) { return tanh(x); }
+
+template <int TN, typename S>
 struct Tiles {
-  float a[kBM][kBK];
-  float w[kBK][16 * TN];
+  S a[kBM][kBK];
+  S w[kBK][16 * TN];
 };
 
 // acc[i][j] = sum_k A[row0 + ty + 16 i, k] * w[k, col0 + tx + 16 j],
 // zero outside the R x K and K x C ranges.
-template <int TN>
+template <int TN, typename S>
 __device__ __forceinline__ void tile_product(
-    const float* __restrict__ A, const float* __restrict__ w, int R, int K,
-    int C, int row0, int col0, Tiles<TN>& s, float (&acc)[4][TN]) {
+    const S* __restrict__ A, const S* __restrict__ w, int R, int K,
+    int C, int row0, int col0, Tiles<TN, S>& s, S (&acc)[4][TN]) {
   constexpr int BN = 16 * TN;
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -98,7 +113,7 @@ __device__ __forceinline__ void tile_product(
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = S(0);
 
   for (int k0 = 0; k0 < K; k0 += kBK) {
     for (int e = tid; e < kBM * kBK; e += kThreads) {
@@ -107,7 +122,7 @@ __device__ __forceinline__ void tile_product(
       const int gr = row0 + rr;
       const int gk = k0 + kk;
       s.a[rr][kk] =
-          (gr < R && gk < K) ? A[static_cast<size_t>(gr) * K + gk] : 0.f;
+          (gr < R && gk < K) ? A[static_cast<size_t>(gr) * K + gk] : S(0);
     }
     for (int e = tid; e < kBK * BN; e += kThreads) {
       const int kk = e / BN;
@@ -115,13 +130,13 @@ __device__ __forceinline__ void tile_product(
       const int gk = k0 + kk;
       const int gc = col0 + cc;
       s.w[kk][cc] =
-          (gk < K && gc < C) ? w[static_cast<size_t>(gk) * C + gc] : 0.f;
+          (gk < K && gc < C) ? w[static_cast<size_t>(gk) * C + gc] : S(0);
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
-      float av[4];
-      float wv[TN];
+      S av[4];
+      S wv[TN];
 #pragma unroll
       for (int i = 0; i < 4; ++i) av[i] = s.a[ty + 16 * i][kk];
 #pragma unroll
@@ -129,22 +144,22 @@ __device__ __forceinline__ void tile_product(
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] = fma_s(av[i], wv[j], acc[i][j]);
     }
     __syncthreads();
   }
 }
 
-template <int TN, bool MIX, bool OPEN>
+template <int TN, bool MIX, bool OPEN, typename S>
 __global__ void __launch_bounds__(kThreads) dense_tanh_jet_kernel(
-    const float* __restrict__ val, const float* __restrict__ lap,
-    const float* __restrict__ jac, const float* __restrict__ w,
-    const float* __restrict__ b, const float* __restrict__ zbc,
-    const float* __restrict__ lbc, const float* __restrict__ jbc,
-    float* __restrict__ val_o, float* __restrict__ lap_o,
-    float* __restrict__ jac_o, float* __restrict__ sq_o, int T, int R, int K,
+    const S* __restrict__ val, const S* __restrict__ lap,
+    const S* __restrict__ jac, const S* __restrict__ w,
+    const S* __restrict__ b, const S* __restrict__ zbc,
+    const S* __restrict__ lbc, const S* __restrict__ jbc,
+    S* __restrict__ val_o, S* __restrict__ lap_o,
+    S* __restrict__ jac_o, S* __restrict__ sq_o, int T, int R, int K,
     int C, int rows_per_group, int groups) {
-  __shared__ Tiles<TN> s;
+  __shared__ Tiles<TN, S> s;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const int row0 = blockIdx.x * kBM;
@@ -167,59 +182,59 @@ __global__ void __launch_bounds__(kThreads) dense_tanh_jet_kernel(
     col_ok[j] = cols[j] < C;
   }
 
-  float acc[4][TN];
-  float tv[4][TN];  // tanh z; d = 1 - t^2 is recomputed where needed
-  float sq[4][TN];
+  S acc[4][TN];
+  S tv[4][TN];  // tanh z; d = 1 - t^2 is recomputed where needed
+  S sq[4][TN];
 
-  tile_product<TN>(val, w, R, K, C, row0, col0, s, acc);
+  tile_product<TN, S>(val, w, R, K, C, row0, col0, s, acc);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const bool ok = row_ok[i] && col_ok[j];
-      float z = acc[i][j];
+      S z = acc[i][j];
       if (col_ok[j]) z += b[cols[j]];
       if (MIX && ok) z += zbc[static_cast<size_t>(grp[i]) * C + cols[j]];
-      const float t = tanhf(z);
+      const S t = tanh_s(z);
       tv[i][j] = t;
-      sq[i][j] = 0.f;
+      sq[i][j] = S(0);
       if (ok) val_o[static_cast<size_t>(rows[i]) * C + cols[j]] = t;
     }
 
   for (int t = 0; t < T; ++t) {
-    tile_product<TN>(jac + static_cast<size_t>(t) * R * K, w, R, K, C, row0,
-                     col0, s, acc);
+    tile_product<TN, S>(jac + static_cast<size_t>(t) * R * K, w, R, K, C, row0,
+                        col0, s, acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         if (!(row_ok[i] && col_ok[j])) continue;
-        float y = acc[i][j];
+        S y = acc[i][j];
         if (MIX) {
           y += jbc[(static_cast<size_t>(t) * groups + grp[i]) * C + cols[j]];
         }
         jac_o[(static_cast<size_t>(t) * R + rows[i]) * C + cols[j]] =
-            (1.f - tv[i][j] * tv[i][j]) * y;
-        sq[i][j] = fmaf(y, y, sq[i][j]);
+            (S(1) - tv[i][j] * tv[i][j]) * y;
+        sq[i][j] = fma_s(y, y, sq[i][j]);
       }
   }
 
-  tile_product<TN>(lap, w, R, K, C, row0, col0, s, acc);
+  tile_product<TN, S>(lap, w, R, K, C, row0, col0, s, acc);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       if (!(row_ok[i] && col_ok[j])) continue;
-      float yl = acc[i][j];
+      S yl = acc[i][j];
       if (MIX) yl += lbc[static_cast<size_t>(grp[i]) * C + cols[j]];
-      const float t = tv[i][j];
-      const float d = 1.f - t * t;
+      const S t = tv[i][j];
+      const S d = S(1) - t * t;
       const size_t o = static_cast<size_t>(rows[i]) * C + cols[j];
       if (OPEN) {  // the caller sums sq_o over the ranks and closes lap
         lap_o[o] = d * yl;
         sq_o[o] = sq[i][j];
       } else {
-        lap_o[o] = d * yl + (-2.f * t * d) * sq[i][j];
+        lap_o[o] = d * yl + (S(-2) * t * d) * sq[i][j];
       }
     }
 }
@@ -859,19 +874,18 @@ int launch_wide(const float* val, const float* lap, const float* jac,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TN, bool MIX>
-int launch(const float* val, const float* lap, const float* jac,
-           const float* w, const float* b, const float* zbc, const float* lbc,
-           const float* jbc, float* val_o, float* lap_o, float* jac_o,
-           float* sq_o, int T, int R, int K, int C, int rows_per_group,
+template <int TN, bool MIX, typename S>
+int launch(const S* val, const S* lap, const S* jac, const S* w, const S* b,
+           const S* zbc, const S* lbc, const S* jbc, S* val_o, S* lap_o,
+           S* jac_o, S* sq_o, int T, int R, int K, int C, int rows_per_group,
            int groups, cudaStream_t stream) {
   const dim3 grid((R + kBM - 1) / kBM, (C + 16 * TN - 1) / (16 * TN));
   if (sq_o != nullptr) {
-    dense_tanh_jet_kernel<TN, MIX, true><<<grid, kThreads, 0, stream>>>(
+    dense_tanh_jet_kernel<TN, MIX, true, S><<<grid, kThreads, 0, stream>>>(
         val, lap, jac, w, b, zbc, lbc, jbc, val_o, lap_o, jac_o, sq_o, T, R, K,
         C, rows_per_group, groups);
   } else {
-    dense_tanh_jet_kernel<TN, MIX, false><<<grid, kThreads, 0, stream>>>(
+    dense_tanh_jet_kernel<TN, MIX, false, S><<<grid, kThreads, 0, stream>>>(
         val, lap, jac, w, b, zbc, lbc, jbc, val_o, lap_o, jac_o, sq_o, T, R, K,
         C, rows_per_group, groups);
   }
@@ -933,6 +947,36 @@ int dense_tanh_jet_launch(const void* val, const void* lap, const void* jac,
                                     groups, st);
   }
   return mix ? launch<2, true>(v, l, jc, wp, bp, zp, lp, jp, vo, lo, jo, so, T,
+                               R, K, C, rows_per_group, groups, st)
+             : launch<2, false>(v, l, jc, wp, bp, zp, lp, jp, vo, lo, jo, so,
+                                T, R, K, C, rows_per_group, groups, st);
+}
+
+// The float64 form of dense_tanh_jet_launch: the same arguments and
+// layouts in double, every shape on the general variant (no scratch, no
+// slices). Returns the cudaError_t of the launch.
+int dense_tanh_jet_launch_f64(const void* val, const void* lap,
+                              const void* jac, const void* w, const void* b,
+                              const void* zbc, const void* lbc,
+                              const void* jbc, void* val_o, void* lap_o,
+                              void* jac_o, void* sq_out, int T, int R, int K,
+                              int C, int rows_per_group, int groups,
+                              void* stream) {
+  const auto* v = static_cast<const double*>(val);
+  const auto* l = static_cast<const double*>(lap);
+  const auto* jc = static_cast<const double*>(jac);
+  const auto* wp = static_cast<const double*>(w);
+  const auto* bp = static_cast<const double*>(b);
+  const auto* zp = static_cast<const double*>(zbc);
+  const auto* lp = static_cast<const double*>(lbc);
+  const auto* jp = static_cast<const double*>(jbc);
+  auto* vo = static_cast<double*>(val_o);
+  auto* lo = static_cast<double*>(lap_o);
+  auto* jo = static_cast<double*>(jac_o);
+  auto* so = static_cast<double*>(sq_out);
+  auto st = static_cast<cudaStream_t>(stream);
+  return zbc != nullptr
+             ? launch<2, true>(v, l, jc, wp, bp, zp, lp, jp, vo, lo, jo, so, T,
                                R, K, C, rows_per_group, groups, st)
              : launch<2, false>(v, l, jc, wp, bp, zp, lp, jp, vo, lo, jo, so,
                                 T, R, K, C, rows_per_group, groups, st);

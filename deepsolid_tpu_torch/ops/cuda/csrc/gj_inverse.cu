@@ -1,4 +1,5 @@
-// Batched complex64 Gauss-Jordan inverse + slogdet for Hopper (sm_90a).
+// Batched complex Gauss-Jordan inverse + slogdet for Hopper (sm_90a):
+// complex64 (four bodies) and complex128 (the shared-memory body).
 //
 // Replaces the TPU kernel deepsolid_tpu/ops/pallas/det_kernels.py
 // (_gj_kernel, launched by _gj_flat through gj_inverse_slogdet), which
@@ -87,6 +88,14 @@
 //     per matrix in shared memory, warp 0 picks the pivot, one pass per
 //     step applies swap and elimination, three barriers per step.
 // Plain FP32 arithmetic, no fast-math.
+//
+// complex128 (the float64 runs): the shared-memory body, templated on its
+// scalar type, serves every n whose 16 n^2 + 52 n bytes fit a block's
+// shared memory (n <= 118 in the 227 KB an H100 block may opt into;
+// bcc-Li's 81 takes 105 KB). Plain FP64 arithmetic, the same pivot rule
+// with |a|^2 compared in double. Entry points gj_smem_bytes_c128 and
+// gj_inverse_slogdet_launch_c128; a larger n is refused by the wrapper
+// before any launch.
 #include <cuda_runtime.h>
 
 namespace {
@@ -277,22 +286,52 @@ gj_registers_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
 }
 
 // ---- the shared-memory kernel ------------------------------------------------
+//
+// One body for both scalar types: C = float2 (complex64, log|det| in
+// float) or double2 (complex128, log|det| in double, the float64 runs).
+// Its pivot search compares (|a|^2, row) pairs, so the float64 key needs
+// no packing into one word.
 
+template <typename C>
+struct Scalar;
+template <>
+struct Scalar<float2> {
+  using R = float;
+  __device__ static float2 make(float x, float y) { return make_float2(x, y); }
+  __device__ static float rsqrt(float x) { return rsqrtf(x); }
+  __device__ static float log(float x) { return logf(x); }
+};
+template <>
+struct Scalar<double2> {
+  using R = double;
+  __device__ static double2 make(double x, double y) { return make_double2(x, y); }
+  __device__ static double rsqrt(double x) { return ::rsqrt(x); }
+  __device__ static double log(double x) { return ::log(x); }
+};
+
+template <typename C>
+__device__ __forceinline__ C cmul_t(C a, C b) {
+  return Scalar<C>::make(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+template <typename C>
 __global__ void __launch_bounds__(kThreads)
-gj_shared_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
-                 float2* __restrict__ sign_out, float* __restrict__ logdet_out,
-                 int n) {
-  extern __shared__ float2 smem[];
-  float2* m = smem;              // n*n, row-major
-  float2* fcol = m + n * n;      // n: multiplier column of this step
-  float2* rowk = fcol + n;       // n: row k before the step
-  float2* prow = rowk + n;       // n: scaled pivot row
+gj_shared_kernel(const C* __restrict__ a, C* __restrict__ ainv,
+                 C* __restrict__ sign_out,
+                 typename Scalar<C>::R* __restrict__ logdet_out, int n) {
+  using S = Scalar<C>;
+  using R = typename S::R;
+  extern __shared__ __align__(16) unsigned char gj_smem[];
+  C* m = reinterpret_cast<C*>(gj_smem);  // n*n, row-major
+  C* fcol = m + n * n;           // n: multiplier column of this step
+  C* rowk = fcol + n;            // n: row k before the step
+  C* prow = rowk + n;            // n: scaled pivot row
   int* perm = reinterpret_cast<int*>(prow + n);  // n: pivot row per step
 
   __shared__ int s_p;
-  __shared__ float2 s_d;
-  __shared__ float2 s_sign;
-  __shared__ float s_logdet;
+  __shared__ C s_d;
+  __shared__ C s_sign;
+  __shared__ R s_logdet;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -301,25 +340,25 @@ gj_shared_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
   const size_t base = static_cast<size_t>(blockIdx.x) * nn;
   for (int i = tid; i < nn; i += blockDim.x) m[i] = a[base + i];
   if (tid == 0) {
-    s_sign = make_float2(1.f, 0.f);
-    s_logdet = 0.f;
+    s_sign = S::make(R(1), R(0));
+    s_logdet = R(0);
   }
   __syncthreads();
 
   for (int k = 0; k < n; ++k) {
     if (tid < 32) {
-      float best = -1.f;
+      R best = R(-1);
       int bidx = n;
       for (int r = k + tid; r < n; r += 32) {
-        const float2 v = m[r * n + k];
-        const float mag = v.x * v.x + v.y * v.y;
+        const C v = m[r * n + k];
+        const R mag = v.x * v.x + v.y * v.y;
         if (mag > best) {  // rows ascend per lane: strict > keeps the first
           best = mag;
           bidx = r;
         }
       }
       for (int off = 16; off > 0; off >>= 1) {
-        const float ob = __shfl_down_sync(kFull, best, off);
+        const R ob = __shfl_down_sync(kFull, best, off);
         const int oi = __shfl_down_sync(kFull, bidx, off);
         if (ob > best || (ob == best && oi < bidx)) {
           best = ob;
@@ -328,14 +367,14 @@ gj_shared_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
       }
       if (tid == 0) {
         const int p = bidx < n ? bidx : k;  // NaN column: no candidate wins
-        const float2 piv = m[p * n + k];
-        const float den = piv.x * piv.x + piv.y * piv.y;
-        const float inv_den = 1.f / den;
-        const float rs = rsqrtf(den) * (p == k ? 1.f : -1.f);
-        const float2 sg = cmul(s_sign, piv);
-        s_sign = make_float2(sg.x * rs, sg.y * rs);
-        s_logdet += 0.5f * logf(den);
-        s_d = make_float2(piv.x * inv_den, -piv.y * inv_den);
+        const C piv = m[p * n + k];
+        const R den = piv.x * piv.x + piv.y * piv.y;
+        const R inv_den = R(1) / den;
+        const R rs = S::rsqrt(den) * (p == k ? R(1) : R(-1));
+        const C sg = cmul_t(s_sign, piv);
+        s_sign = S::make(sg.x * rs, sg.y * rs);
+        s_logdet += R(0.5) * S::log(den);
+        s_d = S::make(piv.x * inv_den, -piv.y * inv_den);
         s_p = p;
         perm[k] = p;
       }
@@ -343,10 +382,10 @@ gj_shared_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
     __syncthreads();
 
     const int p = s_p;
-    const float2 d = s_d;
+    const C d = s_d;
     for (int j = tid; j < n; j += blockDim.x) {
       rowk[j] = m[k * n + j];
-      prow[j] = cmul(m[p * n + j], d);
+      prow[j] = cmul_t(m[p * n + j], d);
       // multiplier column of the row-swapped matrix
       fcol[j] = (j == p) ? m[k * n + k] : m[j * n + k];
     }
@@ -354,15 +393,15 @@ gj_shared_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
 
     // a warp takes rows warp, warp + 8, ...: no division by the run-time n
     for (int r = warp; r < n; r += kThreads / 32) {
-      const float2 f = fcol[r];
-      const float2 fd = cmul(f, d);
-      float2* row = m + r * n;
+      const C f = fcol[r];
+      const C fd = cmul_t(f, d);
+      C* row = m + r * n;
       for (int j = lane; j < n; j += 32) {
-        const float2 pj = prow[j];
-        const float2 src = (r == p) ? rowk[j] : row[j];
-        const float2 fp = cmul(f, pj);
-        float2 out = make_float2(src.x - fp.x, src.y - fp.y);
-        if (j == k) out = make_float2(-fd.x, -fd.y);
+        const C pj = prow[j];
+        const C src = (r == p) ? rowk[j] : row[j];
+        const C fp = cmul_t(f, pj);
+        C out = S::make(src.x - fp.x, src.y - fp.y);
+        if (j == k) out = S::make(-fd.x, -fd.y);
         if (r == k) out = (j == k) ? d : pj;
         row[j] = out;
       }
@@ -375,7 +414,7 @@ gj_shared_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
     const int q = perm[j];
     if (q != j) {  // uniform across the block: perm lives in shared memory
       for (int r = tid; r < n; r += blockDim.x) {
-        const float2 cj = m[r * n + j];
+        const C cj = m[r * n + j];
         m[r * n + j] = m[r * n + q];
         m[r * n + q] = cj;
       }
@@ -388,6 +427,29 @@ gj_shared_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
     sign_out[blockIdx.x] = s_sign;
     logdet_out[blockIdx.x] = s_logdet;
   }
+}
+
+// Dynamic shared memory of the shared-memory body for n x n matrices of C:
+// the matrix, three rows of C and the pivot rows.
+template <typename C>
+constexpr long long shared_body_bytes(int n) {
+  return static_cast<long long>(n) * n * sizeof(C) + 3LL * n * sizeof(C) +
+         static_cast<long long>(n) * sizeof(int);
+}
+
+// Launches the shared-memory body, opting in above the default 48 KB.
+template <typename C>
+int launch_shared(const C* a, C* ainv, C* sign, typename Scalar<C>::R* logdet,
+                  int batch, int n, cudaStream_t st) {
+  const size_t smem = static_cast<size_t>(shared_body_bytes<C>(n));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gj_shared_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  gj_shared_kernel<C><<<batch, kThreads, smem, st>>>(a, ainv, sign, logdet, n);
+  return static_cast<int>(cudaSuccess);
 }
 
 // ---- the warp kernel ---------------------------------------------------------
@@ -741,8 +803,7 @@ int gj_body(int n) {
 long long gj_smem_bytes(int n) {
   switch (gj_body(n)) {
     case 0:
-      return static_cast<long long>(n) * n * sizeof(float2) +
-             3LL * n * sizeof(float2) + static_cast<long long>(n) * sizeof(int);
+      return shared_body_bytes<float2>(n);
     case 3:
       return mid_tile_bytes(n);
     default:
@@ -793,15 +854,28 @@ int gj_inverse_slogdet_launch(const void* a, void* ainv, void* sign,
       gj_mid_kernel<<<batch, kMidThreads, smem, st>>>(ap, ip, sp, lp, n);
       break;
     }
-    default:
-      if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            gj_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-      }
-      gj_shared_kernel<<<batch, kThreads, smem, st>>>(ap, ip, sp, lp, n);
+    default: {
+      const int err = launch_shared(ap, ip, sp, lp, batch, n, st);
+      if (err != 0) return err;
+    }
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory the complex128 body needs per block for n x n
+// matrices: it is the shared-memory body at every n.
+long long gj_smem_bytes_c128(int n) { return shared_body_bytes<double2>(n); }
+
+// a, ainv: (batch, n, n) complex128; sign: (batch,) complex128; logdet:
+// (batch,) float64. Returns the cudaError_t of the launch.
+int gj_inverse_slogdet_launch_c128(const void* a, void* ainv, void* sign,
+                                   void* logdet, int batch, int n,
+                                   void* stream) {
+  const int err = launch_shared(
+      static_cast<const double2*>(a), static_cast<double2*>(ainv),
+      static_cast<double2*>(sign), static_cast<double*>(logdet), batch, n,
+      static_cast<cudaStream_t>(stream));
+  if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }
 

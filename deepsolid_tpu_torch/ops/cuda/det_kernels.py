@@ -1,16 +1,18 @@
 """Batched complex Gauss-Jordan inverse + slogdet: CUDA kernel and plain version.
 
 Counterpart of deepsolid_tpu/ops/pallas/det_kernels.py. The source
-(csrc/gj_inverse.cu) holds four kernel bodies, chosen by the matrix size
-alone (`variant`, which asks the library's gj_body): three keep a matrix
-in registers, "warp" (n <= 32, one lane per row, two matrices per warp
-for n <= 16), "registers" (n = 48, one warp per matrix) and "mid" (49 <=
-n <= 96, a block of 8 warps per matrix); "shared" keeps it in the shared
-memory of one block, for any other size up to the card's shared-memory
-limit. Every leading batch axis (walkers x determinants) goes into one
-launch. The plain PyTorch version performs the same elimination with the
-same pivot rule, vectorised over the batch; the wrapper takes it only
-for tensors on the CPU.
+(csrc/gj_inverse.cu) holds four complex64 kernel bodies, chosen by the
+matrix size alone (`variant`, which asks the library's gj_body): three
+keep a matrix in registers, "warp" (n <= 32, one lane per row, two
+matrices per warp for n <= 16), "registers" (n = 48, one warp per matrix)
+and "mid" (49 <= n <= 96, a block of 8 warps per matrix); "shared" keeps
+it in the shared memory of one block, for any other size up to the
+card's shared-memory limit. complex128 (precision='float64') takes the
+shared-memory body in double at every n it fits (`variant_c128`; n <= 118
+on an H100). Every leading batch axis (walkers x determinants) goes into
+one launch. The plain PyTorch version performs the same elimination with
+the same pivot rule, vectorised over the batch, in either type; the
+wrapper takes it only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from deepsolid_tpu_torch.ops.cuda import build
 LAUNCHES = {"gj_inverse_slogdet": 0}
 # the kernel bodies by the code gj_body returns
 BODIES = ("shared", "warp", "registers", "mid")
+# the complex128 body: the shared-memory one in double, at every n
+BODY_C128 = "shared, complex128"
 # launches by (kernel, (matrices, n, n), variant), counted beside LAUNCHES
 SHAPES = collections.Counter()
 
@@ -36,7 +40,11 @@ _SIGNATURES = {
     "gj_body": (ctypes.c_int, [ctypes.c_int]),
     "gj_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
     "gj_max_smem_optin": (ctypes.c_int, [ctypes.c_int]),
+    "gj_inverse_slogdet_launch_c128": (
+        ctypes.c_int, [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]),
+    "gj_smem_bytes_c128": (ctypes.c_longlong, [ctypes.c_int]),
 }
+_REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 
 def gj_inverse_slogdet_plain(a: torch.Tensor
@@ -86,42 +94,62 @@ def _lib():
     return build.library("gj_inverse", _SIGNATURES)
 
 
-def variant(lib, n: int, device: torch.device) -> str:
-    """Which kernel body serves n x n matrices, by n alone (one of
-    BODIES); raises for a size whose body needs more shared memory than
-    the card allows a block."""
-    body = BODIES[lib.gj_body(n)]
-    need = lib.gj_smem_bytes(n)
+def _fits(lib, n, need, device):
     if need:
         limit = lib.gj_max_smem_optin(device.index or 0)
         if need > limit:
             raise ValueError(
                 f"{n}x{n} matrices need {need} bytes of shared memory per block; "
                 f"this card allows {limit}. Larger matrices are not supported.")
+
+
+def variant(lib, n: int, device: torch.device) -> str:
+    """Which complex64 kernel body serves n x n matrices, by n alone (one
+    of BODIES); raises for a size whose body needs more shared memory than
+    the card allows a block."""
+    body = BODIES[lib.gj_body(n)]
+    _fits(lib, n, lib.gj_smem_bytes(n), device)
     return body
+
+
+def variant_c128(lib, n: int, device: torch.device) -> str:
+    """The complex128 body (BODY_C128) for n x n matrices; raises, as
+    `variant` does, where the matrix does not fit a block's shared memory."""
+    _fits(lib, n, lib.gj_smem_bytes_c128(n), device)
+    return BODY_C128
+
+
+def launcher(lib, dtype, n: int, device: torch.device):
+    """(body, the library's launch entry) for n x n matrices of `dtype`:
+    complex64 takes the body `variant` names (its launcher branches on n
+    the same way), complex128 the shared-memory body in double."""
+    if dtype == torch.complex128:
+        return variant_c128(lib, n, device), lib.gj_inverse_slogdet_launch_c128
+    return variant(lib, n, device), lib.gj_inverse_slogdet_launch
 
 
 def _gj_cuda(a: torch.Tensor):
     if a.device.type != "cuda":
         raise ValueError(f"gj_inverse_slogdet kernel needs a CUDA tensor, "
                          f"got device {a.device}")
-    if a.dtype != torch.complex64:
-        raise TypeError(f"gj_inverse_slogdet kernel takes complex64, got {a.dtype}")
+    if a.dtype not in _REAL:
+        raise TypeError(f"gj_inverse_slogdet kernel takes complex64 or complex128, "
+                        f"got {a.dtype}")
     if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"expected (..., n, n) matrices, got {tuple(a.shape)}")
     lib = _lib()
     n = a.shape[-1]
-    body = variant(lib, n, a.device)  # the launcher takes the same branch by n
+    body, launch = launcher(lib, a.dtype, n, a.device)
     lead = a.shape[:-2]
     a2 = a.reshape(-1, n, n).contiguous()  # copies only a strided input
     nb = a2.shape[0]
     ainv = torch.empty_like(a2)
-    sign = torch.empty(nb, dtype=torch.complex64, device=a.device)
-    logdet = torch.empty(nb, dtype=torch.float32, device=a.device)
+    sign = torch.empty(nb, dtype=a.dtype, device=a.device)
+    logdet = torch.empty(nb, dtype=_REAL[a.dtype], device=a.device)
     if nb:
         with torch.cuda.device(a.device):
             stream = torch.cuda.current_stream(a.device).cuda_stream
-            code = lib.gj_inverse_slogdet_launch(
+            code = launch(
                 a2.data_ptr(), ainv.data_ptr(), sign.data_ptr(),
                 logdet.data_ptr(), nb, n, stream)
         build.check(lib, code, "gj_inverse_slogdet")
@@ -134,7 +162,7 @@ def gj_inverse_slogdet(a: torch.Tensor):
     """(A^-1, sign, log|det|) of (..., n, n) complex matrices.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (complex64 only) or raise.
+    (complex64 or complex128) or raise.
     """
     if a.device.type == "cpu":
         return gj_inverse_slogdet_plain(a)

@@ -9,8 +9,11 @@ this rank's tangents and the tangent square sum comes back as a fourth
 output, s_local, for the caller to sum over the ranks and close
     lap = lap_part + (-2 v (1 - v^2)) * sum_ranks s_local.
 The wrappers take the plain PyTorch version only for tensors on the CPU.
+float64 tensors (precision='float64') launch the general body in double
+at every shape (`kernel_variant` returns FLOAT64); the pair and wide
+bodies are float32 only. A launch takes one dtype for all its tensors.
 
-Layouts (float32 on the card; T is T_local in the open form):
+Layouts (float32 or float64 on the card; T is T_local in the open form):
   plain rule: val, lap (R, d_in); jac (T, R, d_in); w (d_in, d_out); b (d_out,)
   mix rule:   val, lap (G, n, d_in); jac (T, G, n, d_in); zbc, lbc (G, d_out);
               jbc (T, G, d_out) - G walkers of n rows each.
@@ -36,7 +39,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "dense_tanh_jet_launch": (_I, [_P] * 13 + [_I] * 7 + [_P]),
+    "dense_tanh_jet_launch_f64": (_I, [_P] * 12 + [_I] * 6 + [_P]),
 }
+DTYPES = (torch.float32, torch.float64)
 # the wide variant's block tile and the largest d_in whose column slice of
 # w stays resident in shared memory (kWM, kWN, kWMaxK in csrc/dense_tanh_jet.cu)
 WIDE_ROWS, WIDE_COLS, WIDE_MAX_D_IN = 256, 64, 384
@@ -79,6 +84,7 @@ def wide_slices(t_dim, rows, d_in, d_out, sms):
 # kPC and the launch_pair instantiations in csrc/dense_tanh_jet.cu)
 PAIR_D_OUT, PAIR_D_IN = 32, (4, 32)
 PAIR = -1  # what `kernel_variant` returns for the pair variant
+FLOAT64 = -2  # ... and for any float64 launch: the general body in double
 
 
 def pair_body(d_in, d_out, mixed):
@@ -88,10 +94,13 @@ def pair_body(d_in, d_out, mixed):
     return not mixed and d_out == PAIR_D_OUT and d_in in PAIR_D_IN
 
 
-def kernel_variant(t_dim, rows, d_in, d_out, mixed, sms):
-    """Which kernel body a launch runs, by shape alone: PAIR for the pair
-    variant, a positive count of tangent slices for the wide variant, 0
-    for the general one."""
+def kernel_variant(t_dim, rows, d_in, d_out, mixed, sms, dtype=torch.float32):
+    """Which kernel body a launch runs, by dtype and shape alone: FLOAT64
+    for any float64 launch; in float32 PAIR for the pair variant, a
+    positive count of tangent slices for the wide variant, 0 for the
+    general one."""
+    if dtype == torch.float64:
+        return FLOAT64
     if pair_body(d_in, d_out, mixed):
         return PAIR
     return wide_slices(t_dim, rows, d_in, d_out, sms)
@@ -101,6 +110,8 @@ def variant_label(slices):
     """`kernel_variant`'s answer in words."""
     if slices == PAIR:
         return "pair"
+    if slices == FLOAT64:
+        return "general, float64"
     return f"wide, {slices} tangent slices" if slices > 0 else "general"
 
 
@@ -158,11 +169,17 @@ def _lib():
 
 
 def _check_cuda(name, **tensors):
+    """CUDA tensors of float32 or float64, all of one dtype, or raise."""
+    dtype = None
     for key, x in tensors.items():
         if x.device.type != "cuda":
             raise ValueError(f"{name} kernel needs CUDA tensors; {key} is on {x.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} kernel takes float32; {key} is {x.dtype}")
+        if x.dtype not in DTYPES:
+            raise TypeError(f"{name} kernel takes float32 or float64; {key} is {x.dtype}")
+        if dtype is not None and x.dtype != dtype:
+            raise TypeError(f"{name} kernel takes one dtype; {key} is {x.dtype}, "
+                            f"the tensors before it {dtype}")
+        dtype = x.dtype
 
 
 def _launch(name, val, jac, lap, w, b, mix, rows_per_group, groups,
@@ -193,17 +210,25 @@ def _launch(name, val, jac, lap, w, b, mix, rows_per_group, groups,
         # shared memory). t_dim is this call's own (a rank's T_local in the
         # open form), so scratch and the finishing grid follow `slices`
         sms = torch.cuda.get_device_properties(val.device).multi_processor_count
-        slices = kernel_variant(t_dim, rows, d_in, d_out, mix is not None, sms)
+        slices = kernel_variant(t_dim, rows, d_in, d_out, mix is not None, sms,
+                                val.dtype)
         scratch = (torch.empty((slices, rows, d_out), dtype=val.dtype,
                                device=val.device) if slices > 0 else None)
         ptr = (lambda x: None if x is None else x.data_ptr())
         with torch.cuda.device(val.device):
             stream = torch.cuda.current_stream(val.device).cuda_stream
-            code = lib.dense_tanh_jet_launch(
-                ptr(val), ptr(lap), ptr(jac), ptr(w), ptr(b), ptr(zbc),
-                ptr(lbc), ptr(jbc), ptr(val_o), ptr(lap_o), ptr(jac_o),
-                ptr(scratch), ptr(sq_o), slices, t_dim, rows, d_in, d_out,
-                rows_per_group, groups, stream)
+            if slices == FLOAT64:
+                code = lib.dense_tanh_jet_launch_f64(
+                    ptr(val), ptr(lap), ptr(jac), ptr(w), ptr(b), ptr(zbc),
+                    ptr(lbc), ptr(jbc), ptr(val_o), ptr(lap_o), ptr(jac_o),
+                    ptr(sq_o), t_dim, rows, d_in, d_out, rows_per_group,
+                    groups, stream)
+            else:
+                code = lib.dense_tanh_jet_launch(
+                    ptr(val), ptr(lap), ptr(jac), ptr(w), ptr(b), ptr(zbc),
+                    ptr(lbc), ptr(jbc), ptr(val_o), ptr(lap_o), ptr(jac_o),
+                    ptr(scratch), ptr(sq_o), slices, t_dim, rows, d_in,
+                    d_out, rows_per_group, groups, stream)
         build.check(lib, code, name)
         LAUNCHES[name] += 1
         SHAPES[name, (t_dim, rows, d_in, d_out), variant_label(slices)] += 1

@@ -33,7 +33,9 @@ jet_kernels.kernel_variant chooses; --baseline-slices is the slice count
 the other design is handed at the wide shapes (6 for the 128 x 64-tile
 design); at the pair shapes the other design runs its general kernel
 (slices 0) unless --baseline-pair says it has a pair body of its own. One
-JSON line per shape, with the bytes bound beside the times.
+JSON line per shape, with the bytes bound beside the times, and
+`same_bits`: whether the two designs' outputs on the same inputs agree
+bit for bit (a design that changes no arithmetic must read true).
 """
 
 from __future__ import annotations
@@ -136,6 +138,7 @@ def gj_launcher(lib, a):
             a.data_ptr(), ainv.data_ptr(), sign.data_ptr(), logdet.data_ptr(),
             a.shape[0], a.shape[1], torch.cuda.current_stream().cuda_stream)
         build.check(lib, code, "gj_inverse_slogdet")
+    run.outputs = (ainv, sign, logdet)
     return run
 
 
@@ -162,7 +165,19 @@ def jet_launcher(lib, slices, val, jac, lap, w, b, mix, open_sum):
             ptr(sq_o), slices, t_dim, rows, d_in, d_out, rows // groups,
             groups, stream)
         build.check(lib, code, "dense_tanh_jet")
+    run.outputs = tuple(x for x in (val_o, jac_o, lap_o, sq_o) if x is not None)
     return run
+
+
+def same_bits(current, base):
+    """Whether two launchers' outputs, after their last runs, agree bit for
+    bit; None without a baseline."""
+    import torch
+
+    if base is None:
+        return None
+    torch.cuda.synchronize()
+    return all(torch.equal(x, y) for x, y in zip(current.outputs, base.outputs))
 
 
 def main() -> None:
@@ -209,6 +224,7 @@ def main() -> None:
         bound = max(2 * a.numel() * 8 / PEAK_BYTES, 8.0 * n**3 * nb / PEAK_FP32)
         print(json.dumps({"kernel": "gj_inverse_slogdet", "shape": [nb, n, n],
                           "body": dk.variant(gj, n, dev), "ms": ms,
+                          "same_bits": same_bits(current, other),
                           "baseline_ms": base, "graph_ms": dev_ms,
                           "baseline_graph_ms": dev_base, "bound_ms": bound * 1e3,
                           "wrapper_ms": time_ms(lambda: dk.gj_inverse_slogdet(a))}),
@@ -228,14 +244,16 @@ def main() -> None:
 
         base_slices = ((args.baseline_slices or chosen) if wide
                        else chosen if args.baseline_pair else 0)
-        ms, base = in_turns(launcher(jet, chosen),
-                            launcher(jet_base, base_slices) if jet_base else None)
+        current = launcher(jet, chosen)
+        other = launcher(jet_base, base_slices) if jet_base else None
+        ms, base = in_turns(current, other)
         nbytes = 4 * ((t_dim + 2) * rows * (d_in + d_out) + d_in * d_out + d_out
                       + (rows * d_out if open_sum else 0))
         print(json.dumps({
             "kernel": "dense_tanh_jet", "T": t_dim, "rows": rows, "d_in": d_in,
             "d_out": d_out, "mix": mixed, "open": open_sum, "slices": chosen,
             "ms": ms, "baseline_slices": base_slices if jet_base else None,
+            "same_bits": same_bits(current, other),
             "baseline_ms": base,
             "ms_by_slices": {s: time_ms(launcher(jet, s)) for s in sweep} if wide else {},
             "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,

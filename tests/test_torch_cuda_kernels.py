@@ -59,8 +59,8 @@ def test_gj_kernel_matches_plain(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         tdk.gj_inverse_slogdet(torch.zeros(1, 400, 400, dtype=torch.complex64,
                                            device=cuda_device))
-    with pytest.raises(TypeError):
-        tdk.gj_inverse_slogdet(torch.zeros(1, 4, 4, dtype=torch.complex128,
+    with pytest.raises(TypeError):  # real matrices are no input of the kernel
+        tdk.gj_inverse_slogdet(torch.zeros(1, 4, 4, dtype=torch.float32,
                                            device=cuda_device))
 
 
@@ -240,3 +240,106 @@ def test_dense_tanh_jet_mix_partial_recombines(cuda_device, t_dim, groups, n,
     torch.testing.assert_close(closed, l, **TOL)
     # 1e-5 of the Laplacian's scale: the same products, partial sums in another order
     assert float((closed - l).abs().max()) <= 1e-5 * float(l.abs().max())
+
+
+# ---- float64 (precision='float64'): the complex128 and float64 bodies -------
+
+# f64 on the card against f64 plain versions: sums in another order
+TOL64 = dict(rtol=1e-10, atol=1e-10)
+C128_MAX_N = 118  # the largest complex128 matrix a block's shared memory holds
+
+
+@pytest.mark.cuda
+def test_gj_complex128_body_matches_plain(cuda_device):
+    rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(10), cuda_device)
+    for n in (1, 5, 14, 16, 48, 81, 100, C128_MAX_N):
+        a = (torch.complex(rnd(64, n, n), rnd(64, n, n))
+             + 4.0 * torch.eye(n, device=cuda_device)).to(torch.complex128)
+        key = ("gj_inverse_slogdet", (64, n, n), tdk.BODY_C128)
+        before = tdk.SHAPES[key]
+        got = tdk.gj_inverse_slogdet(a)
+        assert tdk.SHAPES[key] == before + 1, n
+        assert got[0].dtype == got[1].dtype == torch.complex128
+        assert got[2].dtype == torch.float64
+        for x, y in zip(got, tdk.gj_inverse_slogdet_plain(a)):
+            torch.testing.assert_close(x, y, **TOL64)
+        # no atomics: a second launch agrees bit for bit
+        for x, y in zip(got, tdk.gj_inverse_slogdet(a)):
+            assert torch.equal(x, y), n
+    with pytest.raises(ValueError, match="shared memory"):
+        tdk.gj_inverse_slogdet(torch.zeros(1, C128_MAX_N + 1, C128_MAX_N + 1,
+                                           dtype=torch.complex128, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [48, 14, 81])
+@pytest.mark.parametrize("case", ["anti_diagonal", "permutation", "tie",
+                                  "zero_pivot", "nan_entry"])
+def test_gj_complex128_edge_matrices(cuda_device, n, case):
+    """The pivot rule's corner cases in complex128 against the plain
+    version: the same pivots, -inf for a zero pivot, NaN confined."""
+    dev = cuda_device
+    rnd = _rnd(torch.Generator(device=dev).manual_seed(11), dev)
+    eye = torch.eye(n, device=dev, dtype=torch.complex128)
+    a = torch.complex(rnd(2, n, n), rnd(2, n, n)).to(torch.complex128)
+    if case == "anti_diagonal":
+        a = torch.flip(eye, [1])[None]
+    elif case == "permutation":
+        a = torch.roll(eye, 5, 0)[None]
+    elif case == "tie":
+        a[:, 3, 0], a[:, 7, 0] = 5.0, 5.0j
+    elif case == "zero_pivot":
+        a[:, :, 7] = 0
+    else:
+        a[0, 3, 4] = float("nan")
+    got, want = tdk.gj_inverse_slogdet(a), tdk.gj_inverse_slogdet_plain(a)
+    torch.cuda.synchronize()
+    if case in ("zero_pivot", "nan_entry"):
+        assert torch.equal(torch.isfinite(got[2]), torch.isfinite(want[2]))
+        assert not torch.isfinite(got[2][0])
+        if case == "nan_entry":
+            torch.testing.assert_close(got[2][1], want[2][1], **TOL64)
+        return
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, **TOL64)
+    if case != "tie":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1].real, want[1].real)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("open_sum", [False, True], ids=["closed", "open"])
+@pytest.mark.parametrize("mixed", [False, True], ids=["plain", "mix"])
+@pytest.mark.parametrize("t_dim,groups,n,d_in,d_out", [
+    (6, 3, 300, 32, 32),    # a pair shape (the pair body in float32)
+    (9, 3, 10, 20, 40),     # general in float32 too
+    (50, 5, 77, 320, 256),  # a wide shape, ragged rows and tangents
+    (0, 2, 7, 4, 32),       # no tangent at all
+])
+def test_jet_float64_body_matches_plain(cuda_device, t_dim, groups, n, d_in,
+                                        d_out, mixed, open_sum):
+    """Every rule and form at float64 takes the general body in double,
+    against its float64 plain version, and two launches agree bit for bit."""
+    rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(12), cuda_device)
+
+    def r(*s):
+        return rnd(*s).double()
+
+    name = "fused_dense_tanh_jet" + ("_mix" if mixed else "") + ("_partial" if open_sum else "")
+    if mixed:
+        args = (r(groups, n, d_in), r(t_dim, groups, n, d_in), r(groups, n, d_in),
+                r(groups, d_out), r(groups, d_out), r(t_dim, groups, d_out),
+                r(d_in, d_out) / d_in**0.5, r(d_out))
+    else:
+        args = (r(groups * n, d_in), r(t_dim, groups * n, d_in), r(groups * n, d_in),
+                r(d_in, d_out) / d_in**0.5, r(d_out))
+    key = (name, (t_dim, groups * n, d_in, d_out), "general, float64")
+    before, shape_before = tjk.LAUNCHES[name], tjk.SHAPES[key]
+    got = getattr(tjk, name)(*args)
+    assert tjk.LAUNCHES[name] == before + 1 and tjk.SHAPES[key] == shape_before + 1
+    want = getattr(tjk, name + "_plain")(*args)
+    assert len(got) == len(want) == (4 if open_sum else 3)
+    for x, y in zip(got, want):
+        assert x.dtype == torch.float64 and x.shape == y.shape
+        torch.testing.assert_close(x, y, **TOL64)
+    for x, y in zip(got, getattr(tjk, name)(*args)):
+        assert torch.equal(x, y)

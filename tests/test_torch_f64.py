@@ -1,0 +1,311 @@
+"""precision='float64' in the port: the kernels' float64 dispatch and plain
+versions, and a float64 run's checkpoint in a float32 run and back.
+
+On the CPU the wrappers take the plain versions, so the dispatch to the
+float64 bodies is held with a stand-in for the built library (as
+test_torch_kernels.py does for the complex64 bodies) and with tensors on
+the `meta` device; the bodies themselves run on the card
+(tests/test_torch_cuda_kernels.py, chip_smoke.py's float64 phase). The
+plain float64 versions are held against the JAX package at float64,
+which takes its LAPACK and jnp paths there (no Pallas kernel runs in
+float64).
+"""
+
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepsolid_tpu.ops import fwdlap as jfl
+from deepsolid_tpu_torch.ops.cuda import build
+from deepsolid_tpu_torch.ops.cuda import det_kernels as tdk
+from deepsolid_tpu_torch.ops.cuda import jet_kernels as tjk
+from test_torch_kernels import _FakeGjLibrary, _forbid
+
+# the largest n whose complex128 matrix fits a block's 227 KB on an H100
+C128_MAX_N = 118
+
+
+class _FakeGjLibraryC128(_FakeGjLibrary):
+    """The complex128 size rule of csrc/gj_inverse.cu beside the complex64
+    one: the shared-memory body at every n, 16 n^2 + 3 x 16 n + 4 n bytes
+    (the matrix, three rows of double2 and the pivot rows), and each launch
+    entry a function of its own name."""
+
+    def gj_smem_bytes_c128(self, n):
+        return n * n * 16 + 3 * n * 16 + n * 4
+
+    def gj_inverse_slogdet_launch(self, *args):
+        return "complex64 entry"
+
+    def gj_inverse_slogdet_launch_c128(self, *args):
+        return "complex128 entry"
+
+
+@pytest.mark.parametrize("n", [1, 5, 6, 14, 16, 48, 81, 100, C128_MAX_N])
+def test_gj_c128_takes_the_shared_body_where_it_fits(n):
+    lib, dev = _FakeGjLibraryC128(), torch.device("cuda", 0)
+    assert tdk.variant_c128(lib, n, dev) == tdk.BODY_C128
+    body, entry = tdk.launcher(lib, torch.complex128, n, dev)
+    assert body == tdk.BODY_C128 and entry() == "complex128 entry"
+    # complex64 keeps its own bodies and entry at the same n
+    body, entry = tdk.launcher(lib, torch.complex64, n, dev)
+    assert body == tdk.variant(lib, n, dev) and entry() == "complex64 entry"
+
+
+@pytest.mark.parametrize("n", [C128_MAX_N + 1, 168, 400])
+def test_gj_c128_beyond_the_body_raises_before_a_launch(n):
+    """No fallback: a complex128 matrix that does not fit a block raises,
+    also where the complex64 bodies still serve (up to 168)."""
+    lib, dev = _FakeGjLibraryC128(), torch.device("cuda", 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        tdk.launcher(lib, torch.complex128, n, dev)
+    if n <= 168:
+        assert tdk.launcher(lib, torch.complex64, n, dev)[0] == "shared"
+
+
+def test_gj_c128_fake_library_follows_the_source():
+    """_FakeGjLibraryC128's size rule and the wrapper's signatures are the
+    ones csrc/gj_inverse.cu states."""
+    text = (build.CSRC / "gj_inverse.cu").read_text()
+    assert "long long gj_smem_bytes_c128(int n) { return shared_body_bytes<double2>(n); }" in text
+    assert ("return static_cast<long long>(n) * n * sizeof(C) + 3LL * n * sizeof(C) +\n"
+            "         static_cast<long long>(n) * sizeof(int);") in text
+    assert "return shared_body_bytes<float2>(n);" in text  # complex64's shared body
+    assert re.search(r"int gj_inverse_slogdet_launch_c128\(const void\* a, void\* ainv, "
+                     r"void\* sign,\s+void\* logdet, int batch, int n,\s+void\* stream\)",
+                     text)
+    restype, argtypes = tdk._SIGNATURES["gj_inverse_slogdet_launch_c128"]
+    assert len(argtypes) == 7 and argtypes == tdk._SIGNATURES["gj_inverse_slogdet_launch"][1]
+    # 118 fits the 232448 bytes an H100 block may opt into, 119 does not
+    lib = _FakeGjLibraryC128()
+    assert lib.gj_smem_bytes_c128(C128_MAX_N) <= 232448 < lib.gj_smem_bytes_c128(C128_MAX_N + 1)
+
+
+def test_gj_wrapper_asks_the_c128_rule_for_complex128(monkeypatch):
+    """A complex128 tensor on the card consults variant_c128 (and raises
+    beyond it) and a complex64 one the complex64 rule; neither reaches the
+    plain version, and another dtype raises before either."""
+    _forbid(monkeypatch, tdk, "gj_inverse_slogdet_plain")
+    monkeypatch.setattr(tdk, "_lib", lambda: _FakeGjLibraryC128())
+    asked = []
+    for name in ("variant", "variant_c128"):
+        real = getattr(tdk, name)
+
+        def record(lib, n, dev, real=real, name=name):
+            asked.append((name, n))
+            return real(lib, n, dev)
+
+        monkeypatch.setattr(tdk, name, record)
+
+    class _OnCard:  # a tensor's face, as far as the checks before the launch look
+        device = torch.device("cuda", 0)
+        dtype = torch.complex128
+        ndim = 3
+        shape = (2, 400, 400)
+
+    with pytest.raises(ValueError, match="shared memory"):
+        tdk._gj_cuda(_OnCard())
+    for n in (14, 48, 81):
+        _OnCard.shape = (2, n, n)
+        with pytest.raises(AttributeError):  # the face has no storage
+            tdk._gj_cuda(_OnCard())
+    _OnCard.dtype = torch.complex64
+    with pytest.raises(AttributeError):
+        tdk._gj_cuda(_OnCard())
+    assert asked == [("variant_c128", 400), ("variant_c128", 14), ("variant_c128", 48),
+                     ("variant_c128", 81), ("variant", 81)]
+    _OnCard.dtype = torch.float64  # a real matrix is no input of the kernel
+    with pytest.raises(TypeError, match="complex64 or complex128"):
+        tdk._gj_cuda(_OnCard())
+
+
+# ---- the jet kernels in float64 ---------------------------------------------
+
+
+@pytest.mark.parametrize("shape,mixed", [
+    ((6, 64 * 96 * 96, 4, 32), False),    # B2's pair shape: pair in float32
+    ((3, 64 * 96 * 96, 32, 32), False),   # B4a's pair shape
+    ((288, 6144, 320, 256), True),        # B3: wide in float32
+    ((144, 6144, 16, 256), True),         # B4b
+    ((9, 30, 20, 40), True),              # general in float32 too
+])
+def test_jet_float64_launches_name_the_float64_body(shape, mixed):
+    t_dim, rows, d_in, d_out = shape
+    got = tjk.kernel_variant(t_dim, rows, d_in, d_out, mixed, 132, torch.float64)
+    assert got == tjk.FLOAT64
+    assert tjk.variant_label(got) == "general, float64"
+    # float32 is chosen as before, by shape alone
+    assert tjk.kernel_variant(t_dim, rows, d_in, d_out, mixed, 132) == \
+        tjk.kernel_variant(t_dim, rows, d_in, d_out, mixed, 132, torch.float32) != tjk.FLOAT64
+
+
+def test_jet_float64_entry_follows_the_source():
+    """The float64 entry's parameters in csrc/dense_tanh_jet.cu are the
+    ones the wrapper binds: 12 pointers, 6 ints and the stream."""
+    text = (build.CSRC / "dense_tanh_jet.cu").read_text()
+    m = re.search(r"int dense_tanh_jet_launch_f64\(([^)]*)\)", text)
+    params = [p.strip() for p in m.group(1).split(",")]
+    kinds = ["int" if p.startswith("int ") else "ptr" for p in params]
+    assert kinds == ["ptr"] * 12 + ["int"] * 6 + ["ptr"]
+    _, argtypes = tjk._SIGNATURES["dense_tanh_jet_launch_f64"]
+    assert len(argtypes) == len(params)
+    assert "template <int TN, bool MIX, bool OPEN, typename S>" in text
+    assert "double fma_s(double a, double b, double c) {\n  return fma(a, b, c);" in text
+    assert "double tanh_s(double x) { return tanh(x); }" in text
+
+
+class _Face:
+    """A tensor's face on the card, as far as the wrappers' checks look."""
+
+    def __init__(self, dtype):
+        self.device = torch.device("cuda", 0)
+        self.dtype = dtype
+
+
+@pytest.mark.parametrize("name,n_args", [
+    ("fused_dense_tanh_jet", 5), ("fused_dense_tanh_jet_partial", 5),
+    ("fused_dense_tanh_jet_mix", 8), ("fused_dense_tanh_jet_mix_partial", 8)])
+def test_jet_wrappers_take_one_dtype(name, n_args, monkeypatch):
+    """float32 val with float64 w (or any mix) raises TypeError; all
+    float64 passes the checks (and then meets the face's missing storage);
+    another dtype raises. No plain version is reached."""
+    _forbid(monkeypatch, tjk, name + "_plain")
+    fn = getattr(tjk, name)
+    mixed = [_Face(torch.float32)] + [_Face(torch.float64)] * (n_args - 1)
+    with pytest.raises(TypeError, match="one dtype"):
+        fn(*mixed)
+    mixed = [_Face(torch.float64)] * (n_args - 1) + [_Face(torch.float32)]
+    with pytest.raises(TypeError, match="one dtype"):
+        fn(*mixed)
+    with pytest.raises(AttributeError):
+        fn(*[_Face(torch.float64)] * n_args)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        fn(*[_Face(torch.float16)] * n_args)
+
+
+# ---- the plain float64 versions against the JAX package at float64 ----------
+
+
+def _complex128(shape, seed):
+    rng = np.random.RandomState(seed)
+    return rng.randn(*shape) + 1j * rng.randn(*shape)
+
+
+@pytest.mark.parametrize("b,n", [(4, 48), (2, 81), (16, 14)])
+def test_gj_plain_complex128_matches_jax_lapack(b, n):
+    """The plain version the complex128 body is held against on the card,
+    against JAX's float64 det_factor (LU, its LAPACK path): 1e-12 relative
+    to the inverse's scale, 1e-12 in sign and log|det| (Gaussian matrices
+    with a diagonal shift, condition numbers of a few tens)."""
+    a = _complex128((b, n, n), seed=n) / np.sqrt(2 * n) + 2.0 * np.eye(n)
+    ainv, sign, logdet = tdk.gj_inverse_slogdet_plain(torch.from_numpy(a))
+    assert ainv.dtype == torch.complex128 and logdet.dtype == torch.float64
+    want = [np.asarray(x) for x in jfl.det_factor(jnp.asarray(a))]
+    scale = np.abs(want[0]).max()
+    np.testing.assert_allclose(ainv.numpy(), want[0], rtol=0, atol=1e-12 * scale)
+    np.testing.assert_allclose(sign.numpy(), want[1], rtol=0, atol=1e-12)
+    np.testing.assert_allclose(logdet.numpy(), want[2], rtol=0, atol=1e-12)
+
+
+def _jet(shape, t_dim, rng):
+    return (rng.randn(*shape), rng.randn(t_dim, *shape), rng.randn(*shape))
+
+
+def test_jet_plain_float64_matches_jax():
+    """The plain and mix rules in float64 (and the open forms, closed over
+    two pieces of the tangent axis) against JAX's jnp jet rules at float64:
+    1e-12 relative to each output's scale."""
+    rng = np.random.RandomState(12)
+    t_dim, groups, n, d_in, d_rc, d_out = 9, 3, 5, 12, 7, 16
+    val, jac, lap = _jet((groups * n, d_in), t_dim, rng)
+    w, b = rng.randn(d_in, d_out) / np.sqrt(d_in), rng.randn(d_out)
+
+    def close(got, want):
+        for g, w_ in zip(got, want):
+            w_ = np.asarray(w_)
+            np.testing.assert_allclose(g.numpy(), w_, rtol=0,
+                                       atol=1e-12 * np.abs(w_).max())
+
+    want = jfl.dense_tanh(jfl.Jet(*map(jnp.asarray, (val, jac, lap))),
+                          jnp.asarray(w), jnp.asarray(b))
+    want = (want.val, want.jac, want.lap)
+    t = [torch.from_numpy(x) for x in (val, jac, lap, w, b)]
+    close(tjk.fused_dense_tanh_jet_plain(*t), want)
+    cut = slice(0, 4), slice(4, t_dim)
+    parts = [tjk.fused_dense_tanh_jet_partial_plain(t[0], t[1][c], *t[2:]) for c in cut]
+    close((parts[0][0], torch.cat([p[1] for p in parts]),
+           tjk.close_laplacian(parts[0][0], parts[0][2], parts[0][3] + parts[1][3])),
+          want)
+
+    # the mix rule: G walkers of n rows, a row-constant jet per walker
+    rv = [x.reshape(x.shape[:-2] + (groups, n, d_in)) for x in (val, jac, lap)]
+    rc = _jet((groups, 1, d_rc), t_dim, rng)
+    w_rc = rng.randn(d_rc, d_out) / np.sqrt(d_rc)
+    want = jfl.dense_tanh_mix(jfl.Jet(*map(jnp.asarray, rv)),
+                              jfl.Jet(*map(jnp.asarray, rc)),
+                              jnp.asarray(w), jnp.asarray(w_rc), jnp.asarray(b))
+    want = (want.val, want.jac, want.lap)
+    zbc, lbc = ((x @ w_rc).reshape(groups, d_out) for x in (rc[0], rc[2]))
+    jbc = (rc[1] @ w_rc).reshape(t_dim, groups, d_out)
+    args = [torch.from_numpy(x) for x in (*rv, zbc, lbc, jbc, w, b)]
+    close(tjk.fused_dense_tanh_jet_mix_plain(*args), want)
+    parts = [tjk.fused_dense_tanh_jet_mix_partial_plain(
+        args[0], args[1][c], args[2], args[3], args[4], args[5][c], *args[6:])
+        for c in cut]
+    close((parts[0][0], torch.cat([p[1] for p in parts]),
+           tjk.close_laplacian(parts[0][0], parts[0][2], parts[0][3] + parts[1][3])),
+          want)
+
+
+# ---- a float64 run's checkpoint in a float32 run, and back --------------------
+
+
+def test_float64_checkpoint_restores_into_float32_and_back(tmp_path):
+    """KFAC iterations in float64 write a checkpoint that a float32 run
+    restores and continues, and the float32 run's checkpoint continues in
+    float64: each run's parameters and walkers take its own dtype, and each
+    continuation stays within float32 rounding (1e-4 relative) of the
+    run that stayed in float64."""
+    import shutil
+
+    from deepsolid_tpu_torch.train import process as tprocess
+    from deepsolid_tpu_torch.utils import checkpoint as tckpt
+    from deepsolid_tpu_torch.utils.tree import tree_leaves
+    from test_torch_training import flat, seed_state, torch_cfg, write_start
+
+    _, _, params, x = seed_state(n_walkers=8, seed=5)
+
+    def run(path, precision, iterations):
+        cfg = torch_cfg(path, optimizer="kfac", iterations=iterations, el_chunk=4)
+        cfg.precision = precision
+        cfg.optim.lr.rate = 1e-3
+        out, data, _ = tprocess.process(cfg, device="cpu")
+        want = {"float32": torch.float32, "float64": torch.float64}[precision]
+        assert data.dtype == want and all(
+            p.dtype == want for p in tree_leaves(out))
+        return out
+
+    def last(path):
+        return tckpt.restore(tckpt.find_last_checkpoint(str(path)))
+
+    write_start(tmp_path / "f64", params, x)
+    run(tmp_path / "f64", "float64", 2)
+    _, data, p64, state, _ = last(tmp_path / "f64")
+    assert data.dtype == np.float64 and state["damping"].dtype == np.float64
+    shutil.copytree(tmp_path / "f64", tmp_path / "to_f32")
+    shutil.copytree(tmp_path / "f64", tmp_path / "stay")
+
+    in_f32 = run(tmp_path / "to_f32", "float32", 3)
+    _, data, _, state, _ = last(tmp_path / "to_f32")
+    assert data.dtype == np.float32 and state["damping"].dtype == np.float32
+    stay = run(tmp_path / "stay", "float64", 3)
+    np.testing.assert_allclose(flat(in_f32), flat(stay), rtol=1e-4, atol=1e-5)
+
+    back = run(tmp_path / "to_f32", "float64", 4)
+    _, data, _, state, _ = last(tmp_path / "to_f32")
+    assert data.dtype == np.float64 and state["damping"].dtype == np.float64
+    stay = run(tmp_path / "stay", "float64", 4)
+    np.testing.assert_allclose(flat(back), flat(stay), rtol=1e-4, atol=1e-5)

@@ -385,24 +385,28 @@ def test_wrappers_never_fall_back_for_non_cpu_tensors(monkeypatch):
     _forbid(monkeypatch, tjk, "fused_dense_tanh_jet_mix_plain")
     _forbid(monkeypatch, tjk, "fused_dense_tanh_jet_partial_plain")
     _forbid(monkeypatch, tjk, "fused_dense_tanh_jet_mix_partial_plain")
-    meta = dict(device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        tdk.gj_inverse_slogdet(torch.empty(2, 4, 4, dtype=torch.complex64, **meta))
-    with pytest.raises(ValueError, match="CUDA"):
-        tjk.fused_dense_tanh_jet(*(torch.empty(s, **meta) for s in
-                                   [(5, 4), (3, 5, 4), (5, 4), (4, 6), (6,)]))
-    with pytest.raises(ValueError, match="CUDA"):
-        tjk.fused_dense_tanh_jet_mix(*(torch.empty(s, **meta) for s in
-                                       [(2, 5, 4), (3, 2, 5, 4), (2, 5, 4), (2, 6),
-                                        (2, 6), (3, 2, 6), (4, 6), (6,)]))
-    with pytest.raises(ValueError, match="CUDA"):
-        tjk.fused_dense_tanh_jet_partial(*(torch.empty(s, **meta) for s in
-                                           [(5, 4), (3, 5, 4), (5, 4), (4, 6), (6,)]))
-    with pytest.raises(ValueError, match="CUDA"):
-        tjk.fused_dense_tanh_jet_mix_partial(
-            *(torch.empty(s, **meta) for s in
-              [(2, 5, 4), (3, 2, 5, 4), (2, 5, 4), (2, 6), (2, 6), (3, 2, 6),
-               (4, 6), (6,)]))
+    # float32 / complex64 and float64 / complex128 (precision='float64')
+    for real, cplx in ((torch.float32, torch.complex64),
+                       (torch.float64, torch.complex128)):
+        meta = dict(device="meta", dtype=real)
+        with pytest.raises(ValueError, match="CUDA"):
+            tdk.gj_inverse_slogdet(torch.empty(2, 4, 4, device="meta", dtype=cplx))
+        with pytest.raises(ValueError, match="CUDA"):
+            tjk.fused_dense_tanh_jet(*(torch.empty(s, **meta) for s in
+                                       [(5, 4), (3, 5, 4), (5, 4), (4, 6), (6,)]))
+        with pytest.raises(ValueError, match="CUDA"):
+            tjk.fused_dense_tanh_jet_mix(*(torch.empty(s, **meta) for s in
+                                           [(2, 5, 4), (3, 2, 5, 4), (2, 5, 4), (2, 6),
+                                            (2, 6), (3, 2, 6), (4, 6), (6,)]))
+        with pytest.raises(ValueError, match="CUDA"):
+            tjk.fused_dense_tanh_jet_partial(*(torch.empty(s, **meta) for s in
+                                               [(5, 4), (3, 5, 4), (5, 4), (4, 6),
+                                                (6,)]))
+        with pytest.raises(ValueError, match="CUDA"):
+            tjk.fused_dense_tanh_jet_mix_partial(
+                *(torch.empty(s, **meta) for s in
+                  [(2, 5, 4), (3, 2, 5, 4), (2, 5, 4), (2, 6), (2, 6), (3, 2, 6),
+                   (4, 6), (6,)]))
 
 
 def test_trunk_rules_without_bias_still_reach_the_kernel(monkeypatch):
