@@ -164,8 +164,10 @@ Phases, one JSON line each; any failure exits non-zero:
                 and 2 bcc-Li checkpoint walkers the same way, each with its
                 own TF32 control;
  18. float64  - precision='float64' on the card through the kernels'
-                float64 bodies (B1's complex128 shared-memory body, the
-                general jet body in double): el_chunk and psi_chunk from a
+                float64 bodies (B1's complex128 register body at n = 48 and
+                shared-memory body elsewhere, the one-electron jets' wide
+                body on the FP64 tensor cores, the general jet body in
+                double for the pair layers): el_chunk and psi_chunk from a
                 float64 probe of the card's peak memory; C-diamond 2x2x2 at
                 full width from runs/ckpt_diamond cast to float64, one
                 inference and 2 KFAC fisher_exact iterations (batch 1024)
@@ -173,8 +175,10 @@ Phases, one JSON line each; any failure exits non-zero:
                 `python -m deepsolid_tpu_torch --config.precision float64`
                 (its energy within 1e-6 Ha/cell of process()'s): their
                 split, walkers/s beside the float32 phases', peak memory,
-                B1's exact launch count, every launch on a float64 body and
-                no plain version called; one
+                B1's exact launch count, every launch on a float64 body
+                (every one-electron jet launch on the wide body in double,
+                every (., 48, 48) B1 launch on the complex128 register
+                body) and no plain version called; one
                 E_L chunk over two deriv ranks on the card (B4a, B4b) against
                 one process; the reference phase's walkers card float64
                 against CPU float64 (E_L <= 1e-9 Ha/cell, the gradient's and
@@ -3098,12 +3102,35 @@ def plain_calls():
 
 
 def float64_bodies_only(shapes):
-    """The launch-shape records whose body is not a float64 one."""
+    """The launch-shape records whose body is not a float64 one: B1's
+    complex128 bodies, the jets' general body in double and their wide body
+    in double at any slice count."""
+    import re
+
     from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
     from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
 
-    f64 = {dk.BODY_C128, jk.variant_label(jk.FLOAT64)}
-    return [r for r in shapes if r["variant"] not in f64]
+    f64 = {*dk.BODIES_C128, jk.variant_label(jk.FLOAT64)}
+    return [r for r in shapes if r["variant"] not in f64
+            and not re.fullmatch(r"wide, float64, \d+ tangent slices", r["variant"])]
+
+
+def float64_new_bodies(shapes):
+    """The launch-shape records of the float64 path that should be on
+    the bodies redesigned for it and are not: every one-electron jet launch
+    (d_out 256, closed or open mix rule) on the wide body in double, every
+    complex128 (., 48, 48) launch on the register body."""
+    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+
+    out = []
+    for r in shapes:
+        if (r["kernel"] in ("fused_dense_tanh_jet_mix", "fused_dense_tanh_jet_mix_partial")
+                and r["shape"][3] == 256 and not r["variant"].startswith("wide, float64")):
+            out.append(r)
+        if (r["kernel"] == "gj_inverse_slogdet" and r["shape"][1:] == [48, 48]
+                and r["variant"] != dk.BODY_C128_REGISTERS):
+            out.append(r)
+    return out
 
 
 def open_row(dev, gen, name, cases, dtype):
@@ -3118,7 +3145,7 @@ def open_row(dev, gen, name, cases, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     fn, plain = getattr(jk, name), getattr(jk, name + "_plain")
-    err = rel = total = plain_ms = nbytes = flops = 0.0
+    err = rel = total = plain_ms = mm = nbytes = flops = 0.0
     ms, variants = [], []
     for t, groups, n, k, c, count in cases:
         if groups:
@@ -3136,6 +3163,7 @@ def open_row(dev, gen, name, cases, dtype):
         variants.append(variant)
         total += count * t_k
         plain_ms += count * time_ms(lambda: plain(*args))
+        mm += count * time_ms(lambda: torch.matmul(args[1], args[-2]))
         rows = max(groups, 1) * n
         b_, f_ = jet_bytes_flops(t, rows, k, c, groups, args[0].element_size())
         nbytes += count * (b_ + args[0].element_size() * rows * c)  # and s_local
@@ -3155,7 +3183,7 @@ def open_row(dev, gen, name, cases, dtype):
         "shapes": [[t, max(groups, 1) * n, k, c] for t, groups, n, k, c, _ in cases],
         "max_abs_err": err, "max_rel_err": rel, "tolerance": tol, "ok": rel <= tol,
         "ms": total, "ms_per_shape": ms, "plain_ms": plain_ms, "library_ms": None,
-        "bound_ms": bnd, "bound_by": by, **extra,
+        "matmul_ms": mm, "bound_ms": bnd, "bound_by": by, **extra,
     }
 
 
@@ -3389,6 +3417,7 @@ def float64_phase(dev, source, main, north_star, systems, f32_reference, gen):
     b1_got = {"inference": inf_launches["gj_inverse_slogdet"],
               "kfac": kfac["launches"]["gj_inverse_slogdet"]}
     not_f64 = float64_bodies_only(inf_shapes + kfac["launch_shapes"])
+    not_new = float64_new_bodies(inf_shapes + kfac["launch_shapes"])
 
     # the command line: the same inference iteration through
     # `python -m deepsolid_tpu_torch --config.precision float64`
@@ -3416,6 +3445,7 @@ def float64_phase(dev, source, main, north_star, systems, f32_reference, gen):
     shard_diff = max(float(np.abs(r["el"] - want_el).max()) for r in ranks)
     for r in ranks:
         not_f64 += float64_bodies_only(r["launch_shapes"] + r["algebra_shapes"])
+        not_new += float64_new_bodies(r["launch_shapes"])
     plain_total = (sum(plain.values()) + sum(plain_unsharded.values())
                    + sum(sum(r["plain_calls"].values()) for r in ranks))
 
@@ -3450,6 +3480,7 @@ def float64_phase(dev, source, main, north_star, systems, f32_reference, gen):
         "kfac_launch_shapes": kfac["launch_shapes"],
         "b1_launches": b1_got, "b1_launches_expected": b1_want,
         "launches_not_on_a_float64_body": not_f64, "plain_version_calls": plain_total,
+        "launches_off_the_redesigned_float64_bodies": not_new,
         "walkers_per_s_local_energy_f64": k_rec["walkers_per_s_local_energy"],
         "walkers_per_s_local_energy_f32_main": f32_el,
         "local_energy_ratio_f64_over_f32": k_rec["walkers_per_s_local_energy"] / f32_el,
@@ -3468,7 +3499,8 @@ def float64_phase(dev, source, main, north_star, systems, f32_reference, gen):
         "profile_device_idle_share": profile["device_idle_share"], "card": nvidia_smi(),
     }
     result["ok"] = (
-        kfac["ok"] and b1_got == b1_want and not not_f64 and plain_total == 0
+        kfac["ok"] and b1_got == b1_want and not not_f64 and not not_new
+        and plain_total == 0
         and cli_out.returncode == 0 and cli_diff <= BOOTSTRAP_TOLERANCE
         and all(inf_launches[k] > 0 and kfac["launches"][k] > 0
                 for k in ("fused_dense_tanh_jet", "fused_dense_tanh_jet_mix"))
@@ -3767,7 +3799,9 @@ def main() -> int:
     if not float64["ok"]:
         return fail("the float64 phase failed its checks (no el_chunk or "
                     "psi_chunk under the memory limit, the KFAC checks, B1's "
-                    "exact launch count, a launch on a float32 body or a call "
+                    "exact launch count, a launch on a float32 body, a "
+                    "one-electron jet launch off the wide body in double or a "
+                    "(., 48, 48) B1 launch off the complex128 register body, a call "
                     "of a plain version, the sharded E_L, card float64 against "
                     "CPU float64 or the float32 control, or a float64 body "
                     "against its plain version or never launched at a path shape)")

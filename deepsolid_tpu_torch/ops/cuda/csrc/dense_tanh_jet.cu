@@ -62,13 +62,29 @@
 //     each slice writes its partial square sums to scratch the wrapper
 //     allocates, and a small second kernel closes the Laplacian in a fixed
 //     order (no atomics: two launches on the same inputs agree bit for bit).
-// float64 (precision='float64'): the general variant templated on its
-// scalar type serves every shape and both rules, closed and open, through
-// dense_tanh_jet_launch_f64 (FP64 fma, tanh in double, no TF32 anywhere);
-// the pair and wide variants are float32 only.
+// float64 (precision='float64', through dense_tanh_jet_launch_f64; tanh in
+// double, no TF32 anywhere) has two variants, both rules, closed and open:
+//   * wide in double (the 256-wide layers, d_in up to 352): the products
+//     run on the FP64 tensor cores (mma.sync .f64, IEEE double, so they
+//     cost no accuracy where TF32 would bias E_L). The main path's
+//     one-electron layers do 598 GFLOP on 20 GB in double: 8.9 ms at the
+//     tensor cores' 67 TFLOP/s, 6.0 ms of bytes, 17.6 ms at the FMA-only
+//     34 TFLOP/s, so FP64 FMAs alone could not reach the bound. A block
+//     holds 64 x 64 outputs (a 64-column slice of w in double leaves no
+//     room for more rows and a tanh tile). At the 320 -> 256 layer it runs
+//     at about half the tensor rate (33 TFLOP/s on an H100) and moves under
+//     1 TB/s, so what stands between it and the bound is the feeding of the
+//     fragments (one block of 8 warps per SM, a barrier per k-slice, 24
+//     shared loads per 16 products), not the bytes; see the note above
+//     dense_tanh_jet_dmma_kernel.
+//   * general in double (every other shape: the pair layers, which are
+//     bound by their bytes and which mma cannot help, and whatever the
+//     wide one does not take): the general variant templated on its
+//     scalar type, FP64 fma.
+// The pair variant is float32 only.
 // The open form changes no product: the pair and general variants store
 // the square sum they hold in registers instead of folding it into lap_o
-// (a compile-time flag), and the wide variant runs a second finishing
+// (a compile-time flag), and the wide variants run a second finishing
 // kernel that sums the slices into sq_o and scales lap_o's linear part by d.
 
 #include <cuda_runtime.h>
@@ -286,9 +302,10 @@ constexpr size_t wide_smem_bytes(int K) {
                           kWM * kWN + Ring<BK>::kFloats);
 }
 
-// 16-byte asynchronous copy; copies nothing and zero-fills when !valid.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
+// 16-byte asynchronous copy (four floats or two doubles); copies nothing
+// and zero-fills when !valid.
+template <typename S>
+__device__ __forceinline__ void cp_async16(S* dst, const S* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int bytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
@@ -534,34 +551,331 @@ __global__ void __launch_bounds__(kThreads, 1) dense_tanh_jet_wide_kernel(
   }
 }
 
-// lap_o = d * lap_o + (-2 t d) * sum over slices of sq_part, t = val_o.
-__global__ void finish_lap_kernel(const float* __restrict__ val_o,
-                                  float* __restrict__ lap_o,
-                                  const float* __restrict__ sq_part,
-                                  int slices, size_t n) {
+// lap_o = d * lap_o + (-2 t d) * sum over slices of sq_part, t = val_o;
+// S = float (the wide variant) or double (the float64 wide variant).
+template <typename S>
+__global__ void finish_lap_kernel(const S* __restrict__ val_o,
+                                  S* __restrict__ lap_o,
+                                  const S* __restrict__ sq_part, int slices,
+                                  size_t n) {
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float sum = 0.f;
+    S sum = S(0);
     for (int k = 0; k < slices; ++k) sum += sq_part[k * n + i];
-    const float t = val_o[i];
-    const float d = 1.f - t * t;
-    lap_o[i] = d * lap_o[i] + (-2.f * t * d) * sum;
+    const S t = val_o[i];
+    const S d = S(1) - t * t;
+    lap_o[i] = d * lap_o[i] + (S(-2) * t * d) * sum;
   }
 }
 
 // The open form: sq_o = sum over slices of sq_part, lap_o = d * lap_o.
-__global__ void finish_open_kernel(const float* __restrict__ val_o,
-                                   float* __restrict__ lap_o,
-                                   const float* __restrict__ sq_part,
-                                   float* __restrict__ sq_o, int slices,
-                                   size_t n) {
+template <typename S>
+__global__ void finish_open_kernel(const S* __restrict__ val_o,
+                                   S* __restrict__ lap_o,
+                                   const S* __restrict__ sq_part,
+                                   S* __restrict__ sq_o, int slices, size_t n) {
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float sum = 0.f;
+    S sum = S(0);
     for (int k = 0; k < slices; ++k) sum += sq_part[k * n + i];
-    const float t = val_o[i];
+    const S t = val_o[i];
     sq_o[i] = sum;
-    lap_o[i] = (1.f - t * t) * lap_o[i];
+    lap_o[i] = (S(1) - t * t) * lap_o[i];
+  }
+}
+
+// Closes the Laplacian of a sliced launch (or, with sq_o, leaves it open)
+// over its R x C outputs, in a fixed order of the slices.
+template <typename S>
+int launch_finish(const S* val_o, S* lap_o, const S* sq_part, S* sq_o,
+                  int slices, int R, int C, cudaStream_t stream) {
+  const size_t n = static_cast<size_t>(R) * C;
+  const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
+  if (sq_o != nullptr) {
+    finish_open_kernel<S><<<blocks, 256, 0, stream>>>(val_o, lap_o, sq_part,
+                                                      sq_o, slices, n);
+  } else {
+    finish_lap_kernel<S><<<blocks, 256, 0, stream>>>(val_o, lap_o, sq_part,
+                                                     slices, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the float64 wide variant: the 256-wide layers on the FP64 tensor cores
+//
+// The same algorithm as the wide variant, in double, with the products on
+// the FP64 tensor cores (mma.sync .f64; wgmma has no f64 form). A block of
+// 256 threads owns 64 rows x 64 columns and a slice of the tangents. Its
+// column slice of w (d_in x 64 doubles, rows padded to 68 against bank
+// conflicts) is copied to shared memory once and serves every product of
+// the block; row tiles of 64 rows x 16 k stream through a four-stage ring
+// of 16-byte cp.async copies that runs ahead across k-slices and products,
+// one __syncthreads() per k-slice. The budget in double decides the tile:
+// w takes 544 bytes per row of d_in (174 KB at 320), the ring 40 KB, and
+// tanh z, the tangent square sum and the accumulators stay in registers
+// (16 doubles each a thread), so 64 columns fit only with 64 rows and
+// d_in <= 352 fills the 227 KB a block may use exactly. A warp owns 32
+// rows x 16 columns, 4 x 2 tiles of 8 x 8: per k-slice a lane loads 16 A
+// and 8 B fragment doubles (24 64-bit shared loads, conflict-free: the ring
+// row stride 20 and the w row stride 68 are 4 mod 16 doubles) and runs
+// the 16384 flops as 16 m16n8k4 products. On an H100 (time_dmma.py)
+// m8n8k4 runs at half the FP64 tensor rate (33 of 67 TFLOP/s) where the
+// m16 shapes reach 66-67; m16n8k4 takes the smallest fragments of those
+// (250 registers in the mix rule, no spills). Each of the four column
+// blocks of a row tile re-reads its rows, from L2. Tangent slices ride the
+// grid's z axis as in the wide variant, and the finishing kernels close
+// the Laplacian in double in a fixed order. Each product adds its k onto
+// the accumulator in order, one rounding each (IEEE double), and
+// k = 4 s + t runs in order across the steps, so on
+// an H100 the sums round exactly as the general body's FMA chain does and,
+// with one tangent slice, the outputs equal its bit for bit (time_kernels'
+// same_bits; more slices add the square sum in parts).
+
+constexpr int kDM = 64;                 // rows per block
+constexpr int kDN = 64;                 // columns per block
+constexpr int kDK = 16;                 // k-slice of a ring stage
+constexpr int kDStages = 4;             // ring stages
+constexpr int kDStrideA = kDK + 4;      // doubles of a ring row
+constexpr int kDStrideW = kDN + 4;      // doubles of a resident row of w
+constexpr int kDMaxK = 352;             // largest d_in whose w slice stays resident
+
+// Dynamic shared memory of the float64 wide kernel: w slice and ring.
+constexpr size_t dmma_smem_bytes(int K) {
+  return sizeof(double) *
+         (static_cast<size_t>(wide_k_pad(K, kDK)) * kDStrideW +
+          static_cast<size_t>(kDStages) * kDM * kDStrideA);
+}
+
+// D += A B on the FP64 tensor cores, one warp: mma.sync m16n8k4 .f64 in
+// the PTX ISA's fragments (g = lane / 4, t = lane % 4; row.col):
+// a_i = A[g + 8 i][t]; b = B[t][g]; c_i = D[g + 8 (i / 2)][2t + i % 2].
+__device__ __forceinline__ void mma_m16n8k4(double (&c0)[2], double (&c1)[2],
+                                            double a0, double a1, double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(c0[0]), "+d"(c0[1]), "+d"(c1[0]), "+d"(c1[1])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// One k-slice of a warp's 32 x 16 tile: acc[i][j] is the 8 x 8 tile of
+// rows 8 i .. and columns 8 j .. of the warp. `as` points at the lane's
+// ring row (g) and k (t), `ws` at the lane's row of w (t) and column (g);
+// the slice's k = 4 s + t in both.
+__device__ __forceinline__ void dmma_slice(const double* __restrict__ as,
+                                           const double* __restrict__ ws,
+                                           double (&acc)[4][2][2]) {
+  double a[4][4];  // [m8 tile i][k step s]
+  double b[2][4];  // [n8 tile j][k step s]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) a[i][s] = as[8 * i * kDStrideA + 4 * s];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) b[j][s] = ws[4 * s * kDStrideW + 8 * j];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; i += 2)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        mma_m16n8k4(acc[i][j], acc[i + 1][j], a[i][s], a[i + 1][s], b[j][s]);
+}
+
+template <bool MIX>
+__global__ void __launch_bounds__(kThreads, 1) dense_tanh_jet_dmma_kernel(
+    const double* __restrict__ val, const double* __restrict__ lap,
+    const double* __restrict__ jac, const double* __restrict__ w,
+    const double* __restrict__ b, const double* __restrict__ zbc,
+    const double* __restrict__ lbc, const double* __restrict__ jbc,
+    double* __restrict__ val_o, double* __restrict__ lap_o,
+    double* __restrict__ jac_o, double* __restrict__ sq_part, int T, int R,
+    int K, int C, int rows_per_group, int groups, int t_per_slice) {
+  extern __shared__ __align__(16) double dmma_smem[];
+  const int k_pad = wide_k_pad(K, kDK);
+  double* w_s = dmma_smem;                  // [k_pad][kDStrideW]
+  double* a_s = w_s + k_pad * kDStrideW;    // [kDStages][kDM][kDStrideA]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int row_w = (warp >> 2) * 32;       // the warp's rows row_w .. + 31
+  const int col_w = (warp & 3) * 16;        // and columns col_w .. + 15
+  const int col0 = blockIdx.x * kDN;        // columns ride x: the blocks that
+  const int row0 = blockIdx.y * kDM;        // share a row tile run together
+  const int slice = blockIdx.z;
+  const int t_begin = min(T, slice * t_per_slice);
+  const int t_end = min(T, t_begin + t_per_slice);
+
+  // products of this block: the value, its tangents, (slice 0) the Laplacian
+  const int n_prod = 1 + (t_end - t_begin) + (slice == 0 ? 1 : 0);
+  const int nk = k_pad / kDK;
+  const int total = n_prod * nk;
+  const size_t rk = static_cast<size_t>(R) * K;
+
+  // ---- the producer side: every thread copies its chunks of each tile ----
+  constexpr int kChunks = kDK / 2;             // 16-byte chunks of a tile row
+  constexpr int kLdRows = kThreads / kChunks;  // tile rows copied in one pass
+  const int ld_row = tid / kChunks;            // rows ld_row + kLdRows q
+  const int ld_k = (tid % kChunks) * 2;
+  int fetched = 0, f_stage = 0, f_prod = 0, f_kt = 0;
+  const double* f_base = val;
+  auto fetch_tile = [&]() {
+    if (fetched < total) {
+      double* dst = a_s + f_stage * (kDM * kDStrideA) + ld_row * kDStrideA + ld_k;
+      const int gk = f_kt * kDK + ld_k;
+#pragma unroll
+      for (int q = 0; q < kDM / kLdRows; ++q) {
+        const int gr = row0 + ld_row + kLdRows * q;
+        const bool ok = gr < R && gk < K;  // K % 4 == 0: all in or all out
+        cp_async16(dst + q * kLdRows * kDStrideA,
+                   ok ? f_base + static_cast<size_t>(gr) * K + gk : f_base, ok);
+      }
+      if (++f_kt == nk) {
+        f_kt = 0;
+        ++f_prod;
+        const int t = t_begin + f_prod - 1;
+        f_base = t < t_end ? jac + static_cast<size_t>(t) * rk : lap;
+      }
+    }
+    ++fetched;
+    if (++f_stage == kDStages) f_stage = 0;
+    cp_async_commit();  // one group per call, empty past the last tile
+  };
+
+  // the resident w slice rides the first group
+  for (int e = tid; e < k_pad * (kDN / 2); e += kThreads) {
+    const int kk = e / (kDN / 2);
+    const int c2 = (e - kk * (kDN / 2)) * 2;
+    const bool ok = kk < K;
+    cp_async16(w_s + kk * kDStrideW + c2,
+               ok ? w + static_cast<size_t>(kk) * C + col0 + c2 : w, ok);
+  }
+#pragma unroll
+  for (int s = 0; s < kDStages - 1; ++s) fetch_tile();
+
+  // the lane's outputs: rows row0 + row_w + 8 i + g, columns
+  // col0 + col_w + 8 j + 2 t4 and the one after
+  int rows[4], grp[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    rows[i] = row0 + row_w + 8 * i + g;
+    grp[i] = (MIX && rows[i] < R) ? rows[i] / rows_per_group : 0;
+  }
+  int cols[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) cols[j] = col0 + col_w + 8 * j + 2 * t4;
+
+  double acc[4][2][2];
+  double tv[4][2][2];  // tanh z; d = 1 - t^2 is recomputed where needed
+  double sq[4][2][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) sq[i][j][0] = sq[i][j][1] = 0.0;
+
+  const double* a_lane = a_s + (row_w + g) * kDStrideA + t4;
+  const double* w_lane = w_s + t4 * kDStrideW + col_w + g;
+  int stage = 0;
+  for (int p = 0; p < n_prod; ++p) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
+
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<kDStages - 2>();  // this thread's share of the tile landed
+      __syncthreads();                // everyone's did; the last one is consumed
+      fetch_tile();                   // refills the last tile's stage
+      dmma_slice(a_lane + stage * (kDM * kDStrideA),
+                      w_lane + kt * kDK * kDStrideW, acc);
+      if (++stage == kDStages) stage = 0;
+    }
+
+    // ---- epilogue of product p; the next tiles are already in flight ----
+    if (p == 0) {  // the value: tanh z (and val_o)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const double2 bj = *reinterpret_cast<const double2*>(b + cols[j]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          double z0 = acc[i][j][0] + bj.x;
+          double z1 = acc[i][j][1] + bj.y;
+          if (MIX && rows[i] < R) {
+            const double2 zb = *reinterpret_cast<const double2*>(
+                zbc + static_cast<size_t>(grp[i]) * C + cols[j]);
+            z0 += zb.x;
+            z1 += zb.y;
+          }
+          tv[i][j][0] = tanh(z0);
+          tv[i][j][1] = tanh(z1);
+          if (slice == 0 && rows[i] < R) {
+            *reinterpret_cast<double2*>(
+                val_o + static_cast<size_t>(rows[i]) * C + cols[j]) =
+                make_double2(tv[i][j][0], tv[i][j][1]);
+          }
+        }
+      }
+    } else if (p <= t_end - t_begin) {  // a tangent
+      const int t = t_begin + p - 1;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (rows[i] >= R) continue;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          double y0 = acc[i][j][0];
+          double y1 = acc[i][j][1];
+          if (MIX) {
+            const double2 jb = *reinterpret_cast<const double2*>(
+                jbc + (static_cast<size_t>(t) * groups + grp[i]) * C + cols[j]);
+            y0 += jb.x;
+            y1 += jb.y;
+          }
+          const double u0 = tv[i][j][0];
+          const double u1 = tv[i][j][1];
+          *reinterpret_cast<double2*>(
+              jac_o + (static_cast<size_t>(t) * R + rows[i]) * C + cols[j]) =
+              make_double2((1.0 - u0 * u0) * y0, (1.0 - u1 * u1) * y1);
+          sq[i][j][0] = fma(y0, y0, sq[i][j][0]);
+          sq[i][j][1] = fma(y1, y1, sq[i][j][1]);
+        }
+      }
+    } else {  // slice 0: the Laplacian's linear part; a finishing kernel closes it
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (rows[i] >= R) continue;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          double l0 = acc[i][j][0];
+          double l1 = acc[i][j][1];
+          if (MIX) {
+            const double2 lb = *reinterpret_cast<const double2*>(
+                lbc + static_cast<size_t>(grp[i]) * C + cols[j]);
+            l0 += lb.x;
+            l1 += lb.y;
+          }
+          *reinterpret_cast<double2*>(
+              lap_o + static_cast<size_t>(rows[i]) * C + cols[j]) =
+              make_double2(l0, l1);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups are left
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (rows[i] >= R) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      *reinterpret_cast<double2*>(
+          sq_part + (static_cast<size_t>(slice) * R + rows[i]) * C + cols[j]) =
+          make_double2(sq[i][j][0], sq[i][j][1]);
+    }
   }
 }
 
@@ -862,16 +1176,36 @@ int launch_wide(const float* val, const float* lap, const float* jac,
                                       lap_o, jac_o, sq_part, slices, T, R, K,
                                       C, rows_per_group, groups, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t n = static_cast<size_t>(R) * C;
-  const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
-  if (sq_o != nullptr) {
-    finish_open_kernel<<<blocks, 256, 0, stream>>>(val_o, lap_o, sq_part, sq_o,
-                                                   slices, n);
-  } else {
-    finish_lap_kernel<<<blocks, 256, 0, stream>>>(val_o, lap_o, sq_part,
-                                                  slices, n);
+  return launch_finish<float>(val_o, lap_o, sq_part, sq_o, slices, R, C,
+                              stream);
+}
+
+template <bool MIX>
+int launch_dmma(const double* val, const double* lap, const double* jac,
+                const double* w, const double* b, const double* zbc,
+                const double* lbc, const double* jbc, double* val_o,
+                double* lap_o, double* jac_o, double* sq_part, double* sq_o,
+                int slices, int T, int R, int K, int C, int rows_per_group,
+                int groups, cudaStream_t stream) {
+  if (K > kDMaxK || K % 4 != 0 || C % kDN != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const auto kernel = dense_tanh_jet_dmma_kernel<MIX>;
+  const size_t smem = dmma_smem_bytes(K);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int t_per_slice = (T + slices - 1) / slices;
+  const dim3 grid(C / kDN, (R + kDM - 1) / kDM, slices);
+  kernel<<<grid, kThreads, smem, stream>>>(val, lap, jac, w, b, zbc, lbc, jbc,
+                                           val_o, lap_o, jac_o, sq_part, T, R,
+                                           K, C, rows_per_group, groups,
+                                           t_per_slice);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_finish<double>(val_o, lap_o, sq_part, sq_o, slices, R, C,
+                               stream);
 }
 
 template <int TN, bool MIX, typename S>
@@ -953,15 +1287,19 @@ int dense_tanh_jet_launch(const void* val, const void* lap, const void* jac,
 }
 
 // The float64 form of dense_tanh_jet_launch: the same arguments and
-// layouts in double, every shape on the general variant (no scratch, no
-// slices). Returns the cudaError_t of the launch.
+// layouts in double. slices > 0 runs the float64 wide variant on the FP64
+// tensor cores, which needs C % 64 == 0, K % 4 == 0, K <= 352, every
+// pointer 16-byte aligned and `slices` * R * C doubles of scratch (it
+// returns cudaErrorInvalidValue for another shape); slices = 0 runs the
+// general variant in double (scratch unused); there is no pair variant in
+// double (slices < 0 is refused). Returns the cudaError_t of the launches.
 int dense_tanh_jet_launch_f64(const void* val, const void* lap,
                               const void* jac, const void* w, const void* b,
                               const void* zbc, const void* lbc,
                               const void* jbc, void* val_o, void* lap_o,
-                              void* jac_o, void* sq_out, int T, int R, int K,
-                              int C, int rows_per_group, int groups,
-                              void* stream) {
+                              void* jac_o, void* scratch, void* sq_out,
+                              int slices, int T, int R, int K, int C,
+                              int rows_per_group, int groups, void* stream) {
   const auto* v = static_cast<const double*>(val);
   const auto* l = static_cast<const double*>(lap);
   const auto* jc = static_cast<const double*>(jac);
@@ -975,6 +1313,17 @@ int dense_tanh_jet_launch_f64(const void* val, const void* lap,
   auto* jo = static_cast<double*>(jac_o);
   auto* so = static_cast<double*>(sq_out);
   auto st = static_cast<cudaStream_t>(stream);
+  if (slices < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (slices > 0) {
+    auto* sp = static_cast<double*>(scratch);
+    return zbc != nullptr
+               ? launch_dmma<true>(v, l, jc, wp, bp, zp, lp, jp, vo, lo, jo,
+                                   sp, so, slices, T, R, K, C, rows_per_group,
+                                   groups, st)
+               : launch_dmma<false>(v, l, jc, wp, bp, zp, lp, jp, vo, lo, jo,
+                                    sp, so, slices, T, R, K, C, rows_per_group,
+                                    groups, st);
+  }
   return zbc != nullptr
              ? launch<2, true>(v, l, jc, wp, bp, zp, lp, jp, vo, lo, jo, so, T,
                                R, K, C, rows_per_group, groups, st)

@@ -1,5 +1,6 @@
 // Batched complex Gauss-Jordan inverse + slogdet for Hopper (sm_90a):
-// complex64 (four bodies) and complex128 (the shared-memory body).
+// complex64 (four bodies) and complex128 (a register body for n = 48, the
+// shared-memory body otherwise).
 //
 // Replaces the TPU kernel deepsolid_tpu/ops/pallas/det_kernels.py
 // (_gj_kernel, launched by _gj_flat through gj_inverse_slogdet), which
@@ -89,11 +90,30 @@
 //     step applies swap and elimination, three barriers per step.
 // Plain FP32 arithmetic, no fast-math.
 //
-// complex128 (the float64 runs): the shared-memory body, templated on its
-// scalar type, serves every n whose 16 n^2 + 52 n bytes fit a block's
-// shared memory (n <= 118 in the 227 KB an H100 block may opt into;
-// bcc-Li's 81 takes 105 KB). Plain FP64 arithmetic, the same pivot rule
-// with |a|^2 compared in double. Entry points gj_smem_bytes_c128 and
+// complex128 (the float64 runs), two bodies chosen by n alone
+// (gj_body_c128). Plain FP64 arithmetic, the same pivot, tie and NaN rules
+// with |a|^2 compared in double. What bounds it: 8 n^3 flops per matrix at
+// the FP64 rate, half the FP32 one outside the tensor cores, so the updates'
+// FMAs and a step's chain weigh twice what they do in complex64.
+//   * registers (n = 48: C-diamond in float64). A matrix in registers takes
+//     144 registers of complex64 data a lane in one warp, which complex128
+//     would double past the 255 a thread may hold; so a matrix spans two
+//     warps: lane (ty, tx) of an 8 x 8 lane grid owns rows ty + 8 i and
+//     columns tx + 8 j, 6 x 6 complex128 entries (144 registers), the mid
+//     body's scheme over 64 lanes. Two matrices per block, each with its
+//     own named barrier (bar.sync id, 64), two per step: column k
+//     published; both warps scan all 48 rows and pick the pivot alone,
+//     comparing (|a|^2, position) pairs as the 64-bit pattern of |a|^2 in
+//     two 32-bit warp reductions and then the smallest position; only the
+//     pivot row's eight owners form d = 1 / piv and publish the scaled row;
+//     every lane does 36 complex multiply-adds. Sign and log|det| are formed
+//     once at the end from each step's pivot, by the first warp's lanes and
+//     a butterfly in a fixed order, off the per-step chain.
+//   * shared (every other n): the shared-memory body, templated on its
+//     scalar type, for every n whose 16 n^2 + 52 n bytes fit a block's
+//     shared memory (n <= 118 in the 227 KB an H100 block may opt into;
+//     bcc-Li's 81 takes 105 KB).
+// Entry points gj_body_c128, gj_smem_bytes_c128 and
 // gj_inverse_slogdet_launch_c128; a larger n is refused by the wrapper
 // before any launch.
 #include <cuda_runtime.h>
@@ -786,6 +806,228 @@ gj_mid_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
   }
 }
 
+// ---- the complex128 register kernel (n = 48) ---------------------------------
+
+constexpr int kZN = 48;           // its matrix size
+constexpr int kZMats = 2;         // matrices per block, two warps each
+constexpr int kZTile = kZN / 8;   // entries per lane along each axis
+
+// Shared memory of one matrix: the unscrambling tile, column k and the
+// scaled pivot row (both double-buffered by the parity of k), each step's
+// pivot value and swap, and the two position tables.
+struct ZRegShared {
+  double2 tile[kZN][kZN + 1];
+  double2 fcol[2][kZN];
+  double2 prow[2][kZN];
+  double2 piv[kZN];
+  int swapped[kZN];
+  int pos[kZN];     // position of storage row s at the end
+  int row_at[kZN];  // its inverse
+};
+
+// The barrier of the two warps of one matrix (ids 1.. ; 0 is the block's).
+__device__ __forceinline__ void matrix_barrier(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
+// A candidate's key: 0 for a used or padding row, 1 for a NaN, else the
+// bits of |v|^2 plus 2 (the order of non-negative doubles is the order of
+// their 64-bit patterns).
+__device__ __forceinline__ unsigned long long zpivot_key(double2 v, bool candidate) {
+  const double mag = v.x * v.x + v.y * v.y;
+  if (!candidate) return 0ull;
+  return mag == mag
+             ? static_cast<unsigned long long>(__double_as_longlong(mag)) + 2ull
+             : 1ull;
+}
+
+__global__ void __launch_bounds__(64 * kZMats)
+gj_registers_double_kernel(const double2* __restrict__ a,
+                           double2* __restrict__ ainv,
+                           double2* __restrict__ sign_out,
+                           double* __restrict__ logdet_out, int batch) {
+  constexpr int T = kZTile;
+  extern __shared__ __align__(16) unsigned char gj_z_smem[];
+  const int which = threadIdx.x >> 6;  // the block's matrix this thread serves
+  const int l = threadIdx.x & 63;      // its lane among the matrix's 64
+  const int lane = threadIdx.x & 31;
+  const int tx = l & 7;
+  const int ty = l >> 3;
+  const int mat = blockIdx.x * kZMats + which;
+  if (mat >= batch) return;  // both warps of the matrix: only its barrier follows
+  ZRegShared& s = reinterpret_cast<ZRegShared*>(gj_z_smem)[which];
+  const int bar = 1 + which;
+  const size_t base = static_cast<size_t>(mat) * kZN * kZN;
+
+  double2 m[T][T];
+#pragma unroll
+  for (int i = 0; i < T; ++i)
+#pragma unroll
+    for (int j = 0; j < T; ++j) m[i][j] = a[base + (ty + 8 * i) * kZN + tx + 8 * j];
+
+  // both warps scan rows lane and lane + 32 and keep their positions
+  int pos[2] = {lane, lane + 32};
+
+  // k = 8 j0 + kx: j0 is unrolled so that column k is a static register
+  // index of its owners (the lanes with tx == kx)
+#pragma unroll
+  for (int j0 = 0; j0 < T; ++j0) {
+#pragma unroll 1
+    for (int kx = 0; kx < 8; ++kx) {
+      const int k = 8 * j0 + kx;
+      const int buf = k & 1;
+      const bool owns_col = tx == kx;
+      if (owns_col) {
+#pragma unroll
+        for (int i = 0; i < T; ++i) s.fcol[buf][ty + 8 * i] = m[i][j0];
+      }
+      matrix_barrier(bar);  // one: column k is published
+
+      // the pivot: the largest (|.|^2, smallest position) pair among the
+      // unused rows, compared as the key's two 32-bit halves, then the
+      // position; every warp finds it alone, so no word crosses warps
+      unsigned long long key[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int row = lane + 32 * q;
+        key[q] = row < kZN ? zpivot_key(s.fcol[buf][row], pos[q] >= k) : 0ull;
+      }
+      const unsigned long long mine = key[0] > key[1] ? key[0] : key[1];
+      const unsigned hi =
+          __reduce_max_sync(kFull, static_cast<unsigned>(mine >> 32));
+      const unsigned lo = __reduce_max_sync(
+          kFull, static_cast<unsigned>(mine >> 32) == hi
+                     ? static_cast<unsigned>(mine)
+                     : 0u);
+      const unsigned long long kmax =
+          (static_cast<unsigned long long>(hi) << 32) | lo;
+      unsigned cand = 0xffffffffu;  // (position, row) of the smallest position
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (key[q] == kmax) {
+          cand = min(cand, (static_cast<unsigned>(pos[q]) << 8) |
+                               static_cast<unsigned>(lane + 32 * q));
+        }
+      }
+      cand = __reduce_min_sync(kFull, cand);
+      const int bpos = static_cast<int>(cand >> 8);
+      const int brow = static_cast<int>(cand & 255u);
+      const double2 bval = s.fcol[buf][brow];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (lane + 32 * q == brow) {
+          pos[q] = k;
+        } else if (pos[q] == k) {
+          pos[q] = bpos;
+        }
+      }
+      if (l == 0) {  // sign and log|det| are formed from these at the end
+        s.piv[k] = bval;
+        s.swapped[k] = bpos != k;
+      }
+
+      // the pivot row's owners scale it in place and publish it, with d in
+      // column k: the update below then leaves -f d in that column once its
+      // owners have cleared it. Only they need d.
+      if (ty == (brow & 7)) {
+        const double inv_den = 1.0 / (bval.x * bval.x + bval.y * bval.y);
+        const double2 d = make_double2(bval.x * inv_den, -bval.y * inv_den);
+        const int ip = brow >> 3;
+#pragma unroll
+        for (int i = 0; i < T; ++i) {
+          if (i == ip) {
+#pragma unroll
+            for (int j = 0; j < T; ++j) {
+              m[i][j] = (tx + 8 * j == k) ? d : cmul_t(m[i][j], d);
+              s.prow[buf][tx + 8 * j] = m[i][j];
+            }
+          }
+        }
+      }
+      if (owns_col) {
+#pragma unroll
+        for (int i = 0; i < T; ++i) {
+          if (ty + 8 * i != brow) m[i][j0] = make_double2(0.0, 0.0);
+        }
+      }
+      matrix_barrier(bar);  // two: the pivot row is published
+
+      double2 pr[T];
+#pragma unroll
+      for (int j = 0; j < T; ++j) pr[j] = s.prow[buf][tx + 8 * j];
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        const int row = ty + 8 * i;
+        // the pivot row is not eliminated
+        const double2 f = row == brow ? make_double2(0.0, 0.0) : s.fcol[buf][row];
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+          m[i][j].x = fma(f.y, pr[j].y, fma(-f.x, pr[j].x, m[i][j].x));
+          m[i][j].y = fma(-f.y, pr[j].x, fma(-f.x, pr[j].y, m[i][j].y));
+        }
+      }
+    }
+  }
+
+  // storage row r, column c holds A^-1[pos(r), row_at(c)]: the first warp
+  // holds every row's position
+  if (l < 32) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int row = lane + 32 * q;
+      if (row < kZN) {
+        s.pos[row] = pos[q];
+        s.row_at[pos[q]] = row;
+      }
+    }
+  }
+  matrix_barrier(bar);
+  int out_col[T];
+#pragma unroll
+  for (int j = 0; j < T; ++j) out_col[j] = s.row_at[tx + 8 * j];
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    const int out_row = s.pos[ty + 8 * i];
+#pragma unroll
+    for (int j = 0; j < T; ++j) s.tile[out_row][out_col[j]] = m[i][j];
+  }
+  matrix_barrier(bar);
+  for (int e = l; e < kZN * kZN; e += 64) {
+    ainv[base + e] = s.tile[e / kZN][e % kZN];
+  }
+
+  // sign = prod piv / |piv| * (-1)^swaps, log|det| = sum 0.5 log|piv|^2:
+  // lane q of the first warp takes steps q and q + 32, then a butterfly
+  // combines the lanes in a fixed order (the pivots were written before
+  // the last step's second barrier)
+  if (l < 32) {
+    double2 phase = make_double2(1.0, 0.0);
+    double logdet = 0.0;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int k = lane + 32 * q;
+      if (k < kZN) {
+        const double2 p = s.piv[k];
+        const double den = p.x * p.x + p.y * p.y;
+        const double rs = ::rsqrt(den) * (s.swapped[k] ? -1.0 : 1.0);
+        phase = cmul_t(phase, make_double2(p.x * rs, p.y * rs));
+        logdet += 0.5 * ::log(den);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const double2 other = make_double2(__shfl_xor_sync(kFull, phase.x, off),
+                                         __shfl_xor_sync(kFull, phase.y, off));
+      logdet += __shfl_xor_sync(kFull, logdet, off);
+      phase = cmul_t(phase, other);
+    }
+    if (l == 0) {
+      sign_out[mat] = phase;
+      logdet_out[mat] = logdet;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -862,20 +1104,41 @@ int gj_inverse_slogdet_launch(const void* a, void* ainv, void* sign,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dynamic shared memory the complex128 body needs per block for n x n
-// matrices: it is the shared-memory body at every n.
-long long gj_smem_bytes_c128(int n) { return shared_body_bytes<double2>(n); }
+// The complex128 body that serves n x n matrices, by n alone: 1 registers
+// (n = 48), 0 shared (det_kernels.BODIES_C128 names them).
+int gj_body_c128(int n) { return n == kZN ? 1 : 0; }
+
+// Dynamic shared memory the complex128 body for n x n matrices needs per
+// block.
+long long gj_smem_bytes_c128(int n) {
+  if (gj_body_c128(n) == 1) {
+    return static_cast<long long>(sizeof(ZRegShared)) * kZMats;
+  }
+  return shared_body_bytes<double2>(n);
+}
 
 // a, ainv: (batch, n, n) complex128; sign: (batch,) complex128; logdet:
 // (batch,) float64. Returns the cudaError_t of the launch.
 int gj_inverse_slogdet_launch_c128(const void* a, void* ainv, void* sign,
                                    void* logdet, int batch, int n,
                                    void* stream) {
-  const int err = launch_shared(
-      static_cast<const double2*>(a), static_cast<double2*>(ainv),
-      static_cast<double2*>(sign), static_cast<double*>(logdet), batch, n,
-      static_cast<cudaStream_t>(stream));
-  if (err != 0) return err;
+  const auto* ap = static_cast<const double2*>(a);
+  auto* ip = static_cast<double2*>(ainv);
+  auto* sp = static_cast<double2*>(sign);
+  auto* lp = static_cast<double*>(logdet);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (gj_body_c128(n) == 1) {
+    const int smem = static_cast<int>(gj_smem_bytes_c128(n));
+    const cudaError_t err = cudaFuncSetAttribute(
+        gj_registers_double_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gj_registers_double_kernel<<<(batch + kZMats - 1) / kZMats, 64 * kZMats,
+                                 smem, st>>>(ap, ip, sp, lp, batch);
+  } else {
+    const int err = launch_shared(ap, ip, sp, lp, batch, n, st);
+    if (err != 0) return err;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,9 +7,11 @@ keep a matrix in registers, "warp" (n <= 32, one lane per row, two
 matrices per warp for n <= 16), "registers" (n = 48, one warp per matrix)
 and "mid" (49 <= n <= 96, a block of 8 warps per matrix); "shared" keeps
 it in the shared memory of one block, for any other size up to the
-card's shared-memory limit. complex128 (precision='float64') takes the
-shared-memory body in double at every n it fits (`variant_c128`; n <= 118
-on an H100). Every leading batch axis (walkers x determinants) goes into
+card's shared-memory limit. complex128 (precision='float64') has two
+bodies, chosen by n alone (`variant_c128`, which asks gj_body_c128):
+"registers, complex128" at n = 48 (two warps per matrix) and the
+shared-memory body in double at every other n it fits (n <= 118 on an
+H100). Every leading batch axis (walkers x determinants) goes into
 one launch. The plain PyTorch version performs the same elimination with
 the same pivot rule, vectorised over the batch, in either type; the
 wrapper takes it only for tensors on the CPU.
@@ -28,8 +30,11 @@ from deepsolid_tpu_torch.ops.cuda import build
 LAUNCHES = {"gj_inverse_slogdet": 0}
 # the kernel bodies by the code gj_body returns
 BODIES = ("shared", "warp", "registers", "mid")
-# the complex128 body: the shared-memory one in double, at every n
+# the complex128 bodies by the code gj_body_c128 returns: the
+# shared-memory one in double, and the register one at n = 48
 BODY_C128 = "shared, complex128"
+BODY_C128_REGISTERS = "registers, complex128"
+BODIES_C128 = (BODY_C128, BODY_C128_REGISTERS)
 # launches by (kernel, (matrices, n, n), variant), counted beside LAUNCHES
 SHAPES = collections.Counter()
 
@@ -43,6 +48,7 @@ _SIGNATURES = {
     "gj_inverse_slogdet_launch_c128": (
         ctypes.c_int, [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]),
     "gj_smem_bytes_c128": (ctypes.c_longlong, [ctypes.c_int]),
+    "gj_body_c128": (ctypes.c_int, [ctypes.c_int]),
 }
 _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
@@ -113,16 +119,18 @@ def variant(lib, n: int, device: torch.device) -> str:
 
 
 def variant_c128(lib, n: int, device: torch.device) -> str:
-    """The complex128 body (BODY_C128) for n x n matrices; raises, as
-    `variant` does, where the matrix does not fit a block's shared memory."""
+    """Which complex128 body serves n x n matrices, by n alone (one of
+    BODIES_C128); raises, as `variant` does, where the matrix does not fit
+    a block's shared memory."""
+    body = BODIES_C128[lib.gj_body_c128(n)]
     _fits(lib, n, lib.gj_smem_bytes_c128(n), device)
-    return BODY_C128
+    return body
 
 
 def launcher(lib, dtype, n: int, device: torch.device):
     """(body, the library's launch entry) for n x n matrices of `dtype`:
-    complex64 takes the body `variant` names (its launcher branches on n
-    the same way), complex128 the shared-memory body in double."""
+    complex64 takes the body `variant` names, complex128 the one
+    `variant_c128` names (each launcher branches on n the same way)."""
     if dtype == torch.complex128:
         return variant_c128(lib, n, device), lib.gj_inverse_slogdet_launch_c128
     return variant(lib, n, device), lib.gj_inverse_slogdet_launch

@@ -9,9 +9,11 @@ this rank's tangents and the tangent square sum comes back as a fourth
 output, s_local, for the caller to sum over the ranks and close
     lap = lap_part + (-2 v (1 - v^2)) * sum_ranks s_local.
 The wrappers take the plain PyTorch version only for tensors on the CPU.
-float64 tensors (precision='float64') launch the general body in double
-at every shape (`kernel_variant` returns FLOAT64); the pair and wide
-bodies are float32 only. A launch takes one dtype for all its tensors.
+float64 tensors (precision='float64') launch the wide body in double, on
+the FP64 tensor cores, at the 256-wide layers (`kernel_variant` returns
+its tangent slices, `wide_slices_f64`), and the general body in double at
+every other shape (FLOAT64); the pair body is float32 only. A launch
+takes one dtype for all its tensors.
 
 Layouts (float32 or float64 on the card; T is T_local in the open form):
   plain rule: val, lap (R, d_in); jac (T, R, d_in); w (d_in, d_out); b (d_out,)
@@ -39,12 +41,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "dense_tanh_jet_launch": (_I, [_P] * 13 + [_I] * 7 + [_P]),
-    "dense_tanh_jet_launch_f64": (_I, [_P] * 12 + [_I] * 6 + [_P]),
+    "dense_tanh_jet_launch_f64": (_I, [_P] * 13 + [_I] * 7 + [_P]),
 }
 DTYPES = (torch.float32, torch.float64)
 # the wide variant's block tile and the largest d_in whose column slice of
 # w stays resident in shared memory (kWM, kWN, kWMaxK in csrc/dense_tanh_jet.cu)
 WIDE_ROWS, WIDE_COLS, WIDE_MAX_D_IN = 256, 64, 384
+# the float64 wide variant's block tile and its largest resident d_in
+# (kDM, kDN, kDMaxK in csrc/dense_tanh_jet.cu): a 64-column slice of w in
+# double leaves room for 64 rows
+WIDE64_ROWS, WIDE64_COLS, WIDE64_MAX_D_IN = 64, 64, 352
 # what a block of the wide variant does once whatever its slice, counted in
 # tangents' worth of work: it loads its slice of w and forms the value
 WIDE_BLOCK_OVERHEAD = 2
@@ -67,7 +73,25 @@ def wide_slices(t_dim, rows, d_in, d_out, sms):
     if (d_out % WIDE_COLS or d_in % 4 or d_in > WIDE_MAX_D_IN or t_dim < 1
             or rows < 1):
         return 0
-    tiles = -(-rows // WIDE_ROWS) * (d_out // WIDE_COLS)
+    return _slices(t_dim, -(-rows // WIDE_ROWS) * (d_out // WIDE_COLS), sms)
+
+
+def wide_slices_f64(t_dim, rows, d_in, d_out, sms):
+    """Tangent slices of the float64 wide variant for this shape, 0 for
+    the general body in double. It takes the layers whose d_out is a
+    multiple of its 64-column tile and whose d_in is a multiple of 4 and at
+    most WIDE64_MAX_D_IN, at any T (no tangent: one slice), and slices the
+    tangents by the wide variant's rule over its own 64 x 64 tiles."""
+    if (d_out % WIDE64_COLS or d_in % 4 or d_in > WIDE64_MAX_D_IN or t_dim < 0
+            or rows < 1):
+        return 0
+    return _slices(t_dim, -(-rows // WIDE64_ROWS) * (d_out // WIDE64_COLS), sms)
+
+
+def _slices(t_dim, tiles, sms):
+    """The slice count whose waves of `tiles` x slices blocks (one per
+    SM) times a block's work come out least, the fewest on a tie; 1 for no
+    tangent."""
     best, best_cost = 1, None
     for want in range(1, t_dim + 1):
         per = slice_tangents(t_dim, want)
@@ -84,7 +108,8 @@ def wide_slices(t_dim, rows, d_in, d_out, sms):
 # kPC and the launch_pair instantiations in csrc/dense_tanh_jet.cu)
 PAIR_D_OUT, PAIR_D_IN = 32, (4, 32)
 PAIR = -1  # what `kernel_variant` returns for the pair variant
-FLOAT64 = -2  # ... and for any float64 launch: the general body in double
+FLOAT64 = -2  # ... and for a float64 launch the float64 wide variant does
+              # not take: the general body in double
 
 
 def pair_body(d_in, d_out, mixed):
@@ -95,24 +120,28 @@ def pair_body(d_in, d_out, mixed):
 
 
 def kernel_variant(t_dim, rows, d_in, d_out, mixed, sms, dtype=torch.float32):
-    """Which kernel body a launch runs, by dtype and shape alone: FLOAT64
-    for any float64 launch; in float32 PAIR for the pair variant, a
-    positive count of tangent slices for the wide variant, 0 for the
-    general one."""
+    """Which kernel body a launch runs, by dtype and shape alone: in
+    float64 a positive count of tangent slices for the float64 wide
+    variant, FLOAT64 for the general body in double; in float32 PAIR for the
+    pair variant, a positive count of tangent slices for the wide variant,
+    0 for the general one."""
     if dtype == torch.float64:
-        return FLOAT64
+        return wide_slices_f64(t_dim, rows, d_in, d_out, sms) or FLOAT64
     if pair_body(d_in, d_out, mixed):
         return PAIR
     return wide_slices(t_dim, rows, d_in, d_out, sms)
 
 
-def variant_label(slices):
+def variant_label(slices, dtype=torch.float32):
     """`kernel_variant`'s answer in words."""
     if slices == PAIR:
         return "pair"
     if slices == FLOAT64:
         return "general, float64"
-    return f"wide, {slices} tangent slices" if slices > 0 else "general"
+    if slices > 0:
+        kind = "wide, float64," if dtype == torch.float64 else "wide,"
+        return f"{kind} {slices} tangent slices"
+    return "general"
 
 
 def _dense(x):
@@ -202,36 +231,33 @@ def _launch(name, val, jac, lap, w, b, mix, rows_per_group, groups,
     sq_o = torch.empty_like(val_o) if open_sum else None
     if rows and d_out:
         lib = _lib()
-        # the one place the variant is chosen, by shape alone. The wide
-        # variant splits the tangents across blocks, whose partial square
-        # sums need slices * rows * d_out floats of scratch; PAIR is the
-        # streaming body of the two-electron layers; 0 slices is the
-        # general one (also for a d_in whose slice of w does not fit in
-        # shared memory). t_dim is this call's own (a rank's T_local in the
-        # open form), so scratch and the finishing grid follow `slices`
+        # the one place the variant is chosen, by dtype and shape alone.
+        # The wide variants split the tangents across blocks, whose partial
+        # square sums need slices * rows * d_out values of scratch; PAIR is
+        # the streaming body of the two-electron layers; 0 slices (FLOAT64
+        # in double) is the general one (also for a d_in whose slice of w
+        # does not fit in shared memory). t_dim is this call's own (a rank's
+        # T_local in the open form), so scratch and the finishing grid
+        # follow `slices`
         sms = torch.cuda.get_device_properties(val.device).multi_processor_count
         slices = kernel_variant(t_dim, rows, d_in, d_out, mix is not None, sms,
                                 val.dtype)
         scratch = (torch.empty((slices, rows, d_out), dtype=val.dtype,
                                device=val.device) if slices > 0 else None)
+        entry = (lib.dense_tanh_jet_launch_f64 if val.dtype == torch.float64
+                 else lib.dense_tanh_jet_launch)
         ptr = (lambda x: None if x is None else x.data_ptr())
         with torch.cuda.device(val.device):
             stream = torch.cuda.current_stream(val.device).cuda_stream
-            if slices == FLOAT64:
-                code = lib.dense_tanh_jet_launch_f64(
-                    ptr(val), ptr(lap), ptr(jac), ptr(w), ptr(b), ptr(zbc),
-                    ptr(lbc), ptr(jbc), ptr(val_o), ptr(lap_o), ptr(jac_o),
-                    ptr(sq_o), t_dim, rows, d_in, d_out, rows_per_group,
-                    groups, stream)
-            else:
-                code = lib.dense_tanh_jet_launch(
-                    ptr(val), ptr(lap), ptr(jac), ptr(w), ptr(b), ptr(zbc),
-                    ptr(lbc), ptr(jbc), ptr(val_o), ptr(lap_o), ptr(jac_o),
-                    ptr(scratch), ptr(sq_o), slices, t_dim, rows, d_in,
-                    d_out, rows_per_group, groups, stream)
+            code = entry(
+                ptr(val), ptr(lap), ptr(jac), ptr(w), ptr(b), ptr(zbc),
+                ptr(lbc), ptr(jbc), ptr(val_o), ptr(lap_o), ptr(jac_o),
+                ptr(scratch), ptr(sq_o), 0 if slices == FLOAT64 else slices,
+                t_dim, rows, d_in, d_out, rows_per_group, groups, stream)
         build.check(lib, code, name)
         LAUNCHES[name] += 1
-        SHAPES[name, (t_dim, rows, d_in, d_out), variant_label(slices)] += 1
+        SHAPES[name, (t_dim, rows, d_in, d_out),
+               variant_label(slices, val.dtype)] += 1
     if open_sum:
         return val_o, jac_o, lap_o, sq_o
     return val_o, jac_o, lap_o

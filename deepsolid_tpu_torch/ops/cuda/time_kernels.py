@@ -27,7 +27,13 @@ rows, d_out 256, T = 288 (closed) or 144 (open), d_in 16, 320 or 256; the
 two-electron (pair) jet kernels on 589,824 rows, d_out 32, d_in 4 and 32,
 T = 6 (closed) and 3 (open); and at one 256-walker E_L chunk of LiH 2x2x2
 (T = 96 on 8192 rows; 262,144 pair rows) and of graphene (T = 36 on 3072
-rows; 36,864 pair rows). For the wide jet variant the
+rows; 36,864 pair rows). The float64 bodies at the float64 path's shapes: B1 in
+complex128 at (8192, 48, 48) and (512, 48, 48) (GJ_SHAPES_C128), and the
+float64 one-electron jet kernels (JET_SHAPES_F64: T = 288 closed and 144
+open on 6144 rows, d_in 16 and 320): B1 beside the other design's
+complex128 entry, the jets beside this build's general body in double
+(slices 0, what every float64 shape ran before the wide body in double).
+For the wide jet variant the
 current design is timed at each slice count of --slices beside the one
 jet_kernels.kernel_variant chooses; --baseline-slices is the slice count
 the other design is handed at the wide shapes (6 for the 128 x 64-tile
@@ -35,7 +41,8 @@ design); at the pair shapes the other design runs its general kernel
 (slices 0) unless --baseline-pair says it has a pair body of its own. One
 JSON line per shape, with the bytes bound beside the times, and
 `same_bits`: whether the two designs' outputs on the same inputs agree
-bit for bit (a design that changes no arithmetic must read true).
+bit for bit (a design that changes no arithmetic must read true; a
+float64 body that sums in another order reads false).
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ ROWS, D_OUT = WALKERS * 96, 256          # one-electron stream
 PAIR_ROWS, PAIR_D_OUT = WALKERS * 96 * 96, 32  # two-electron stream
 PEAK_BYTES = 3.35e12  # H100 SXM HBM bytes/s (NVIDIA data sheet, 700 W)
 PEAK_FP32 = 67e12     # H100 SXM FP32 FLOP/s outside the tensor cores
+PEAK_FP64_TENSOR = 67e12  # H100 SXM FP64 FLOP/s on the tensor cores
 # E_L chunks of LiH rock-salt 2x2x2 (32 electrons) and graphene 1x1 (12)
 # at their run scripts' el_chunk
 COLD_WALKERS, LIH_N, GRAPHENE_N = 256, 32, 12
@@ -79,6 +87,13 @@ JET_SHAPES = ((288, ROWS, 16, D_OUT, True, False, WALKERS),
                 for n in (LIH_N, GRAPHENE_N) for d_in in (16, 320)),
               *((6, COLD_WALKERS * n * n, d_in, PAIR_D_OUT, False, False, COLD_WALKERS)
                 for n in (LIH_N, GRAPHENE_N) for d_in in (4, 32)))
+# the float64 path's shapes (precision='float64', C-diamond): B1 in
+# complex128, and the one-electron jet kernels closed and open
+GJ_SHAPES_C128 = ((8192, 48), (512, 48))
+JET_SHAPES_F64 = ((288, ROWS, 16, D_OUT, True, False, WALKERS),
+                  (288, ROWS, 320, D_OUT, True, False, WALKERS),
+                  (144, ROWS, 16, D_OUT, True, True, WALKERS),
+                  (144, ROWS, 320, D_OUT, True, True, WALKERS))
 
 
 def baseline_library(directory: Path, name: str, signatures) -> ctypes.CDLL:
@@ -127,14 +142,18 @@ def graph_ms(fn, launches: int = 20) -> float:
 
 
 def gj_launcher(lib, a):
+    """The launch entry of `a`'s dtype (complex64 or complex128)."""
     import torch
 
+    c128 = a.dtype == torch.complex128
     ainv = torch.empty_like(a)
-    sign = torch.empty(a.shape[0], dtype=torch.complex64, device=a.device)
-    logdet = torch.empty(a.shape[0], dtype=torch.float32, device=a.device)
+    sign = torch.empty(a.shape[0], dtype=a.dtype, device=a.device)
+    logdet = torch.empty(a.shape[0], dtype=torch.float64 if c128 else torch.float32,
+                         device=a.device)
+    entry = lib.gj_inverse_slogdet_launch_c128 if c128 else lib.gj_inverse_slogdet_launch
 
     def run():
-        code = lib.gj_inverse_slogdet_launch(
+        code = entry(
             a.data_ptr(), ainv.data_ptr(), sign.data_ptr(), logdet.data_ptr(),
             a.shape[0], a.shape[1], torch.cuda.current_stream().cuda_stream)
         build.check(lib, code, "gj_inverse_slogdet")
@@ -143,14 +162,17 @@ def gj_launcher(lib, a):
 
 
 def jet_launcher(lib, slices, val, jac, lap, w, b, mix, open_sum):
+    """The launch entry of val's dtype (float32 or float64)."""
     import torch
 
     t_dim, rows, d_in = jac.shape
     d_out = w.shape[1]
-    val_o = torch.empty(rows, d_out, device=val.device)
-    lap_o, jac_o = torch.empty_like(val_o), torch.empty(t_dim, rows, d_out, device=val.device)
+    f64 = val.dtype == torch.float64
+    val_o = torch.empty(rows, d_out, device=val.device, dtype=val.dtype)
+    lap_o = torch.empty_like(val_o)
+    jac_o = torch.empty(t_dim, rows, d_out, device=val.device, dtype=val.dtype)
     sq_o = torch.empty_like(val_o) if open_sum else None
-    scratch = torch.empty(max(slices, 1), rows, d_out, device=val.device)
+    scratch = torch.empty(max(slices, 1), rows, d_out, device=val.device, dtype=val.dtype)
     zbc, lbc, jbc = mix if mix else (None,) * 3
     groups = zbc.shape[0] if mix else 1
     stream = torch.cuda.current_stream().cuda_stream
@@ -159,7 +181,8 @@ def jet_launcher(lib, slices, val, jac, lap, w, b, mix, open_sum):
         return None if x is None else x.data_ptr()
 
     def run():
-        code = lib.dense_tanh_jet_launch(
+        entry = lib.dense_tanh_jet_launch_f64 if f64 else lib.dense_tanh_jet_launch
+        code = entry(
             ptr(val), ptr(lap), ptr(jac), ptr(w), ptr(b), ptr(zbc), ptr(lbc),
             ptr(jbc), ptr(val_o), ptr(lap_o), ptr(jac_o), ptr(scratch),
             ptr(sq_o), slices, t_dim, rows, d_in, d_out, rows // groups,
@@ -231,6 +254,24 @@ def main() -> None:
               flush=True)
         del a
 
+    for nb, n in GJ_SHAPES_C128:
+        a = (torch.complex(rnd(nb, n, n), rnd(nb, n, n)) / math.sqrt(2 * n)).to(
+            torch.complex128)
+        current = gj_launcher(gj, a)
+        other = gj_launcher(gj_base, a) if gj_base else None
+        ms, base = in_turns(current, other)
+        dev_ms, dev_base = in_turns(current, other, graph_ms)
+        nbytes, flops = 2 * a.numel() * 16, 8.0 * n**3 * nb
+        print(json.dumps({"kernel": "gj_inverse_slogdet", "shape": [nb, n, n],
+                          "dtype": "complex128", "body": dk.variant_c128(gj, n, dev),
+                          "ms": ms, "same_bits": same_bits(current, other),
+                          "baseline_ms": base, "graph_ms": dev_ms,
+                          "baseline_graph_ms": dev_base,
+                          "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP64_TENSOR) * 1e3,
+                          "wrapper_ms": time_ms(lambda: dk.gj_inverse_slogdet(a))}),
+              flush=True)
+        del a
+
     for t_dim, rows, d_in, d_out, mixed, open_sum, walkers in JET_SHAPES:
         val, jac, lap = rnd(rows, d_in), rnd(t_dim, rows, d_in), rnd(rows, d_in)
         w, b = rnd(d_in, d_out) / math.sqrt(d_in), rnd(d_out)
@@ -259,6 +300,32 @@ def main() -> None:
             "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
             "matmul_ms": time_ms(lambda: torch.matmul(jac, w))}), flush=True)
         del val, jac, lap, mix
+
+    def rnd64(*shape):
+        return rnd(*shape).double()
+
+    for t_dim, rows, d_in, d_out, mixed, open_sum, walkers in JET_SHAPES_F64:
+        val, jac, lap = rnd64(rows, d_in), rnd64(t_dim, rows, d_in), rnd64(rows, d_in)
+        w, b = rnd64(d_in, d_out) / math.sqrt(d_in), rnd64(d_out)
+        mix = ((rnd64(walkers, d_out), rnd64(walkers, d_out),
+                rnd64(t_dim, walkers, d_out)) if mixed else None)
+        chosen = jk.kernel_variant(t_dim, rows, d_in, d_out, mixed, sms, torch.float64)
+        slices = max(chosen, 0)  # FLOAT64: the general body, slices 0
+        current = jet_launcher(jet, slices, val, jac, lap, w, b, mix, open_sum)
+        general = jet_launcher(jet, 0, val, jac, lap, w, b, mix, open_sum)
+        ms, general_ms = in_turns(current, general)
+        nbytes = 8 * ((t_dim + 2) * rows * (d_in + d_out) + d_in * d_out + d_out
+                      + (rows * d_out if open_sum else 0))
+        flops = 2.0 * (t_dim + 2) * rows * d_in * d_out
+        print(json.dumps({
+            "kernel": "dense_tanh_jet", "dtype": "float64", "T": t_dim, "rows": rows,
+            "d_in": d_in, "d_out": d_out, "mix": mixed, "open": open_sum,
+            "body": jk.variant_label(chosen, torch.float64), "ms": ms,
+            "same_bits": same_bits(current, general), "general_ms": general_ms,
+            "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP64_TENSOR) * 1e3,
+            "matmul_ms": time_ms(lambda: torch.matmul(jac, w))}), flush=True)
+        del val, jac, lap, mix, current, general
+        torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     main()

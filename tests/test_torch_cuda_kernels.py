@@ -249,13 +249,18 @@ TOL64 = dict(rtol=1e-10, atol=1e-10)
 C128_MAX_N = 118  # the largest complex128 matrix a block's shared memory holds
 
 
+def _gj_body_c128(n):
+    """The body csrc/gj_inverse.cu's gj_body_c128 gives n x n matrices."""
+    return tdk.BODY_C128_REGISTERS if n == 48 else tdk.BODY_C128
+
+
 @pytest.mark.cuda
 def test_gj_complex128_body_matches_plain(cuda_device):
     rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(10), cuda_device)
-    for n in (1, 5, 14, 16, 48, 81, 100, C128_MAX_N):
+    for n in (1, 5, 14, 16, 47, 48, 49, 81, 100, C128_MAX_N):
         a = (torch.complex(rnd(64, n, n), rnd(64, n, n))
              + 4.0 * torch.eye(n, device=cuda_device)).to(torch.complex128)
-        key = ("gj_inverse_slogdet", (64, n, n), tdk.BODY_C128)
+        key = ("gj_inverse_slogdet", (64, n, n), _gj_body_c128(n))
         before = tdk.SHAPES[key]
         got = tdk.gj_inverse_slogdet(a)
         assert tdk.SHAPES[key] == before + 1, n
@@ -272,12 +277,36 @@ def test_gj_complex128_body_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2, 3, 513, 8192])  # 1, 3, 513: a block's
+def test_gj_complex128_register_body_batches(cuda_device, batch):  # second matrix idle
+    """The complex128 register body (two warps a matrix, two matrices a
+    block) on Gaussian 48 x 48 matrices: 1e-9 of the inverse's scale (the
+    worst-conditioned of 8192 amplifies f64's 2^-53), and a relaunch equal
+    bit for bit."""
+    rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(13), cuda_device)
+    a = (torch.complex(rnd(batch, 48, 48), rnd(batch, 48, 48)).to(torch.complex128)
+         / 96**0.5)
+    key = ("gj_inverse_slogdet", (batch, 48, 48), tdk.BODY_C128_REGISTERS)
+    before = tdk.SHAPES[key]
+    got = tdk.gj_inverse_slogdet(a)
+    assert tdk.SHAPES[key] == before + 1
+    want = tdk.gj_inverse_slogdet_plain(a)
+    scale = want[0].abs().amax(dim=(-1, -2))
+    assert float(((got[0] - want[0]).abs().amax(dim=(-1, -2)) / scale).max()) <= 1e-9
+    assert float((got[1] - want[1]).abs().max()) <= 1e-9
+    assert float((got[2] - want[2]).abs().max()) <= 1e-9
+    for x, y in zip(got, tdk.gj_inverse_slogdet(a)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [48, 14, 81])
 @pytest.mark.parametrize("case", ["anti_diagonal", "permutation", "tie",
                                   "zero_pivot", "nan_entry"])
 def test_gj_complex128_edge_matrices(cuda_device, n, case):
     """The pivot rule's corner cases in complex128 against the plain
-    version: the same pivots, -inf for a zero pivot, NaN confined."""
+    version (n = 48 on the register body, 14 and 81 on the shared one): the
+    same pivots, -inf for a zero pivot, NaN confined."""
     dev = cuda_device
     rnd = _rnd(torch.Generator(device=dev).manual_seed(11), dev)
     eye = torch.eye(n, device=dev, dtype=torch.complex128)
@@ -292,8 +321,11 @@ def test_gj_complex128_edge_matrices(cuda_device, n, case):
         a[:, :, 7] = 0
     else:
         a[0, 3, 4] = float("nan")
+    key = ("gj_inverse_slogdet", tuple(a.shape), _gj_body_c128(n))
+    before = tdk.SHAPES[key]
     got, want = tdk.gj_inverse_slogdet(a), tdk.gj_inverse_slogdet_plain(a)
     torch.cuda.synchronize()
+    assert tdk.SHAPES[key] == before + 1
     if case in ("zero_pivot", "nan_entry"):
         assert torch.equal(torch.isfinite(got[2]), torch.isfinite(want[2]))
         assert not torch.isfinite(got[2][0])
@@ -317,8 +349,35 @@ def test_gj_complex128_edge_matrices(cuda_device, n, case):
 ])
 def test_jet_float64_body_matches_plain(cuda_device, t_dim, groups, n, d_in,
                                         d_out, mixed, open_sum):
-    """Every rule and form at float64 takes the general body in double,
-    against its float64 plain version, and two launches agree bit for bit."""
+    """Every rule and form at float64 takes the body its shape names (the
+    general body in double, or the wide one on the FP64 tensor cores at the
+    256-wide shape), against its float64 plain version, and two launches
+    agree bit for bit."""
+    _jet_float64_case(cuda_device, t_dim, groups, n, d_in, d_out, mixed, open_sum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("open_sum", [False, True], ids=["closed", "open"])
+@pytest.mark.parametrize("mixed", [False, True], ids=["plain", "mix"])
+@pytest.mark.parametrize("t_dim,groups,n,d_in,d_out", [
+    (0, 5, 77, 40, 256),    # no tangent: one slice, the value and Laplacian only
+    (1, 3, 50, 16, 64),     # one tangent, one 64-column tile, ragged rows
+    (50, 5, 77, 40, 256),   # 4 slices of 13, 13, 13, 11 tangents: ragged
+    (13, 2, 96, 320, 256),  # B3's widths, 20 k-slices of the ring
+    (5, 3, 41, 352, 128),   # the largest resident slice of w
+    (144, 8, 96, 16, 256),  # B4b's first layer at a rank's T_local
+])
+def test_jet_float64_wide_body_matches_plain(cuda_device, t_dim, groups, n, d_in,
+                                             d_out, mixed, open_sum):
+    """The float64 wide body (FP64 tensor cores) at ragged rows and
+    tangents, both rules, both forms, against the float64 plain version
+    within TOL64, and a relaunch equal bit for bit."""
+    slices = tjk.wide_slices_f64(t_dim, groups * n, d_in, d_out, 132)
+    assert slices > 0
+    _jet_float64_case(cuda_device, t_dim, groups, n, d_in, d_out, mixed, open_sum)
+
+
+def _jet_float64_case(cuda_device, t_dim, groups, n, d_in, d_out, mixed, open_sum):
     rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(12), cuda_device)
 
     def r(*s):
@@ -332,7 +391,13 @@ def test_jet_float64_body_matches_plain(cuda_device, t_dim, groups, n, d_in,
     else:
         args = (r(groups * n, d_in), r(t_dim, groups * n, d_in), r(groups * n, d_in),
                 r(d_in, d_out) / d_in**0.5, r(d_out))
-    key = (name, (t_dim, groups * n, d_in, d_out), "general, float64")
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    label = tjk.variant_label(tjk.kernel_variant(
+        t_dim, groups * n, d_in, d_out, mixed, sms, torch.float64), torch.float64)
+    assert label.endswith("float64") or label.startswith("wide, float64")
+    assert (label == "general, float64") == (
+        tjk.wide_slices_f64(t_dim, groups * n, d_in, d_out, sms) == 0)
+    key = (name, (t_dim, groups * n, d_in, d_out), label)
     before, shape_before = tjk.LAUNCHES[name], tjk.SHAPES[key]
     got = getattr(tjk, name)(*args)
     assert tjk.LAUNCHES[name] == before + 1 and tjk.SHAPES[key] == shape_before + 1

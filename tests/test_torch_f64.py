@@ -28,13 +28,25 @@ from test_torch_kernels import _FakeGjLibrary, _forbid
 C128_MAX_N = 118
 
 
+# a block of the complex128 register body: two matrices, each with its
+# 48 x 49 unscrambling tile, two buffers of column k and of the pivot row,
+# the pivots (double2) and three int tables of 48
+C128_REGISTERS_BYTES = 2 * (48 * 49 * 16 + 4 * 48 * 16 + 48 * 16 + 3 * 48 * 4)
+
+
 class _FakeGjLibraryC128(_FakeGjLibrary):
     """The complex128 size rule of csrc/gj_inverse.cu beside the complex64
-    one: the shared-memory body at every n, 16 n^2 + 3 x 16 n + 4 n bytes
-    (the matrix, three rows of double2 and the pivot rows), and each launch
-    entry a function of its own name."""
+    one (gj_body_c128: 1 registers at n = 48, 0 shared): the register body's
+    two matrices a block, the shared-memory body's 16 n^2 + 3 x 16 n + 4 n
+    bytes (the matrix, three rows of double2 and the pivot rows), and each
+    launch entry a function of its own name."""
+
+    def gj_body_c128(self, n):
+        return 1 if n == 48 else 0
 
     def gj_smem_bytes_c128(self, n):
+        if self.gj_body_c128(n):
+            return C128_REGISTERS_BYTES
         return n * n * 16 + 3 * n * 16 + n * 4
 
     def gj_inverse_slogdet_launch(self, *args):
@@ -44,12 +56,15 @@ class _FakeGjLibraryC128(_FakeGjLibrary):
         return "complex128 entry"
 
 
-@pytest.mark.parametrize("n", [1, 5, 6, 14, 16, 48, 81, 100, C128_MAX_N])
+@pytest.mark.parametrize("n", [1, 5, 6, 14, 16, 47, 48, 49, 81, 100, C128_MAX_N])
 def test_gj_c128_takes_the_shared_body_where_it_fits(n):
+    """n = 48 (C-diamond) takes the complex128 register body, every other
+    n the shared-memory body, through the one complex128 entry."""
     lib, dev = _FakeGjLibraryC128(), torch.device("cuda", 0)
-    assert tdk.variant_c128(lib, n, dev) == tdk.BODY_C128
+    want = tdk.BODY_C128_REGISTERS if n == 48 else tdk.BODY_C128
+    assert tdk.variant_c128(lib, n, dev) == want
     body, entry = tdk.launcher(lib, torch.complex128, n, dev)
-    assert body == tdk.BODY_C128 and entry() == "complex128 entry"
+    assert body == want and entry() == "complex128 entry"
     # complex64 keeps its own bodies and entry at the same n
     body, entry = tdk.launcher(lib, torch.complex64, n, dev)
     assert body == tdk.variant(lib, n, dev) and entry() == "complex64 entry"
@@ -70,7 +85,18 @@ def test_gj_c128_fake_library_follows_the_source():
     """_FakeGjLibraryC128's size rule and the wrapper's signatures are the
     ones csrc/gj_inverse.cu states."""
     text = (build.CSRC / "gj_inverse.cu").read_text()
-    assert "long long gj_smem_bytes_c128(int n) { return shared_body_bytes<double2>(n); }" in text
+    assert "int gj_body_c128(int n) { return n == kZN ? 1 : 0; }" in text
+    assert "constexpr int kZN = 48;" in text and "constexpr int kZMats = 2;" in text
+    assert ("    return static_cast<long long>(sizeof(ZRegShared)) * kZMats;\n  }\n"
+            "  return shared_body_bytes<double2>(n);") in text
+    struct = re.search(r"struct ZRegShared \{(.*?)\};", text, re.S).group(1)
+    struct = re.sub(r"//[^\n]*", "", struct)
+    fields = [" ".join(f.split()) for f in struct.split(";") if f.strip()]
+    assert fields == ["double2 tile[kZN][kZN + 1]", "double2 fcol[2][kZN]",
+                      "double2 prow[2][kZN]", "double2 piv[kZN]", "int swapped[kZN]",
+                      "int pos[kZN]", "int row_at[kZN]"]
+    assert tdk.BODIES_C128 == (tdk.BODY_C128, tdk.BODY_C128_REGISTERS)
+    assert tdk._SIGNATURES["gj_body_c128"] == tdk._SIGNATURES["gj_body"]
     assert ("return static_cast<long long>(n) * n * sizeof(C) + 3LL * n * sizeof(C) +\n"
             "         static_cast<long long>(n) * sizeof(int);") in text
     assert "return shared_body_bytes<float2>(n);" in text  # complex64's shared body
@@ -79,9 +105,11 @@ def test_gj_c128_fake_library_follows_the_source():
                      text)
     restype, argtypes = tdk._SIGNATURES["gj_inverse_slogdet_launch_c128"]
     assert len(argtypes) == 7 and argtypes == tdk._SIGNATURES["gj_inverse_slogdet_launch"][1]
-    # 118 fits the 232448 bytes an H100 block may opt into, 119 does not
+    # 118 fits the 232448 bytes an H100 block may opt into, 119 does not;
+    # the register body's block needs 84 KB
     lib = _FakeGjLibraryC128()
     assert lib.gj_smem_bytes_c128(C128_MAX_N) <= 232448 < lib.gj_smem_bytes_c128(C128_MAX_N + 1)
+    assert lib.gj_smem_bytes_c128(48) == C128_REGISTERS_BYTES == 84096
 
 
 def test_gj_wrapper_asks_the_c128_rule_for_complex128(monkeypatch):
@@ -125,33 +153,99 @@ def test_gj_wrapper_asks_the_c128_rule_for_complex128(monkeypatch):
 # ---- the jet kernels in float64 ---------------------------------------------
 
 
-@pytest.mark.parametrize("shape,mixed", [
-    ((6, 64 * 96 * 96, 4, 32), False),    # B2's pair shape: pair in float32
-    ((3, 64 * 96 * 96, 32, 32), False),   # B4a's pair shape
-    ((288, 6144, 320, 256), True),        # B3: wide in float32
-    ((144, 6144, 16, 256), True),         # B4b
-    ((9, 30, 20, 40), True),              # general in float32 too
+@pytest.mark.parametrize("shape,mixed,label", [
+    ((6, 64 * 96 * 96, 4, 32), False, "general, float64"),   # B2's pair shape:
+    ((3, 64 * 96 * 96, 32, 32), False, "general, float64"),  # pair in float32
+    ((288, 6144, 320, 256), True, "wide, float64, 1 tangent slices"),  # B3
+    ((288, 6144, 16, 256), True, "wide, float64, 1 tangent slices"),
+    ((144, 6144, 16, 256), True, "wide, float64, 1 tangent slices"),   # B4b
+    ((144, 3072, 320, 256), True, "wide, float64, 2 tangent slices"),  # B4b at 32
+    ((144, 6144, 256, 256), False, "wide, float64, 1 tangent slices"),  # B4a's 256
+    ((9, 30, 20, 40), True, "general, float64"),              # general in float32 too
 ])
-def test_jet_float64_launches_name_the_float64_body(shape, mixed):
+def test_jet_float64_launches_name_the_float64_body(shape, mixed, label):
+    """The 256-wide layers take the float64 wide body with the slice count
+    its chooser gives, every other shape the general body in double."""
     t_dim, rows, d_in, d_out = shape
     got = tjk.kernel_variant(t_dim, rows, d_in, d_out, mixed, 132, torch.float64)
-    assert got == tjk.FLOAT64
-    assert tjk.variant_label(got) == "general, float64"
+    wide = tjk.wide_slices_f64(t_dim, rows, d_in, d_out, 132)
+    assert got == (wide if wide else tjk.FLOAT64)
+    assert tjk.variant_label(got, torch.float64) == label
     # float32 is chosen as before, by shape alone
     assert tjk.kernel_variant(t_dim, rows, d_in, d_out, mixed, 132) == \
         tjk.kernel_variant(t_dim, rows, d_in, d_out, mixed, 132, torch.float32) != tjk.FLOAT64
 
 
+@pytest.mark.parametrize("shape,slices", [
+    ((288, 6144, 320, 256), 1),   # 384 tiles: 2.9 waves of one block per SM
+    ((144, 3072, 16, 256), 2),    # 192 tiles: a second slice fills the waves
+    ((0, 385, 40, 256), 1),       # no tangent: one slice, never zero
+    ((1, 150, 16, 64), 1),
+    ((50, 385, 40, 256), 4),      # 28 tiles: slices of 13, 13, 13, 11
+    ((13, 192, 320, 256), 7),     # slices of 2 and a last one of 1
+    ((5, 123, 352, 128), 5),      # the largest resident d_in
+    ((5, 123, 356, 128), 0),      # one past it: the general body
+    ((288, 6144, 384, 256), 0),   # resident in float32's wide body, not in double's
+    ((288, 6144, 318, 256), 0),   # d_in not a multiple of 4
+    ((288, 6144, 320, 200), 0),   # d_out off the 64-column tile
+    ((6, 64 * 96 * 96, 32, 32), 0),
+    ((3, 0, 320, 256), 0),        # no rows: nothing to launch
+])
+def test_jet_float64_slices_are_chosen_by_shape(shape, slices):
+    """The float64 wide body's slice chooser: a shape it does not take
+    gives 0 (the general body); otherwise every slice holds a tangent under
+    the launcher's ceil rule, or the one slice of a launch without any."""
+    t_dim, rows, d_in, d_out = shape
+    assert tjk.wide_slices_f64(*shape, 132) == slices
+    if slices:
+        assert d_in <= tjk.WIDE64_MAX_D_IN and d_out % tjk.WIDE64_COLS == 0
+        assert 1 <= slices <= max(t_dim, 1)
+        if t_dim:
+            per = tjk.slice_tangents(t_dim, slices)
+            assert (slices - 1) * per < t_dim <= slices * per
+    # float32 keeps its own chooser
+    assert tjk.kernel_variant(t_dim, rows, d_in, d_out, True, 132) == \
+        tjk.wide_slices(t_dim, rows, d_in, d_out, 132)
+
+
+def test_jet_float64_wide_constants_match_the_source():
+    """The float64 wide body's tile, ring and resident limit as
+    csrc/dense_tanh_jet.cu states them, and its shared memory at the
+    largest d_in: the 227 KB a block may opt into, exactly."""
+    text = (build.CSRC / "dense_tanh_jet.cu").read_text()
+    assert f"constexpr int kDM = {tjk.WIDE64_ROWS};" in text
+    assert f"constexpr int kDN = {tjk.WIDE64_COLS};" in text
+    assert f"constexpr int kDMaxK = {tjk.WIDE64_MAX_D_IN};" in text
+    assert "constexpr int kDK = 16;" in text and "constexpr int kDStages = 4;" in text
+    assert "constexpr int kDStrideA = kDK + 4;" in text
+    assert "constexpr int kDStrideW = kDN + 4;" in text
+    # one product shape, m16n8k4, the only mma.sync in the source
+    assert text.count("mma.sync.aligned.") == 1
+    assert "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64" in text
+
+    def smem(d_in):  # the resident slice of w (rows of 68) and the ring
+        return 8 * (-(-d_in // 16) * 16 * 68 + 4 * 64 * 20)
+
+    assert smem(tjk.WIDE64_MAX_D_IN) == 232448 < smem(tjk.WIDE64_MAX_D_IN + 4)
+    # the strides keep a half warp's 64-bit fragment loads on 16 banks
+    for stride in (16 + 4, 64 + 4):
+        assert sorted((g * stride + t) % 16 for g in range(4) for t in range(4)) == \
+            list(range(16))
+
+
 def test_jet_float64_entry_follows_the_source():
     """The float64 entry's parameters in csrc/dense_tanh_jet.cu are the
-    ones the wrapper binds: 12 pointers, 6 ints and the stream."""
+    ones the wrapper binds, the float32 entry's: 13 pointers, 7 ints and
+    the stream."""
     text = (build.CSRC / "dense_tanh_jet.cu").read_text()
-    m = re.search(r"int dense_tanh_jet_launch_f64\(([^)]*)\)", text)
-    params = [p.strip() for p in m.group(1).split(",")]
-    kinds = ["int" if p.startswith("int ") else "ptr" for p in params]
-    assert kinds == ["ptr"] * 12 + ["int"] * 6 + ["ptr"]
-    _, argtypes = tjk._SIGNATURES["dense_tanh_jet_launch_f64"]
-    assert len(argtypes) == len(params)
+    for entry in ("dense_tanh_jet_launch_f64", "dense_tanh_jet_launch"):
+        m = re.search(rf"int {entry}\(([^)]*)\)", text)
+        params = [p.strip() for p in m.group(1).split(",")]
+        kinds = ["int" if p.startswith("int ") else "ptr" for p in params]
+        assert kinds == ["ptr"] * 13 + ["int"] * 7 + ["ptr"]
+        _, argtypes = tjk._SIGNATURES[entry]
+        assert len(argtypes) == len(params)
+    assert "if (slices < 0) return static_cast<int>(cudaErrorInvalidValue);" in text
     assert "template <int TN, bool MIX, bool OPEN, typename S>" in text
     assert "double fma_s(double a, double b, double c) {\n  return fma(a, b, c);" in text
     assert "double tanh_s(double x) { return tanh(x); }" in text
