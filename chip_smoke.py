@@ -164,8 +164,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 and 2 bcc-Li checkpoint walkers the same way, each with its
                 own TF32 control;
  18. float64  - precision='float64' on the card through the kernels'
-                float64 bodies (B1's complex128 register body at n = 48 and
-                shared-memory body elsewhere, the one-electron jets' wide
+                float64 bodies (B1's complex128 warp body up to n = 32,
+                register body at 48, mid body at 49-96 and shared-memory
+                body elsewhere, the one-electron jets' wide
                 body on the FP64 tensor cores, the general jet body in
                 double for the pair layers): el_chunk and psi_chunk from a
                 float64 probe of the card's peak memory; C-diamond 2x2x2 at
@@ -183,11 +184,28 @@ Phases, one JSON line each; any failure exits non-zero:
                 one process; the reference phase's walkers card float64
                 against CPU float64 (E_L <= 1e-9 Ha/cell, the gradient's and
                 KFAC update's norms <= 1e-10 relative; the card's float32
-                readings must fail both); float32's bias on the 1024
-                checkpoint walkers beside the 1e-4 Ha/atom budget; a
+                readings must fail both; the Si walkers' B1 launches on the
+                warp body, bcc-Li's on the mid body); float32's bias on the
+                1024 checkpoint walkers beside the 1e-4 Ha/atom budget; a
                 profile of one float64 E_L chunk; each float64 body against
-                its plain version at the production shapes, B1 also on the
-                edge matrices;
+                its plain version at the production shapes of every system
+                and at both ends of the warp and mid bodies' ranges, B1 also
+                on the edge matrices at n = 14, 16, 32, 48, 49, 81, 96;
+     float64_systems - bcc-Li 3x3x3 and Si 1x1x1 at full width in float64
+                through process(): bcc-Li from its handoff checkpoint cast
+                to float64 (el_chunk and psi_chunk from a float64 probe of
+                8, 16, 32 and 128, 256, 512 walkers, 2 of the run script's
+                100 burn-in sweeps, one KFAC iteration), Si from the si
+                phase's last checkpoint (psi_chunk unset, one inference and
+                one KFAC iteration): each run's split, walkers/s beside the
+                float32 phase's, peak memory, B1's exact launch count with
+                every (., 81, 81) launch on the mid complex128 body and
+                every (., 14, 14) launch on the warp complex128 body, every
+                launch on a float64 body, no plain version called; B1 then
+                held against its plain version and timed at every shape
+                the two paths launched. `python3 chip_smoke.py
+                --float64-bcc-li` runs the bcc-Li part alone, on the
+                kernels of the checkout it is run from;
  19. profile  - torch.profiler over one 64-walker C-diamond local-energy
                 chunk and one bcc-Li chunk (el_chunk walkers): kernels by
                 device time and the device's idle share.
@@ -348,8 +366,18 @@ F64_REL_TOLERANCE = 1e-10
 F32_BIAS_BUDGET = 2e-4     # Ha per 2-atom primitive cell: 1e-4 Ha/atom
 F64_SHARD_WALKERS = 32     # one E_L chunk over two deriv ranks on the card
 JET_F64_TOLERANCE = 1e-10  # relative, a float64 jet body against its plain version
-B1_F64_SHAPES = ((BATCH * 8, 48), (EL_CHUNK * 8, 48), (4096, 81), (8192, 14),
-                 (16384, 16), (16384, 5))  # C-diamond, bcc-Li, Si, LiH, H10
+# B1 complex128 rows beside the float64 paths' own shapes: C-diamond's,
+# bcc-Li's run-script sampler (psi_chunk 512), LiH's, H10's and graphene's
+# sampler and E_L shapes, and both ends of the warp and mid bodies' ranges
+B1_F64_SHAPES = ((BATCH * 8, 48), (EL_CHUNK * 8, 48), (4096, 81), (16384, 16),
+                 (2048, 16), (16384, 5), (8192, 6), (2048, 6),
+                 *((1024, n) for n in (1, 16, 17, 32, 49, 96)))
+# float64 bcc-Li and Si through process(): bcc-Li's chunks probed below the
+# float32 ones, its handoff's 100 burn-in sweeps cut to 2
+F64_BCC_LI_EL_CHUNKS = (8, 16, 32)
+F64_BCC_LI_PSI_CHUNKS = (128, 256, 512)
+F64_BCC_LI_BURN_IN = 2
+F64_SYSTEM_KFAC_ITERATIONS = 1
 BOOTSTRAP_TOLERANCE = 1e-6  # Ha/cell: torchrun's rank against this process, same card
 DATA_RANKS_ENERGY_TOLERANCE = 5e-4  # Ha/cell, the sharded limit: f32 sums in another order
 REFERENCE_ENERGY = -66.0  # Ha/cell, runs/ckpt_diamond/train_stats_r5_latest.csv
@@ -417,13 +445,14 @@ def max_errs(got, want):
     return err, err / scale
 
 
-def gj_edge_cases(dev, gen, errs, dtype=None, tol=5e-3):
+def gj_edge_cases(dev, gen, errs, dtype=None, tol=5e-3, ns=(48, 14, 81)):
     """The Gauss-Jordan kernel against its plain version on matrices that
-    exercise the pivot rule, at n = 48, 14 and 81 (the registers, warp and
-    mid bodies at the three systems' sizes), and on generic matrices at
-    both ends of every body's range: `errs(a)` gives (inverse, sign,
-    log|det|) errors, each held to `tol`. One record per case, with the
-    body that took it. complex128 (`dtype`) has one body, up to n = 118."""
+    exercise the pivot rule, at each n of `ns` (by default 48, 14 and 81:
+    the registers, warp and mid bodies at the three systems' sizes), and on
+    generic matrices at both ends of every body's range: `errs(a)` gives
+    (inverse, sign, log|det|) errors, each held to `tol`. One record per
+    case, with the body that took it. complex128 (`dtype`) has the same
+    four bodies, up to n = 118."""
     import torch
     from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
 
@@ -437,7 +466,7 @@ def gj_edge_cases(dev, gen, errs, dtype=None, tol=5e-3):
         return dk.launcher(dk._lib(), dtype, n, dev)[0]
 
     cases = {}
-    for n in (48, 14, 81):
+    for n in ns:
         eye = torch.eye(n, device=dev).to(dtype)
         tie = rnd_c(4, n)
         tie[:, 3, 0], tie[:, 7, 0] = 5.0, 5.0j   # equal |.|^2 in the first pivot column
@@ -462,7 +491,7 @@ def gj_edge_cases(dev, gen, errs, dtype=None, tol=5e-3):
                     "max_abs_err_logdet": ld,
                     "ok": inv <= tol and sg <= tol and ld <= tol})
     # a zero pivot: log 0 = -inf on both, no fault; a NaN entry: NaN on both
-    for n in (48, 14, 81):
+    for n in ns:
         zero = rnd_c(2, n)
         zero[:, :, 7] = 0
         nan = rnd_c(2, n)
@@ -517,16 +546,19 @@ def b1_row(dev, gen, nb, n, path="main", dtype=None):
     bnd, by = bound_ms(b1_bytes, b1_flops, PEAK_FP64_TENSOR if c128 else None)
     extra = ({"bound_ms_fp64_fma": bound_ms(b1_bytes, b1_flops, PEAK_FP64_FMA)[0]}
              if c128 else {})
+    variant = dk.launcher(dk._lib(), dtype, n, dev)[0]
     return {
         "name": "gj_inverse_slogdet", "route": "cuda",
         "source": "deepsolid_tpu_torch/ops/cuda/csrc/gj_inverse.cu",
         "replaces": "deepsolid_tpu/ops/pallas/det_kernels.py:172",
         "per": f"one launch on ({nb}, {n}, {n}) {str(dtype)[6:]}", "path": path,
         "dtype": str(dtype)[6:], "shapes": [[nb, n, n]],
-        "variant": dk.launcher(dk._lib(), dtype, n, dev)[0],
+        "variant": variant,
         "max_abs_err": ld_err, "max_rel_err_inverse": inv_err,
         "max_abs_err_sign": sg_err, "tolerance": tol,
-        "ok": inv_err <= tol and ld_err <= tol and sg_err <= tol, **extra,
+        # complex128 rows also hold the body to the size rule
+        "ok": (inv_err <= tol and ld_err <= tol and sg_err <= tol
+               and (not c128 or variant == b1_body_c128(n))), **extra,
         "ms": time_ms(lambda: dk.gj_inverse_slogdet(a)),
         "graph_ms": graph_ms(lambda: dk.gj_inverse_slogdet(a)),
         "plain_ms": time_ms(lambda: dk.gj_inverse_slogdet_plain(a), reps=5),
@@ -3116,19 +3148,18 @@ def float64_bodies_only(shapes):
 
 
 def float64_new_bodies(shapes):
-    """The launch-shape records of the float64 path that should be on
-    the bodies redesigned for it and are not: every one-electron jet launch
+    """The launch-shape records of a float64 path that should be on the
+    bodies redesigned for it and are not: every one-electron jet launch
     (d_out 256, closed or open mix rule) on the wide body in double, every
-    complex128 (., 48, 48) launch on the register body."""
-    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
-
+    complex128 B1 launch on the body its n names (`b1_body_c128`: the
+    warp body up to 32, the register body at 48, the mid body at 49-96)."""
     out = []
     for r in shapes:
         if (r["kernel"] in ("fused_dense_tanh_jet_mix", "fused_dense_tanh_jet_mix_partial")
                 and r["shape"][3] == 256 and not r["variant"].startswith("wide, float64")):
             out.append(r)
-        if (r["kernel"] == "gj_inverse_slogdet" and r["shape"][1:] == [48, 48]
-                and r["variant"] != dk.BODY_C128_REGISTERS):
+        if (r["kernel"] == "gj_inverse_slogdet"
+                and r["variant"] != b1_body_c128(r["shape"][-1])):
             out.append(r)
     return out
 
@@ -3190,7 +3221,8 @@ def open_row(dev, gen, name, cases, dtype):
 def float64_kernel_rows(dev, gen, el_chunk, b1_path_shapes):
     """Each float64 body against its float64 plain version on the card: B1
     (complex128) at the float64 path's shapes (`b1_path_shapes`), at the
-    production shapes of every system and on the edge matrices, B2 and B3
+    production shapes of every system and on the edge matrices (on every
+    complex128 body: 40 and 100 take the shared-memory one), B2 and B3
     on one C-diamond E_L chunk of `el_chunk` walkers, B4a and B4b at the
     float64 sharded chunk's shapes. Each row lists in "path_shapes" the
     shapes the float64 path launches."""
@@ -3198,7 +3230,8 @@ def float64_kernel_rows(dev, gen, el_chunk, b1_path_shapes):
     from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
 
     f64, c128 = torch.float64, torch.complex128
-    edge = gj_edge_cases(dev, gen, gj_errs, c128, tol=1e-9)
+    edge = gj_edge_cases(dev, gen, gj_errs, c128, tol=1e-9,
+                         ns=(48, 14, 16, 32, 49, 81, 96, 40, 100))
     try:  # one past the body's largest matrix: refused before any launch
         dk.gj_inverse_slogdet(torch.zeros(1, 119, 119, dtype=c128, device=dev))
         refused = False
@@ -3222,6 +3255,16 @@ def float64_kernel_rows(dev, gen, el_chunk, b1_path_shapes):
         row.setdefault("path_shapes", row["shapes"][:1] if row["name"] ==
                        "fused_dense_tanh_jet_partial" else row["shapes"])
     return rows
+
+
+def b1_body_c128(n):
+    """The complex128 body gj_body_c128 gives n x n matrices: warp up to
+    32, registers at 48, mid 49-96, shared otherwise."""
+    if n <= 32:
+        return "warp, complex128"
+    if n == 48:
+        return "registers, complex128"
+    return "mid, complex128" if 49 <= n <= 96 else "shared, complex128"
 
 
 def float64_sharded_rank(rank, world_size):
@@ -3272,15 +3315,20 @@ def float64_against_cpu(dev, source, systems, f32_reference):
     readings of the reference phase are the control that must fail."""
     import numpy as np
     import torch
+    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
 
     f64 = torch.float64
     cpu = diamond_values(dev, source, "cpu", f64)
     card = diamond_values(dev, source, dev, f64)
     d = ((card["el"] - cpu["el"]).abs() / cpu["scale"]).numpy()
     el = {"diamond": (float(np.median(d)), float(d.max()))}
+    bodies, want_bodies = {}, {}  # B1's complex128 bodies on each system's card E_L
     for name, (sys_cfg, klist, sys_params, sys_x) in systems.items():
         want = system_el(sys_cfg, klist, sys_params, sys_x, "cpu", f64, name)[0]
+        before = dk.SHAPES.copy()
         got = system_el(sys_cfg, klist, sys_params, sys_x, dev, f64)[0]
+        bodies[name] = sorted({key[2] for key in dk.SHAPES - before})
+        want_bodies[name] = sorted({b1_body_c128(m) for m in sys_cfg.system.cell.nelec if m})
         d = ((got - want).abs() / sys_cfg.system.cell.scale).numpy()
         el[name] = (float(np.median(d)), float(d.max()))
     grad_rel, _ = rel_global(card["grad"], cpu["grad"])
@@ -3301,8 +3349,10 @@ def float64_against_cpu(dev, source, systems, f32_reference):
         "pretrain_loss_rel_err": pre_loss_rel,
         "pretrain_gradient_rel_err_global_norm": pre_grad_rel,
         "rel_tolerance": F64_REL_TOLERANCE,
-        "float32_control": control, "float32_control_fails_checks": control_fails}
+        "float32_control": control, "float32_control_fails_checks": control_fails,
+        "b1_bodies": bodies}
     out["ok"] = (all(m <= F64_EL_TOLERANCE for _, m in el.values())
+                 and bodies == want_bodies
                  and max(grad_rel, upd_rel, pre_grad_rel, pre_loss_rel) <= F64_REL_TOLERANCE
                  and control_fails)
     return out
@@ -3536,6 +3586,220 @@ def float64_phase(dev, source, main, north_star, systems, f32_reference, gen):
         and all(launched(r["name"], s) > 0 for s in r["path_shapes"]) for r in rows)
     result["ok"] = result["ok"] and result["kernel_rows_ok"]
     result["seconds"] = time.perf_counter() - start
+    emit(result)
+    return result, rows
+
+
+def float64_system_run(dev, cfg, iterations, phase):
+    """process(cfg, iterations) on the card with every plain version
+    counted: the run's iteration records and energy, launch counts and
+    shapes (B1's bodies, launches off a float64 body or off the body
+    redesigned for it), plain calls, peak memory and seconds."""
+    import torch
+    from deepsolid_tpu_torch.optim.adam import tree_leaves
+    from deepsolid_tpu_torch.train.process import process
+
+    iters = []
+
+    def on_iteration(t, row, seconds):
+        row.pop("local_energy")
+        rec = {"phase": f"{phase}_iteration", "step": t, **row, "seconds": seconds,
+               "adapted": "adapt" in seconds}
+        iters.append(rec)
+        emit(rec)
+
+    shutil.rmtree(cfg.log.save_path, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with plain_calls() as plain:
+        reset_launches()
+        start = time.perf_counter()
+        params, _, energy = process(cfg, iterations, device="cuda",
+                                    on_iteration=on_iteration)
+        wall = time.perf_counter() - start
+        launches, shapes = read_launches(), read_shapes()
+    batch = cfg.batch_size
+    return {
+        "seconds": wall, "steps": [r["step"] for r in iters], "energy_per_cell": energy,
+        "loss_per_cell": [r["energy"] for r in iters],
+        "seconds_per_iteration": [r["seconds"] for r in iters],
+        "mcmc_share": [r["seconds"]["mcmc"] / r["seconds"]["step"] for r in iters],
+        "walkers_per_s_local_energy": [batch / r["seconds"]["local_energy"] for r in iters],
+        "walkers_per_s_iteration": [batch / r["seconds"]["step"] for r in iters],
+        "adapted": [r["adapted"] for r in iters],
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+        "launches": launches, "launch_shapes": shapes, "b1_bodies": b1_bodies(shapes),
+        "plain_version_calls": sum(plain.values()),
+        "launches_not_on_a_float64_body": float64_bodies_only(shapes),
+        "launches_off_the_redesigned_float64_bodies": float64_new_bodies(shapes),
+        "finite": (math.isfinite(energy)
+                   and all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+                   and all(math.isfinite(r["energy"]) for r in iters)),
+    }
+
+
+def float64_run_ok(run, b1_want, n, iterations):
+    """A float64 system run's checks: its iterations, B1's exact count,
+    every B1 launch at n on the complex128 body n names, every launch on a
+    float64 body and on the one redesigned for it, no plain call, both jet
+    kernels launched and finite parameters and energies."""
+    return (len(run["steps"]) == iterations
+            and run["launches"]["gj_inverse_slogdet"] == b1_want
+            and run["b1_bodies"] == {n: [b1_body_c128(n)]}
+            and not run["launches_not_on_a_float64_body"]
+            and not run["launches_off_the_redesigned_float64_bodies"]
+            and run["plain_version_calls"] == 0
+            and run["launches"]["fused_dense_tanh_jet"] > 0
+            and run["launches"]["fused_dense_tanh_jet_mix"] > 0 and run["finite"])
+
+
+def bcc_li_float64(dev, f32=None):
+    """bcc-Li 3x3x3 (162 electrons, 81 a spin) at full width in float64
+    through process(): runs/bcc_li_run.py's settings from the committed
+    handoff checkpoint cast to float64, el_chunk and psi_chunk from a
+    float64 probe, F64_BCC_LI_BURN_IN burn-in sweeps and one KFAC
+    fisher_exact iteration from a fresh state: its split, walkers/s beside
+    the float32 bcc_li phase's (`f32`), peak memory and B1's exact count,
+    every (., 81, 81) launch on the mid complex128 body."""
+    import numpy as np
+    import torch
+    from deepsolid_tpu_torch.models.network import params_from_jax
+    from deepsolid_tpu_torch.train.process import build_network, orbital_source
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    start = time.perf_counter()
+    cfg = bcc_li_cfg(0, 0)
+    cfg.precision = "float64"
+    sc = cfg.system.cell
+    net = build_network(cfg, sc, klist_override=orbital_source(cfg, sc).klist)
+    _, data, params_np, _, _ = restore(find_last_checkpoint(BCC_LI_CKPT))
+    params = params_from_jax(params_np, dev, torch.float64)
+    x = torch.as_tensor(np.asarray(data), dtype=torch.float64, device=dev)
+    probe = memory_probe(dev, cfg, net, params, x, F64_BCC_LI_EL_CHUNKS,
+                         F64_BCC_LI_PSI_CHUNKS)
+    emit({"phase": "float64_bcc_li_probe", **probe})
+    del params, x, net
+    torch.cuda.empty_cache()
+    if probe["el_chunk"] is None or probe["psi_chunk"] is None:
+        return {"phase": "float64_bcc_li", "ok": False, "probe": probe}
+
+    cfg = bcc_li_cfg(probe["el_chunk"], probe["psi_chunk"])
+    cfg.precision = "float64"
+    cfg.mcmc.burn_in = F64_BCC_LI_BURN_IN
+    cfg.log.save_path = os.path.join(REPO, "build", "chip_smoke_float64_bcc_li")
+    run = float64_system_run(dev, cfg, F64_SYSTEM_KFAC_ITERATIONS, "float64_bcc_li")
+    # the handoff's burn-in sweeps, then per iteration the sampler, E_L,
+    # the gradient's and the capture's forward passes, two spins each
+    n_psi, n_el = BATCH // cfg.optim.psi_chunk, BATCH // cfg.optim.el_chunk
+    sweep = (cfg.mcmc.steps + 1) * n_psi
+    b1_want = 2 * (cfg.mcmc.burn_in * sweep + len(run["steps"]) * (sweep + n_el + 2 * n_psi)
+                   + sum(run["adapted"]) * n_el)
+    f32_iter = f32["walkers_per_s_iteration_without_adaptation"] if f32 else None
+    f32_el = statistics.median(f32["walkers_per_s_local_energy"]) if f32 else None
+    result = {
+        "phase": "float64_bcc_li", "precision": "float64", "batch": BATCH,
+        "electrons": list(sc.nelec), "el_chunk": cfg.optim.el_chunk,
+        "psi_chunk": cfg.optim.psi_chunk, "burn_in": cfg.mcmc.burn_in,
+        "burn_in_run_script": 100, "probe": probe, **run,
+        "b1_launches_expected": b1_want,
+        "walkers_per_s_local_energy_f32_bcc_li": f32_el,
+        "walkers_per_s_iteration_f32_bcc_li": f32_iter,
+        "phase_seconds": time.perf_counter() - start, "card": nvidia_smi(),
+    }
+    result["ok"] = float64_run_ok(run, b1_want, sc.nelec[0], F64_SYSTEM_KFAC_ITERATIONS)
+    return result
+
+
+def si_float64(dev, f32):
+    """Si 1x1x1 (14 electrons a spin) at full width in float64 through
+    process(), runs/si_diamond_run.py's settings with psi_chunk unset, from
+    the si phase's last checkpoint cast to float64: one inference iteration
+    and one KFAC iteration continuing the phase's KFAC state, their split,
+    walkers/s beside the float32 si phase's (`f32`, psi_chunk 64) and peak
+    memory, B1's exact count, every (., 14, 14) launch on the warp
+    complex128 body."""
+    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
+
+    start = time.perf_counter()
+    source_path = si_cfg().log.save_path
+    t_start = restore(find_last_checkpoint(source_path))[0]
+
+    def cfg_for(optimizer, save_name):
+        cfg = si_cfg()
+        cfg.precision, cfg.optim.optimizer = "float64", optimizer
+        cfg.optim.psi_chunk = 0  # the run script leaves it unset
+        cfg.log.restore_path = source_path
+        cfg.log.save_path = os.path.join(REPO, "build", save_name)
+        return cfg
+
+    inf_cfg = cfg_for("none", "chip_smoke_float64_si_inference")
+    inference = float64_system_run(dev, inf_cfg, 1, "float64_si_inference")
+    kfac_cfg = cfg_for("kfac", "chip_smoke_float64_si_kfac")
+    kfac = float64_system_run(dev, kfac_cfg, t_start + F64_SYSTEM_KFAC_ITERATIONS,
+                              "float64_si_kfac")
+    n_el = BATCH // kfac_cfg.optim.el_chunk
+    sweep = kfac_cfg.mcmc.steps + 1  # psi_chunk unset: one chunk
+    want = {"inference": 2 * (sweep + n_el),
+            "kfac": 2 * (len(kfac["steps"]) * (sweep + n_el + 2) + sum(kfac["adapted"]) * n_el)}
+    n = kfac_cfg.system.cell.nelec[0]
+    result = {
+        "phase": "float64_si", "precision": "float64", "batch": BATCH,
+        "el_chunk": kfac_cfg.optim.el_chunk, "psi_chunk": 0,
+        "restored_step": t_start, "inference": inference, "kfac": kfac,
+        "b1_launches_expected": want,
+        "walkers_per_s_local_energy_f32_si": statistics.median(
+            f32["kfac_walkers_per_s_local_energy"]),
+        "walkers_per_s_iteration_f32_si_psi_chunk_64":
+            f32["kfac_walkers_per_s_iteration_without_adaptation"],
+        "phase_seconds": time.perf_counter() - start, "card": nvidia_smi(),
+    }
+    result["ok"] = (float64_run_ok(inference, want["inference"], n, 1)
+                    and float64_run_ok(kfac, want["kfac"], n, F64_SYSTEM_KFAC_ITERATIONS))
+    # what the kernel rows read: both runs' launches
+    result["launches"] = {k: inference["launches"][k] + kfac["launches"][k]
+                          for k in kfac["launches"]}
+    result["launch_shapes"] = inference["launch_shapes"] + kfac["launch_shapes"]
+    return result
+
+
+def float64_systems_phase(dev, gen, si, bcc_li):
+    """float64 bcc-Li 3x3x3 and Si 1x1x1 on the card (`bcc_li_float64`,
+    `si_float64`, beside the float32 phases' records `bcc_li` and `si`),
+    then each float64 body against its plain version at every shape the two
+    paths launched: B1 in complex128 on a sampler and an E_L launch, B2 and
+    B3 in double on one E_L chunk, each row with its path's launches and
+    on the body its path took at each shape. Returns the phase's record
+    and the kernel rows."""
+    import torch
+
+    bcc = bcc_li_float64(dev, bcc_li)
+    emit(bcc)
+    torch.cuda.empty_cache()
+    si64 = si_float64(dev, si)
+    emit({k: v for k, v in si64.items() if k not in ("launches", "launch_shapes")})
+    records = {"float64_bcc_li": bcc, "float64_si": si64}
+    rows, bad = [], []
+    if bcc["ok"] and si64["ok"]:
+        c128, f64 = torch.complex128, torch.float64
+        rows = [b1_row(dev, gen, nb, n, path, c128) for path, nb, n in (
+            ("float64_bcc_li", bcc["psi_chunk"] * 8, 81),
+            ("float64_bcc_li", bcc["el_chunk"] * 8, 81),
+            ("float64_si", BATCH * 8, 14), ("float64_si", si64["el_chunk"] * 8, 14))]
+        for path, n, chunk, system in (("float64_bcc_li", 162, bcc["el_chunk"], "bcc-Li "),
+                                       ("float64_si", 28, si64["el_chunk"], "Si ")):
+            rows += [b2_row(dev, gen, n, chunk, path, system, dtype=f64),
+                     b3_row(dev, gen, n, chunk, path, system, dtype=f64)]
+        for row in rows:  # the body the path took at each of the row's shapes
+            took = [sorted({r["variant"] for r in records[row["path"]]["launch_shapes"]
+                            if r["kernel"] == row["name"] and r["shape"] == shape})
+                    for shape in row["shapes"]]
+            want = row["variant"] if isinstance(row["variant"], list) else [row["variant"]]
+            row["path_variants"] = took
+            row["ok"] = row["ok"] and took == [[v] for v in want]
+        bad = with_path_launches(rows, records)
+    result = {"phase": "float64_systems", "bcc_li_ok": bcc["ok"], "si_ok": si64["ok"],
+              "kernel_rows_failing": bad}
+    result["ok"] = bcc["ok"] and si64["ok"] and not bad
     emit(result)
     return result, rows
 
@@ -3801,10 +4065,21 @@ def main() -> int:
                     "psi_chunk under the memory limit, the KFAC checks, B1's "
                     "exact launch count, a launch on a float32 body, a "
                     "one-electron jet launch off the wide body in double or a "
-                    "(., 48, 48) B1 launch off the complex128 register body, a call "
+                    "complex128 B1 launch off the body its n names, a call "
                     "of a plain version, the sharded E_L, card float64 against "
                     "CPU float64 or the float32 control, or a float64 body "
                     "against its plain version or never launched at a path shape)")
+    f64_systems, shaped = float64_systems_phase(dev, gen, si, bcc_li)
+    kernels += shaped
+    if not f64_systems["ok"]:
+        return fail("the float64_systems phase failed its checks (bcc-Li's "
+                    "probe found no chunk under the memory limit, an "
+                    "iteration, B1's exact launch count, a (., 81, 81) "
+                    "launch off the mid complex128 body or a (., 14, 14) "
+                    "launch off the warp complex128 body, a launch on a "
+                    "float32 body, a call of a plain version, a non-finite "
+                    "value, or B1, B2 or B3 against its plain version or off "
+                    "the path's body at a path shape)")
     from deepsolid_tpu_torch.configs import diamond
     from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
 

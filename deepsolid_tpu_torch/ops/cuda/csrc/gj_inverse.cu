@@ -1,6 +1,6 @@
 // Batched complex Gauss-Jordan inverse + slogdet for Hopper (sm_90a):
-// complex64 (four bodies) and complex128 (a register body for n = 48, the
-// shared-memory body otherwise).
+// complex64 and complex128, four bodies each (warp, registers, mid,
+// shared), chosen by n alone.
 //
 // Replaces the TPU kernel deepsolid_tpu/ops/pallas/det_kernels.py
 // (_gj_kernel, launched by _gj_flat through gj_inverse_slogdet), which
@@ -90,11 +90,34 @@
 //     step applies swap and elimination, three barriers per step.
 // Plain FP32 arithmetic, no fast-math.
 //
-// complex128 (the float64 runs), two bodies chosen by n alone
+// complex128 (the float64 runs), four bodies chosen by n alone
 // (gj_body_c128). Plain FP64 arithmetic, the same pivot, tie and NaN rules
 // with |a|^2 compared in double. What bounds it: 8 n^3 flops per matrix at
-// the FP64 rate, half the FP32 one outside the tensor cores, so the updates'
-// FMAs and a step's chain weigh twice what they do in complex64.
+// the FP64 rate, half the FP32 one outside the tensor cores (an
+// elimination's rank-1 updates do not reach the FP64 tensor cores), so the
+// updates' FMAs and a step's chain weigh twice what they do in complex64.
+// The three register bodies form sign and log|det| once at the end from
+// each step's pivot, in a fixed order, off the per-step chain.
+//   * warp (n <= 32: Si's 14, LiH's 16, graphene's 6, H10's 5). The
+//     complex64 warp body's scheme in double: one lane owns one row (W =
+//     16 or 32 complex128 values, 64 or 128 registers), two matrices a
+//     warp for n <= 16, two warps a block so that the loading tiles stay
+//     in static shared memory (35,840 B at W = 32). The pivot by a
+//     butterfly of log2 W rounds over (64-bit key, position << 8 | lane),
+//     the pivot value by shuffles and the raw pivot row through shared
+//     memory (one complex128 entry would take four shuffles); lane k keeps
+//     step k's pivot for the sign and log|det|.
+//   * mid (49 <= n <= 96: bcc-Li's 81 in float64). The complex64 mid
+//     body's scheme in double: one block of 8 warps per matrix, lane (ty,
+//     tx) of a 16 x 16 lane grid owns rows ty + 16 i and columns tx + 16 j,
+//     6 x 6 complex128 entries (144 registers, so one block per SM: an
+//     81 x 81 matrix is 105 KB of the SM's 256 KB register file, padded to
+//     96 x 96 147 KB). The matrix is loaded straight into registers (the
+//     16 lanes of a grid row read 256 contiguous bytes); two barriers a
+//     step, every warp finds the pivot alone as the n = 48 body does, and
+//     only the pivot row's owners form d. A step's updates are 36,864
+//     DFMA a block, ~580 clocks of an SM's 64 FP64 FMA lanes, so at 4096
+//     matrices the time is ~32 waves of one matrix's 81-step latency.
 //   * registers (n = 48: C-diamond in float64). A matrix in registers takes
 //     144 registers of complex64 data a lane in one warp, which complex128
 //     would double past the 255 a thread may hold; so a matrix spans two
@@ -109,10 +132,9 @@
 //     every lane does 36 complex multiply-adds. Sign and log|det| are formed
 //     once at the end from each step's pivot, by the first warp's lanes and
 //     a butterfly in a fixed order, off the per-step chain.
-//   * shared (every other n): the shared-memory body, templated on its
+//   * shared (33-47 and 97-118): the shared-memory body, templated on its
 //     scalar type, for every n whose 16 n^2 + 52 n bytes fit a block's
-//     shared memory (n <= 118 in the 227 KB an H100 block may opt into;
-//     bcc-Li's 81 takes 105 KB).
+//     shared memory (n <= 118 in the 227 KB an H100 block may opt into).
 // Entry points gj_body_c128, gj_smem_bytes_c128 and
 // gj_inverse_slogdet_launch_c128; a larger n is refused by the wrapper
 // before any launch.
@@ -613,9 +635,10 @@ constexpr int kMidN = 96;              // its padded size: 6 x 6 per lane
 constexpr int kMidTile = kMidN / 16;   // entries per lane along each axis
 constexpr int kMidThreads = 256;       // a 16 x 16 lane grid
 
-// Dynamic shared memory of the mid kernel: its n x (n + 1) tile.
+// Dynamic shared memory of the mid kernels: their n x (n + 1) tile of C.
+template <typename C>
 __host__ __device__ constexpr long long mid_tile_bytes(int n) {
-  return static_cast<long long>(n) * (n + 1) * sizeof(float2);
+  return static_cast<long long>(n) * (n + 1) * sizeof(C);
 }
 
 // 8-byte asynchronous copy from device to shared memory.
@@ -841,6 +864,28 @@ __device__ __forceinline__ unsigned long long zpivot_key(double2 v, bool candida
              : 1ull;
 }
 
+// Step k's factor of the sign (its pivot over |pivot|, negated for a row
+// swap) and its term 0.5 log|pivot|^2 of log|det|.
+__device__ __forceinline__ double2 unit_pivot(double2 p, bool swapped, double& half_log) {
+  const double den = p.x * p.x + p.y * p.y;
+  const double rs = ::rsqrt(den) * (swapped ? -1.0 : 1.0);
+  half_log = 0.5 * ::log(den);
+  return make_double2(p.x * rs, p.y * rs);
+}
+
+// A matrix's sign and log|det| from its W lanes' partial products and
+// sums, combined by a butterfly in a fixed order (every lane ends with both).
+template <int W>
+__device__ __forceinline__ void combine_sign_logdet(double2& phase, double& logdet) {
+#pragma unroll
+  for (int off = W / 2; off > 0; off >>= 1) {
+    const double2 other = make_double2(__shfl_xor_sync(kFull, phase.x, off),
+                                       __shfl_xor_sync(kFull, phase.y, off));
+    logdet += __shfl_xor_sync(kFull, logdet, off);
+    phase = cmul_t(phase, other);
+  }
+}
+
 __global__ void __launch_bounds__(64 * kZMats)
 gj_registers_double_kernel(const double2* __restrict__ a,
                            double2* __restrict__ ainv,
@@ -1007,23 +1052,350 @@ gj_registers_double_kernel(const double2* __restrict__ a,
     for (int q = 0; q < 2; ++q) {
       const int k = lane + 32 * q;
       if (k < kZN) {
-        const double2 p = s.piv[k];
-        const double den = p.x * p.x + p.y * p.y;
-        const double rs = ::rsqrt(den) * (s.swapped[k] ? -1.0 : 1.0);
-        phase = cmul_t(phase, make_double2(p.x * rs, p.y * rs));
-        logdet += 0.5 * ::log(den);
+        double half_log;
+        phase = cmul_t(phase, unit_pivot(s.piv[k], s.swapped[k], half_log));
+        logdet += half_log;
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const double2 other = make_double2(__shfl_xor_sync(kFull, phase.x, off),
-                                         __shfl_xor_sync(kFull, phase.y, off));
-      logdet += __shfl_xor_sync(kFull, logdet, off);
-      phase = cmul_t(phase, other);
-    }
+    combine_sign_logdet<32>(phase, logdet);
     if (l == 0) {
       sign_out[mat] = phase;
       logdet_out[mat] = logdet;
+    }
+  }
+}
+
+// ---- the complex128 warp kernel (n <= 32) ------------------------------------
+
+constexpr int kZWarpWarps = 2;  // warps per block: the tiles fit static shared memory
+
+// One lane per row, W lanes per matrix (32 / W matrices per warp).
+template <int W>
+__global__ void __launch_bounds__(32 * kZWarpWarps)
+gj_warp_double_kernel(const double2* __restrict__ a, double2* __restrict__ ainv,
+                      double2* __restrict__ sign_out, double* __restrict__ logdet_out,
+                      int batch, int n) {
+  static_assert(W == 16 || W == 32, "a matrix takes a half warp or a warp");
+  constexpr int kSegs = 32 / W;
+  constexpr unsigned kSegMask = W == 32 ? kFull : (1u << W) - 1u;
+  // the loading and unscrambling tile of each matrix (row stride W + 1),
+  // and its raw pivot row, double-buffered by the parity of k
+  __shared__ double2 tiles[kZWarpWarps][kSegs][W][W + 1];
+  __shared__ double2 rows[kZWarpWarps][2][kSegs][W];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int seg = lane / W;
+  const int r = lane % W;  // the row this lane owns
+  const int first = (blockIdx.x * kZWarpWarps + warp) * kSegs;
+  if (first >= batch) return;  // a whole warp: only warp-level syncs follow
+  const int mat = first + seg;
+  const bool live = mat < batch;  // the last half warp of an odd batch idles
+  const size_t base = static_cast<size_t>(mat) * n * n;
+  double2(*tile)[W + 1] = tiles[warp][seg];
+
+  // row i of the matrix is one coalesced load of its lanes
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if (live && i < n && r < n) tile[i][r] = a[base + i * n + r];
+  }
+  __syncwarp();
+  double2 m[W];
+#pragma unroll
+  for (int c = 0; c < W; ++c) {
+    m[c] = (live && r < n && c < n) ? tile[r][c] : make_double2(0.0, 0.0);
+  }
+  __syncwarp();  // the tile is rewritten at the end
+
+  int pos = r;  // padding rows keep positions >= n and never move
+  double2 piv = make_double2(1.0, 0.0);  // lane r keeps step r's pivot
+  bool swapped = false;
+  const int seg_base = seg * W;
+
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    if (k >= n) break;
+    const double2 v = m[k];
+    // the pivot: the largest key among the matrix's lanes, then the
+    // smallest position, by a butterfly over (key, position << 8 | lane)
+    // (positions are unique, so the second word decides every tie)
+    unsigned long long key = zpivot_key(v, r < n && pos >= k);
+    unsigned cand = (static_cast<unsigned>(pos) << 8) | static_cast<unsigned>(r);
+#pragma unroll
+    for (int off = W / 2; off > 0; off >>= 1) {
+      const unsigned long long okey = __shfl_xor_sync(kFull, key, off);
+      const unsigned ocand = __shfl_xor_sync(kFull, cand, off);
+      if (okey > key || (okey == key && ocand < cand)) {
+        key = okey;
+        cand = ocand;
+      }
+    }
+    const int plane = static_cast<int>(cand & 255u);
+    const int bpos = static_cast<int>(cand >> 8);
+    const int src = seg_base + plane;
+    // the pivot value by shuffle, the raw pivot row through shared memory
+    const double2 bval = make_double2(__shfl_sync(kFull, v.x, src),
+                                      __shfl_sync(kFull, v.y, src));
+    double2* prow = rows[warp][k & 1][seg];
+    const bool is_piv = r == plane;
+    if (is_piv) {
+#pragma unroll
+      for (int j = 0; j < W; ++j) prow[j] = m[j];
+    }
+    __syncwarp();
+    if (r == k) {  // sign and log|det| are formed from these at the end
+      piv = bval;
+      swapped = bpos != k;
+    }
+
+    const double inv_den = 1.0 / (bval.x * bval.x + bval.y * bval.y);
+    const double2 d = make_double2(bval.x * inv_den, -bval.y * inv_den);
+    // row -= (f d) * pivot row; the pivot row becomes d * itself, with d
+    // in column k, and every other row -f d there
+    const double2 fd = cmul_t(v, d);
+    const double2 coef = is_piv ? make_double2(-d.x, -d.y) : fd;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const double2 p = prow[j];
+      const double2 b = is_piv ? make_double2(0.0, 0.0) : m[j];
+      m[j].x = fma(coef.y, p.y, fma(-coef.x, p.x, b.x));
+      m[j].y = fma(-coef.y, p.x, fma(-coef.x, p.y, b.y));
+    }
+    m[k] = is_piv ? d : make_double2(-fd.x, -fd.y);
+    if (is_piv) {
+      pos = k;
+    } else if (pos == k) {
+      pos = bpos;
+    }
+  }
+
+  // sign = prod piv / |piv| * (-1)^swaps, log|det| = sum 0.5 log|piv|^2:
+  // lane r takes step r, a butterfly combines the matrix's lanes in a
+  // fixed order
+  double2 phase = make_double2(1.0, 0.0);
+  double logdet = 0.0;
+  if (r < n) phase = unit_pivot(piv, swapped, logdet);
+  combine_sign_logdet<W>(phase, logdet);
+
+  // storage row r, column c holds A^-1[pos(r), the row at position c]
+#pragma unroll
+  for (int c = 0; c < W; ++c) {
+    if (c >= n) break;
+    const unsigned at = (__ballot_sync(kFull, pos == c) >> seg_base) & kSegMask;
+    if (r < n) tile[pos][__ffs(at) - 1] = m[c];
+  }
+  __syncwarp();
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      if (i < n && r < n) ainv[base + i * n + r] = tile[i][r];
+    }
+    if (r == 0) {
+      sign_out[mat] = phase;
+      logdet_out[mat] = logdet;
+    }
+  }
+}
+
+// ---- the complex128 mid kernel (49 <= n <= 96) -------------------------------
+
+__global__ void __launch_bounds__(kMidThreads, 1)
+gj_mid_double_kernel(const double2* __restrict__ a, double2* __restrict__ ainv,
+                     double2* __restrict__ sign_out, double* __restrict__ logdet_out,
+                     int n) {
+  constexpr int T = kMidTile;
+  constexpr int Q = kMidN / 32;  // rows a lane scans
+  extern __shared__ __align__(16) unsigned char gj_zmid_smem[];
+  double2* tile = reinterpret_cast<double2*>(gj_zmid_smem);  // n x (n + 1): A^-1 out
+  __shared__ double2 fcol[2][kMidN];  // column k of this step, by parity of k
+  __shared__ double2 prow[2][kMidN];  // the scaled pivot row, the same
+  __shared__ double2 piv[kMidN];      // each step's pivot
+  __shared__ int swapped[kMidN];
+  __shared__ int pos_s[kMidN];
+  __shared__ int row_at_s[kMidN];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int ld = n + 1;
+  const int nn = n * n;
+  const size_t base = static_cast<size_t>(blockIdx.x) * nn;
+
+  // straight into registers: the 16 lanes of a lane-grid row read 256
+  // contiguous bytes of a matrix row
+  double2 m[T][T];
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      const int row = ty + 16 * i, col = tx + 16 * j;
+      m[i][j] = (row < n && col < n) ? a[base + row * n + col] : make_double2(0.0, 0.0);
+    }
+  }
+
+  // every warp scans rows lane + 32 q and keeps their positions
+  int pos[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) pos[q] = lane + 32 * q;
+
+  // k = 16 j0 + kx: j0 is unrolled so that column k is a static register
+  // index of its owners (the lanes with tx == kx)
+#pragma unroll
+  for (int j0 = 0; j0 < T; ++j0) {
+#pragma unroll 1
+    for (int kx = 0; kx < 16; ++kx) {
+      const int k = 16 * j0 + kx;
+      if (k >= n) break;
+      const int buf = k & 1;
+      const bool owns_col = tx == kx;
+      if (owns_col) {
+#pragma unroll
+        for (int i = 0; i < T; ++i) fcol[buf][ty + 16 * i] = m[i][j0];
+      }
+      __syncthreads();  // one: column k is published
+
+      // the pivot: the largest (|.|^2, smallest position) pair among the
+      // unused rows, compared as the key's two 32-bit halves, then the
+      // position; every warp finds it alone, so no word crosses warps
+      unsigned long long key[Q];
+      unsigned long long mine = 0ull;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int row = lane + 32 * q;
+        key[q] = row < n ? zpivot_key(fcol[buf][row], pos[q] >= k) : 0ull;
+        mine = key[q] > mine ? key[q] : mine;
+      }
+      const unsigned hi =
+          __reduce_max_sync(kFull, static_cast<unsigned>(mine >> 32));
+      const unsigned lo = __reduce_max_sync(
+          kFull, static_cast<unsigned>(mine >> 32) == hi
+                     ? static_cast<unsigned>(mine)
+                     : 0u);
+      const unsigned long long kmax =
+          (static_cast<unsigned long long>(hi) << 32) | lo;
+      unsigned cand = 0xffffffffu;  // (position, row) of the smallest position
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        if (key[q] == kmax) {
+          cand = min(cand, (static_cast<unsigned>(pos[q]) << 8) |
+                               static_cast<unsigned>(lane + 32 * q));
+        }
+      }
+      cand = __reduce_min_sync(kFull, cand);
+      const int bpos = static_cast<int>(cand >> 8);
+      const int brow = static_cast<int>(cand & 255u);
+      const double2 bval = fcol[buf][brow];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        if (lane + 32 * q == brow) {
+          pos[q] = k;
+        } else if (pos[q] == k) {
+          pos[q] = bpos;
+        }
+      }
+      if (tid == 0) {  // sign and log|det| are formed from these at the end
+        piv[k] = bval;
+        swapped[k] = bpos != k;
+      }
+
+      // the pivot row's owners scale it in place and publish it, with d in
+      // column k: the update below then leaves -f d in that column once its
+      // owners have cleared it. Only they need d.
+      if (ty == (brow & 15)) {
+        const double inv_den = 1.0 / (bval.x * bval.x + bval.y * bval.y);
+        const double2 d = make_double2(bval.x * inv_den, -bval.y * inv_den);
+        const int ip = brow >> 4;
+#pragma unroll
+        for (int i = 0; i < T; ++i) {
+          if (i == ip) {
+#pragma unroll
+            for (int j = 0; j < T; ++j) {
+              m[i][j] = (tx + 16 * j == k) ? d : cmul_t(m[i][j], d);
+              prow[buf][tx + 16 * j] = m[i][j];
+            }
+          }
+        }
+      }
+      if (owns_col) {
+#pragma unroll
+        for (int i = 0; i < T; ++i) {
+          if (ty + 16 * i != brow) m[i][j0] = make_double2(0.0, 0.0);
+        }
+      }
+      __syncthreads();  // two: the pivot row is published
+
+      double2 pr[T];
+#pragma unroll
+      for (int j = 0; j < T; ++j) pr[j] = prow[buf][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        const int row = ty + 16 * i;
+        // the pivot row is not eliminated
+        const double2 f = row == brow ? make_double2(0.0, 0.0) : fcol[buf][row];
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+          m[i][j].x = fma(f.y, pr[j].y, fma(-f.x, pr[j].x, m[i][j].x));
+          m[i][j].y = fma(-f.y, pr[j].x, fma(-f.x, pr[j].y, m[i][j].y));
+        }
+      }
+    }
+  }
+
+  // storage row r, column c holds A^-1[pos(r), row_at(c)]: warp 0 holds
+  // every row's position
+  if (tid < 32) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int row = lane + 32 * q;
+      if (row < n) {
+        pos_s[row] = pos[q];
+        row_at_s[pos[q]] = row;
+      }
+    }
+  }
+  __syncthreads();
+  int out_col[T];
+#pragma unroll
+  for (int j = 0; j < T; ++j) {
+    out_col[j] = tx + 16 * j < n ? row_at_s[tx + 16 * j] : 0;
+  }
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    const int row = ty + 16 * i;
+    if (row < n) {
+      const int out_row = pos_s[row];
+#pragma unroll
+      for (int j = 0; j < T; ++j) {
+        if (tx + 16 * j < n) tile[out_row * ld + out_col[j]] = m[i][j];
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < nn; e += kMidThreads) {
+    const int i = e / n;
+    ainv[base + e] = tile[i * ld + e - i * n];
+  }
+
+  // sign = prod piv / |piv| * (-1)^swaps, log|det| = sum 0.5 log|piv|^2:
+  // lane q of warp 0 takes steps q + 32 i, then a butterfly combines the
+  // lanes in a fixed order
+  if (tid < 32) {
+    double2 phase = make_double2(1.0, 0.0);
+    double logdet = 0.0;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int k = lane + 32 * q;
+      if (k < n) {
+        double half_log;
+        phase = cmul_t(phase, unit_pivot(piv[k], swapped[k], half_log));
+        logdet += half_log;
+      }
+    }
+    combine_sign_logdet<32>(phase, logdet);
+    if (lane == 0) {
+      sign_out[blockIdx.x] = phase;
+      logdet_out[blockIdx.x] = logdet;
     }
   }
 }
@@ -1047,7 +1419,7 @@ long long gj_smem_bytes(int n) {
     case 0:
       return shared_body_bytes<float2>(n);
     case 3:
-      return mid_tile_bytes(n);
+      return mid_tile_bytes<float2>(n);
     default:
       return 0;
   }
@@ -1104,17 +1476,29 @@ int gj_inverse_slogdet_launch(const void* a, void* ainv, void* sign,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The complex128 body that serves n x n matrices, by n alone: 1 registers
-// (n = 48), 0 shared (det_kernels.BODIES_C128 names them).
-int gj_body_c128(int n) { return n == kZN ? 1 : 0; }
+// The complex128 body that serves n x n matrices, by n alone: 2 warp
+// (n <= 32), 1 registers (n = 48), 3 mid (49-96), 0 shared
+// (det_kernels.BODIES_C128 names them).
+int gj_body_c128(int n) {
+  if (n <= 32) return 2;
+  if (n == kZN) return 1;
+  if (n >= kMidMin && n <= kMidN) return 3;
+  return 0;
+}
 
 // Dynamic shared memory the complex128 body for n x n matrices needs per
-// block.
+// block (the warp body's tiles are static: 35,840 B a block of two warps).
 long long gj_smem_bytes_c128(int n) {
-  if (gj_body_c128(n) == 1) {
-    return static_cast<long long>(sizeof(ZRegShared)) * kZMats;
+  switch (gj_body_c128(n)) {
+    case 1:
+      return static_cast<long long>(sizeof(ZRegShared)) * kZMats;
+    case 2:
+      return 0;
+    case 3:
+      return mid_tile_bytes<double2>(n);
+    default:
+      return shared_body_bytes<double2>(n);
   }
-  return shared_body_bytes<double2>(n);
 }
 
 // a, ainv: (batch, n, n) complex128; sign: (batch,) complex128; logdet:
@@ -1127,17 +1511,38 @@ int gj_inverse_slogdet_launch_c128(const void* a, void* ainv, void* sign,
   auto* sp = static_cast<double2*>(sign);
   auto* lp = static_cast<double*>(logdet);
   auto st = static_cast<cudaStream_t>(stream);
-  if (gj_body_c128(n) == 1) {
-    const int smem = static_cast<int>(gj_smem_bytes_c128(n));
-    const cudaError_t err = cudaFuncSetAttribute(
-        gj_registers_double_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    gj_registers_double_kernel<<<(batch + kZMats - 1) / kZMats, 64 * kZMats,
-                                 smem, st>>>(ap, ip, sp, lp, batch);
-  } else {
-    const int err = launch_shared(ap, ip, sp, lp, batch, n, st);
-    if (err != 0) return err;
+  const int smem = static_cast<int>(gj_smem_bytes_c128(n));
+  switch (gj_body_c128(n)) {
+    case 1: {
+      const cudaError_t err = cudaFuncSetAttribute(
+          gj_registers_double_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      gj_registers_double_kernel<<<(batch + kZMats - 1) / kZMats, 64 * kZMats,
+                                   smem, st>>>(ap, ip, sp, lp, batch);
+      break;
+    }
+    case 2:
+      if (n <= 16) {
+        const int per_block = 2 * kZWarpWarps;
+        gj_warp_double_kernel<16><<<(batch + per_block - 1) / per_block,
+                                    32 * kZWarpWarps, 0, st>>>(ap, ip, sp, lp, batch, n);
+      } else {
+        gj_warp_double_kernel<32><<<(batch + kZWarpWarps - 1) / kZWarpWarps,
+                                    32 * kZWarpWarps, 0, st>>>(ap, ip, sp, lp, batch, n);
+      }
+      break;
+    case 3: {
+      const cudaError_t err = cudaFuncSetAttribute(
+          gj_mid_double_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      gj_mid_double_kernel<<<batch, kMidThreads, smem, st>>>(ap, ip, sp, lp, n);
+      break;
+    }
+    default: {
+      const int err = launch_shared(ap, ip, sp, lp, batch, n, st);
+      if (err != 0) return err;
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

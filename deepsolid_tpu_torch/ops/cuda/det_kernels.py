@@ -7,11 +7,12 @@ keep a matrix in registers, "warp" (n <= 32, one lane per row, two
 matrices per warp for n <= 16), "registers" (n = 48, one warp per matrix)
 and "mid" (49 <= n <= 96, a block of 8 warps per matrix); "shared" keeps
 it in the shared memory of one block, for any other size up to the
-card's shared-memory limit. complex128 (precision='float64') has two
-bodies, chosen by n alone (`variant_c128`, which asks gj_body_c128):
-"registers, complex128" at n = 48 (two warps per matrix) and the
-shared-memory body in double at every other n it fits (n <= 118 on an
-H100). Every leading batch axis (walkers x determinants) goes into
+card's shared-memory limit. complex128 (precision='float64') has the
+same four bodies in double, chosen by n alone (`variant_c128`, which asks
+gj_body_c128): "warp, complex128" (n <= 32), "registers, complex128" (n
+= 48, two warps per matrix), "mid, complex128" (49 <= n <= 96, one block
+per SM) and the shared-memory body in double at every other n it fits
+(n <= 118 on an H100). Every leading batch axis (walkers x determinants) goes into
 one launch. The plain PyTorch version performs the same elimination with
 the same pivot rule, vectorised over the batch, in either type; the
 wrapper takes it only for tensors on the CPU.
@@ -31,10 +32,13 @@ LAUNCHES = {"gj_inverse_slogdet": 0}
 # the kernel bodies by the code gj_body returns
 BODIES = ("shared", "warp", "registers", "mid")
 # the complex128 bodies by the code gj_body_c128 returns: the
-# shared-memory one in double, and the register one at n = 48
+# shared-memory one in double, the register one at n = 48, the warp one at
+# n <= 32 and the mid one at 49-96
 BODY_C128 = "shared, complex128"
 BODY_C128_REGISTERS = "registers, complex128"
-BODIES_C128 = (BODY_C128, BODY_C128_REGISTERS)
+BODY_C128_WARP = "warp, complex128"
+BODY_C128_MID = "mid, complex128"
+BODIES_C128 = (BODY_C128, BODY_C128_REGISTERS, BODY_C128_WARP, BODY_C128_MID)
 # launches by (kernel, (matrices, n, n), variant), counted beside LAUNCHES
 SHAPES = collections.Counter()
 

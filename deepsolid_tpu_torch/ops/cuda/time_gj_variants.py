@@ -1,10 +1,10 @@
 """Times the Gauss-Jordan kernel's mid body beside variants of it, on a CUDA machine.
 
-    python -m deepsolid_tpu_torch.ops.cuda.time_gj_variants
+    python -m deepsolid_tpu_torch.ops.cuda.time_gj_variants [--complex128]
 
 Each variant is csrc/gj_inverse.cu with one change made by text
 substitution, built with build.py's flags into build/gj_variants/ under
-the working directory:
+the working directory. The complex64 mid body's variants:
   persistent     - one block per resident slot instead of one per matrix:
                    each block walks the batch and copies its next matrix
                    into a second tile while it eliminates the current one;
@@ -15,14 +15,25 @@ the working directory:
                    the time without the per-warp search;
   no_barrier_one - the barrier after column k is published removed (wrong
                    results): what that barrier costs.
+With --complex128, the complex128 mid body's (gj_mid_double_kernel):
+  no_update_fma  - the 36 complex updates of a step cut to one add;
+  no_search      - the pivot fixed at row k;
+  no_barrier_one - the barrier after column k is published removed;
+  no_division    - the pivot row's owners take 1 / |piv|^2 as piv's real
+                   part (wrong results): what the division costs;
+  row_guard      - a lane skips the update of its padding rows (row >= n:
+                   at n = 81 every warp but the first skips one of its six
+                   row tiles).
 Times are per launch from a CUDA graph of launches (time_kernels.graph_ms)
-at bcc-Li 3x3x3's (4096, 81, 81) and (256, 81, 81), all variants in turns
-in one process, with log|det| against the plain version for the variants
-that keep the results.
+at bcc-Li 3x3x3's (4096, 81, 81) and (256, 81, 81) (complex128: the
+psi_chunk 512 and 256 sampler shapes and the el_chunk 16 E_L shape), all
+variants in turns in one process, with log|det| against the plain version
+for the variants that keep the results.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import math
@@ -118,12 +129,41 @@ def variants() -> dict:
     }
 
 
+def variants_c128() -> dict:
+    src = (build.CSRC / "gj_inverse.cu").read_text()
+    cut = src.index("gj_mid_double_kernel(const double2")
+    head, mid = src[:cut], src[cut:]
+    search_from = mid.index("      unsigned long long key[Q];")
+    search_to = mid.index("      const double2 bval = fcol[buf][brow];")
+    return {
+        "current": src,
+        "no_update_fma": head + _sub(
+            mid, """          m[i][j].x = fma(f.y, pr[j].y, fma(-f.x, pr[j].x, m[i][j].x));
+          m[i][j].y = fma(-f.y, pr[j].x, fma(-f.x, pr[j].y, m[i][j].y));""",
+            "          m[i][j].x += f.x;"),
+        "no_search": head + mid[:search_from]
+        + "      const int bpos = k, brow = k;\n" + mid[search_to:],
+        "no_barrier_one": head + _sub(
+            mid, "__syncthreads();  // one: column k is published", ""),
+        "no_division": head + _sub(
+            mid, "const double inv_den = 1.0 / (bval.x * bval.x + bval.y * bval.y);",
+            "const double inv_den = bval.x;"),
+        "row_guard": head + _sub(
+            mid, "        const double2 f = row == brow ? make_double2(0.0, 0.0)",
+            "        if (row >= n) continue;\n"
+            "        const double2 f = row == brow ? make_double2(0.0, 0.0)"),
+    }
+
+
 def main() -> None:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--complex128", action="store_true")
+    c128 = parser.parse_args().complex128
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, text in variants().items():
+    for name, text in (variants_c128() if c128 else variants()).items():
         (OUT / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", str(OUT / f"lib{name}.so"),
@@ -144,9 +184,13 @@ def main() -> None:
     print(json.dumps({"card": smi}), flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for nb, n in ((4096, 81), (256, 81)):
+    shapes = ((4096, 81), (2048, 81), (128, 81)) if c128 else ((4096, 81), (256, 81))
+    keep = ("current", "row_guard") if c128 else KEEP_RESULTS
+    for nb, n in shapes:
         a = torch.complex(torch.randn(nb, n, n, generator=gen, device=dev),
                           torch.randn(nb, n, n, generator=gen, device=dev)) / math.sqrt(2 * n)
+        if c128:
+            a = a.to(torch.complex128)
         launchers = {name: gj_launcher(lib, a) for name, lib in libs.items()}
         ms = {name: [] for name in libs}
         for order in (list(libs), list(reversed(libs))):
@@ -154,15 +198,10 @@ def main() -> None:
                 ms[name].append(graph_ms(launchers[name]))
         want = dk.gj_inverse_slogdet_plain(a)[2]
         err = {}
-        for name in KEEP_RESULTS:
-            ainv, logdet = torch.empty_like(a), torch.empty(nb, device=dev)
-            sign = torch.empty(nb, dtype=torch.complex64, device=dev)
-            code = libs[name].gj_inverse_slogdet_launch(
-                a.data_ptr(), ainv.data_ptr(), sign.data_ptr(), logdet.data_ptr(),
-                nb, n, torch.cuda.current_stream().cuda_stream)
-            build.check(libs[name], code, name)
-            err[name] = float((logdet - want).abs().max())
-        print(json.dumps({"shape": [nb, n, n], "graph_ms": ms,
+        for name in keep:
+            launchers[name]()
+            err[name] = float((launchers[name].outputs[2] - want).abs().max())
+        print(json.dumps({"shape": [nb, n, n], "dtype": str(a.dtype)[6:], "graph_ms": ms,
                           "max_abs_err_logdet": err}), flush=True)
 
 

@@ -27,8 +27,8 @@ rows, d_out 256, T = 288 (closed) or 144 (open), d_in 16, 320 or 256; the
 two-electron (pair) jet kernels on 589,824 rows, d_out 32, d_in 4 and 32,
 T = 6 (closed) and 3 (open); and at one 256-walker E_L chunk of LiH 2x2x2
 (T = 96 on 8192 rows; 262,144 pair rows) and of graphene (T = 36 on 3072
-rows; 36,864 pair rows). The float64 bodies at the float64 path's shapes: B1 in
-complex128 at (8192, 48, 48) and (512, 48, 48) (GJ_SHAPES_C128), and the
+rows; 36,864 pair rows). The float64 bodies at the float64 paths' shapes: B1 in
+complex128 at every production system's launch shapes (GJ_SHAPES_C128), and the
 float64 one-electron jet kernels (JET_SHAPES_F64: T = 288 closed and 144
 open on 6144 rows, d_in 16 and 320): B1 beside the other design's
 complex128 entry, the jets beside this build's general body in double
@@ -65,6 +65,7 @@ PAIR_ROWS, PAIR_D_OUT = WALKERS * 96 * 96, 32  # two-electron stream
 PEAK_BYTES = 3.35e12  # H100 SXM HBM bytes/s (NVIDIA data sheet, 700 W)
 PEAK_FP32 = 67e12     # H100 SXM FP32 FLOP/s outside the tensor cores
 PEAK_FP64_TENSOR = 67e12  # H100 SXM FP64 FLOP/s on the tensor cores
+PEAK_FP64_FMA = 34e12     # and outside them
 # E_L chunks of LiH rock-salt 2x2x2 (32 electrons) and graphene 1x1 (12)
 # at their run scripts' el_chunk
 COLD_WALKERS, LIH_N, GRAPHENE_N = 256, 32, 12
@@ -87,9 +88,13 @@ JET_SHAPES = ((288, ROWS, 16, D_OUT, True, False, WALKERS),
                 for n in (LIH_N, GRAPHENE_N) for d_in in (16, 320)),
               *((6, COLD_WALKERS * n * n, d_in, PAIR_D_OUT, False, False, COLD_WALKERS)
                 for n in (LIH_N, GRAPHENE_N) for d_in in (4, 32)))
-# the float64 path's shapes (precision='float64', C-diamond): B1 in
-# complex128, and the one-electron jet kernels closed and open
-GJ_SHAPES_C128 = ((8192, 48), (512, 48))
+# the float64 paths' shapes (precision='float64'): B1 in complex128 at
+# C-diamond's sampler and E_L launches (the registers body), bcc-Li's at
+# psi_chunk 256 and el_chunk 16 and the run script's 512 (mid), Si's with
+# psi_chunk unset and el_chunk 128, LiH's, H10's and graphene's sampler
+# shapes (warp); and the C-diamond one-electron jet kernels closed and open
+GJ_SHAPES_C128 = ((8192, 48), (512, 48), (4096, 81), (2048, 81), (128, 81),
+                  (8192, 14), (1024, 14), (16384, 16), (16384, 5), (8192, 6))
 JET_SHAPES_F64 = ((288, ROWS, 16, D_OUT, True, False, WALKERS),
                   (288, ROWS, 320, D_OUT, True, False, WALKERS),
                   (144, ROWS, 16, D_OUT, True, True, WALKERS),
@@ -268,6 +273,8 @@ def main() -> None:
                           "baseline_ms": base, "graph_ms": dev_ms,
                           "baseline_graph_ms": dev_base,
                           "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP64_TENSOR) * 1e3,
+                          "bound_ms_fp64_fma":
+                              max(nbytes / PEAK_BYTES, flops / PEAK_FP64_FMA) * 1e3,
                           "wrapper_ms": time_ms(lambda: dk.gj_inverse_slogdet(a))}),
               flush=True)
         del a

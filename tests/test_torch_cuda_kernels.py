@@ -251,13 +251,19 @@ C128_MAX_N = 118  # the largest complex128 matrix a block's shared memory holds
 
 def _gj_body_c128(n):
     """The body csrc/gj_inverse.cu's gj_body_c128 gives n x n matrices."""
-    return tdk.BODY_C128_REGISTERS if n == 48 else tdk.BODY_C128
+    if n <= 32:
+        return tdk.BODY_C128_WARP
+    if n == 48:
+        return tdk.BODY_C128_REGISTERS
+    return tdk.BODY_C128_MID if 49 <= n <= 96 else tdk.BODY_C128
 
 
 @pytest.mark.cuda
 def test_gj_complex128_body_matches_plain(cuda_device):
+    # every body at both ends of its range: warp 1-16 (two matrices a
+    # warp) and 17-32, shared 33-47, registers 48, mid 49-96, shared 97-118
     rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(10), cuda_device)
-    for n in (1, 5, 14, 16, 47, 48, 49, 81, 100, C128_MAX_N):
+    for n in (1, 5, 14, 16, 17, 32, 33, 47, 48, 49, 81, 96, 97, 100, C128_MAX_N):
         a = (torch.complex(rnd(64, n, n), rnd(64, n, n))
              + 4.0 * torch.eye(n, device=cuda_device)).to(torch.complex128)
         key = ("gj_inverse_slogdet", (64, n, n), _gj_body_c128(n))
@@ -300,13 +306,38 @@ def test_gj_complex128_register_body_batches(cuda_device, batch):  # second matr
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [48, 14, 81])
+@pytest.mark.parametrize("batch", [1, 3, 513, 8192])  # 1, 3, 513: a warp's second
+@pytest.mark.parametrize("n", [14, 32, 81])           # matrix idle (n = 14)
+def test_gj_complex128_warp_and_mid_bodies_batches(cuda_device, batch, n):
+    """The complex128 warp body (two matrices a warp at n = 14, one at 32)
+    and mid body (n = 81, one block a matrix) on Gaussian matrices: 1e-9
+    of the inverse's scale, and a relaunch equal bit for bit."""
+    rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(14), cuda_device)
+    a = (torch.complex(rnd(batch, n, n), rnd(batch, n, n)).to(torch.complex128)
+         / (2 * n)**0.5)
+    key = ("gj_inverse_slogdet", (batch, n, n), _gj_body_c128(n))
+    assert key[2] in (tdk.BODY_C128_WARP, tdk.BODY_C128_MID)
+    before = tdk.SHAPES[key]
+    got = tdk.gj_inverse_slogdet(a)
+    assert tdk.SHAPES[key] == before + 1
+    want = tdk.gj_inverse_slogdet_plain(a)
+    scale = want[0].abs().amax(dim=(-1, -2))
+    assert float(((got[0] - want[0]).abs().amax(dim=(-1, -2)) / scale).max()) <= 1e-9
+    assert float((got[1] - want[1]).abs().max()) <= 1e-9
+    assert float((got[2] - want[2]).abs().max()) <= 1e-9
+    for x, y in zip(got, tdk.gj_inverse_slogdet(a)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [48, 14, 81, 5, 16, 32, 49, 96, 40, 100])
 @pytest.mark.parametrize("case", ["anti_diagonal", "permutation", "tie",
                                   "zero_pivot", "nan_entry"])
 def test_gj_complex128_edge_matrices(cuda_device, n, case):
     """The pivot rule's corner cases in complex128 against the plain
-    version (n = 48 on the register body, 14 and 81 on the shared one): the
-    same pivots, -inf for a zero pivot, NaN confined."""
+    version (n = 48 on the register body, 5-32 on the warp body, 49-96 on
+    the mid body, 40 and 100 on the shared-memory body): the same pivots,
+    -inf for a zero pivot, NaN confined."""
     dev = cuda_device
     rnd = _rnd(torch.Generator(device=dev).manual_seed(11), dev)
     eye = torch.eye(n, device=dev, dtype=torch.complex128)
@@ -315,10 +346,10 @@ def test_gj_complex128_edge_matrices(cuda_device, n, case):
         a = torch.flip(eye, [1])[None]
     elif case == "permutation":
         a = torch.roll(eye, 5, 0)[None]
-    elif case == "tie":
-        a[:, 3, 0], a[:, 7, 0] = 5.0, 5.0j
+    elif case == "tie":              # row 4 where n = 5 has no row 7
+        a[:, 3, 0], a[:, min(7, n - 1), 0] = 5.0, 5.0j
     elif case == "zero_pivot":
-        a[:, :, 7] = 0
+        a[:, :, min(7, n - 1)] = 0
     else:
         a[0, 3, 4] = float("nan")
     key = ("gj_inverse_slogdet", tuple(a.shape), _gj_body_c128(n))

@@ -36,17 +36,28 @@ C128_REGISTERS_BYTES = 2 * (48 * 49 * 16 + 4 * 48 * 16 + 48 * 16 + 3 * 48 * 4)
 
 class _FakeGjLibraryC128(_FakeGjLibrary):
     """The complex128 size rule of csrc/gj_inverse.cu beside the complex64
-    one (gj_body_c128: 1 registers at n = 48, 0 shared): the register body's
-    two matrices a block, the shared-memory body's 16 n^2 + 3 x 16 n + 4 n
-    bytes (the matrix, three rows of double2 and the pivot rows), and each
-    launch entry a function of its own name."""
+    one (gj_body_c128: 2 warp at n <= 32, 1 registers at n = 48, 3 mid at
+    49-96, 0 shared): the warp body's static tiles (no dynamic bytes), the
+    register body's two matrices a block, the mid body's n (n + 1) x 16
+    bytes of unscrambling tile, the shared-memory body's 16 n^2 + 3 x 16 n
+    + 4 n bytes (the matrix, three rows of double2 and the pivot rows), and
+    each launch entry a function of its own name."""
 
     def gj_body_c128(self, n):
-        return 1 if n == 48 else 0
+        if n <= 32:
+            return 2
+        if n == 48:
+            return 1
+        return 3 if 49 <= n <= 96 else 0
 
     def gj_smem_bytes_c128(self, n):
-        if self.gj_body_c128(n):
+        body = self.gj_body_c128(n)
+        if body == 1:
             return C128_REGISTERS_BYTES
+        if body == 2:
+            return 0
+        if body == 3:
+            return n * (n + 1) * 16
         return n * n * 16 + 3 * n * 16 + n * 4
 
     def gj_inverse_slogdet_launch(self, *args):
@@ -56,12 +67,22 @@ class _FakeGjLibraryC128(_FakeGjLibrary):
         return "complex128 entry"
 
 
-@pytest.mark.parametrize("n", [1, 5, 6, 14, 16, 47, 48, 49, 81, 100, C128_MAX_N])
+# the complex128 body by n, as the source's rule (held to the source in
+# test_gj_c128_fake_library_follows_the_source) names it
+C128_NS = (1, 5, 6, 14, 16, 47, 48, 49, 81, 100, C128_MAX_N, 17, 32, 33, 96, 97)
+C128_BODY_BY_N = {n: tdk.BODIES_C128[_FakeGjLibraryC128().gj_body_c128(n)]
+                  for n in C128_NS}
+
+
+@pytest.mark.parametrize("n", C128_NS)
 def test_gj_c128_takes_the_shared_body_where_it_fits(n):
-    """n = 48 (C-diamond) takes the complex128 register body, every other
-    n the shared-memory body, through the one complex128 entry."""
+    """Each n takes its complex128 body by size alone (C128_BODY_BY_N: the
+    warp body for Si, LiH, graphene and H10, the register body for
+    C-diamond's 48, the mid body for bcc-Li's 81, the shared-memory body
+    where none of them serves and the matrix fits), through the one
+    complex128 entry."""
     lib, dev = _FakeGjLibraryC128(), torch.device("cuda", 0)
-    want = tdk.BODY_C128_REGISTERS if n == 48 else tdk.BODY_C128
+    want = C128_BODY_BY_N[n]
     assert tdk.variant_c128(lib, n, dev) == want
     body, entry = tdk.launcher(lib, torch.complex128, n, dev)
     assert body == want and entry() == "complex128 entry"
@@ -85,17 +106,40 @@ def test_gj_c128_fake_library_follows_the_source():
     """_FakeGjLibraryC128's size rule and the wrapper's signatures are the
     ones csrc/gj_inverse.cu states."""
     text = (build.CSRC / "gj_inverse.cu").read_text()
-    assert "int gj_body_c128(int n) { return n == kZN ? 1 : 0; }" in text
+    assert ("int gj_body_c128(int n) {\n  if (n <= 32) return 2;\n"
+            "  if (n == kZN) return 1;\n  if (n >= kMidMin && n <= kMidN) return 3;\n"
+            "  return 0;\n}") in text
+    assert "constexpr int kMidMin = 49;" in text and "constexpr int kMidN = 96;" in text
     assert "constexpr int kZN = 48;" in text and "constexpr int kZMats = 2;" in text
-    assert ("    return static_cast<long long>(sizeof(ZRegShared)) * kZMats;\n  }\n"
-            "  return shared_body_bytes<double2>(n);") in text
+    assert ("  switch (gj_body_c128(n)) {\n    case 1:\n"
+            "      return static_cast<long long>(sizeof(ZRegShared)) * kZMats;\n"
+            "    case 2:\n      return 0;\n    case 3:\n"
+            "      return mid_tile_bytes<double2>(n);\n    default:\n"
+            "      return shared_body_bytes<double2>(n);") in text
+    assert "return static_cast<long long>(n) * (n + 1) * sizeof(C);" in text
+    # the warp body's tiles are static: two warps a block keep them under
+    # the 48 KB a block may hold without opting in
+    assert "constexpr int kZWarpWarps = 2;" in text
+    assert "__shared__ double2 tiles[kZWarpWarps][kSegs][W][W + 1];" in text
+    assert "__shared__ double2 rows[kZWarpWarps][2][kSegs][W];" in text
+    assert 2 * (32 * 33 + 2 * 32) * 16 == 35840 <= 48 * 1024
     struct = re.search(r"struct ZRegShared \{(.*?)\};", text, re.S).group(1)
     struct = re.sub(r"//[^\n]*", "", struct)
     fields = [" ".join(f.split()) for f in struct.split(";") if f.strip()]
     assert fields == ["double2 tile[kZN][kZN + 1]", "double2 fcol[2][kZN]",
                       "double2 prow[2][kZN]", "double2 piv[kZN]", "int swapped[kZN]",
                       "int pos[kZN]", "int row_at[kZN]"]
-    assert tdk.BODIES_C128 == (tdk.BODY_C128, tdk.BODY_C128_REGISTERS)
+    assert tdk.BODIES_C128 == (tdk.BODY_C128, tdk.BODY_C128_REGISTERS,
+                               tdk.BODY_C128_WARP, tdk.BODY_C128_MID)
+    # the body by n: warp up to 32 (two matrices a warp up to 16),
+    # registers at 48, mid 49-96, shared 33-47 and 97-118
+    assert C128_BODY_BY_N == {
+        1: tdk.BODY_C128_WARP, 5: tdk.BODY_C128_WARP, 6: tdk.BODY_C128_WARP,
+        14: tdk.BODY_C128_WARP, 16: tdk.BODY_C128_WARP, 17: tdk.BODY_C128_WARP,
+        32: tdk.BODY_C128_WARP, 33: tdk.BODY_C128, 47: tdk.BODY_C128,
+        48: tdk.BODY_C128_REGISTERS, 49: tdk.BODY_C128_MID, 81: tdk.BODY_C128_MID,
+        96: tdk.BODY_C128_MID, 97: tdk.BODY_C128, 100: tdk.BODY_C128,
+        C128_MAX_N: tdk.BODY_C128}
     assert tdk._SIGNATURES["gj_body_c128"] == tdk._SIGNATURES["gj_body"]
     assert ("return static_cast<long long>(n) * n * sizeof(C) + 3LL * n * sizeof(C) +\n"
             "         static_cast<long long>(n) * sizeof(int);") in text
@@ -106,10 +150,11 @@ def test_gj_c128_fake_library_follows_the_source():
     restype, argtypes = tdk._SIGNATURES["gj_inverse_slogdet_launch_c128"]
     assert len(argtypes) == 7 and argtypes == tdk._SIGNATURES["gj_inverse_slogdet_launch"][1]
     # 118 fits the 232448 bytes an H100 block may opt into, 119 does not;
-    # the register body's block needs 84 KB
+    # the register body's block needs 84 KB, the mid body's at 96 146 KB
     lib = _FakeGjLibraryC128()
     assert lib.gj_smem_bytes_c128(C128_MAX_N) <= 232448 < lib.gj_smem_bytes_c128(C128_MAX_N + 1)
     assert lib.gj_smem_bytes_c128(48) == C128_REGISTERS_BYTES == 84096
+    assert lib.gj_smem_bytes_c128(96) == 148992 and lib.gj_smem_bytes_c128(32) == 0
 
 
 def test_gj_wrapper_asks_the_c128_rule_for_complex128(monkeypatch):
@@ -288,7 +333,8 @@ def _complex128(shape, seed):
     return rng.randn(*shape) + 1j * rng.randn(*shape)
 
 
-@pytest.mark.parametrize("b,n", [(4, 48), (2, 81), (16, 14)])
+@pytest.mark.parametrize("b,n", [(4, 48), (2, 81), (16, 14), (16, 5), (8, 16), (4, 32),
+                                 (2, 96)])
 def test_gj_plain_complex128_matches_jax_lapack(b, n):
     """The plain version the complex128 body is held against on the card,
     against JAX's float64 det_factor (LU, its LAPACK path): 1e-12 relative
