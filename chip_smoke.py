@@ -167,8 +167,8 @@ Phases, one JSON line each; any failure exits non-zero:
                 float64 bodies (B1's complex128 warp body up to n = 32,
                 register body at 48, mid body at 49-96 and shared-memory
                 body elsewhere, the one-electron jets' wide
-                body on the FP64 tensor cores, the general jet body in
-                double for the pair layers): el_chunk and psi_chunk from a
+                body on the FP64 tensor cores, the pair jet body in double
+                for the two-electron layers): el_chunk and psi_chunk from a
                 float64 probe of the card's peak memory; C-diamond 2x2x2 at
                 full width from runs/ckpt_diamond cast to float64, one
                 inference and 2 KFAC fisher_exact iterations (batch 1024)
@@ -178,8 +178,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 split, walkers/s beside the float32 phases', peak memory,
                 B1's exact launch count, every launch on a float64 body
                 (every one-electron jet launch on the wide body in double,
-                every (., 48, 48) B1 launch on the complex128 register
-                body) and no plain version called; one
+                every two-electron one, closed or open, on the pair body in
+                double, every (., 48, 48) B1 launch on the complex128
+                register body) and no plain version called; one
                 E_L chunk over two deriv ranks on the card (B4a, B4b) against
                 one process; the reference phase's walkers card float64
                 against CPU float64 (E_L <= 1e-9 Ha/cell, the gradient's and
@@ -190,7 +191,10 @@ Phases, one JSON line each; any failure exits non-zero:
                 profile of one float64 E_L chunk; each float64 body against
                 its plain version at the production shapes of every system
                 and at both ends of the warp and mid bodies' ranges, B1 also
-                on the edge matrices at n = 14, 16, 32, 48, 49, 81, 96;
+                on the edge matrices at n = 14, 16, 32, 48, 49, 81, 96; the
+                pair body in double (B2 and B4a rows, and the float64_systems
+                phase's) also against the general body in double on the same
+                inputs: bit for bit, within 1e-13 relative, timed in turns;
      float64_systems - bcc-Li 3x3x3 and Si 1x1x1 at full width in float64
                 through process(): bcc-Li from its handoff checkpoint cast
                 to float64 (el_chunk and psi_chunk from a float64 probe of
@@ -366,6 +370,9 @@ F64_REL_TOLERANCE = 1e-10
 F32_BIAS_BUDGET = 2e-4     # Ha per 2-atom primitive cell: 1e-4 Ha/atom
 F64_SHARD_WALKERS = 32     # one E_L chunk over two deriv ranks on the card
 JET_F64_TOLERANCE = 1e-10  # relative, a float64 jet body against its plain version
+# relative, the pair body in double against the general body in double:
+# both sum in one order, so they are expected to agree bit for bit
+PAIR_F64_GENERAL_TOLERANCE = 1e-13
 # B1 complex128 rows beside the float64 paths' own shapes: C-diamond's,
 # bcc-Li's run-script sampler (psi_chunk 512), LiH's, H10's and graphene's
 # sampler and E_L shapes, and both ends of the warp and mid bodies' ranges
@@ -389,6 +396,8 @@ PEAK_FP32 = 67e12
 PEAK_FP64_TENSOR = 67e12
 PEAK_FP64_FMA = 34e12
 _START = time.perf_counter()
+# ptxas's registers, spills and shared memory of each kernel, from main's build
+KERNEL_RESOURCES = []
 # CPU float64 readings shared by the reference and float64 phases
 _CPU_F64 = {}
 
@@ -595,6 +604,39 @@ def jet_bound(nbytes, flops, dtype):
             {"bound_ms_fp64_fma": bound_ms(nbytes, flops, PEAK_FP64_FMA)[0]})
 
 
+def pair_f64_against_general(args, open_sum):
+    """A float64 plain-rule jet at a pair shape on the pair body in double
+    against the general body in double on the same inputs: whether the
+    outputs agree bit for bit, the largest difference relative to each
+    output's scale, and both bodies' launch times in turns (general, pair,
+    pair, general; the launchers alone, as time_kernels times them), with
+    the pair body's ptxas resources."""
+    from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
+    from deepsolid_tpu_torch.ops.cuda import time_kernels as tk
+
+    d_in = args[0].shape[1]
+    lib = jk._lib()
+    pair = tk.jet_launcher(lib, jk.PAIR, *args, None, open_sum)
+    general = tk.jet_launcher(lib, 0, *args, None, open_sum)
+    pair()
+    general()
+    same = tk.same_bits(pair, general)
+    diff = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-300)
+               for x, y in zip(pair.outputs, general.outputs))
+    first = time_ms(general)
+    ms = [time_ms(pair), time_ms(pair)]
+    kernel = f"dense_tanh_jet_pair_double_kernelILi{d_in}ELb{int(open_sum)}E"
+    return {"same_bits": same, "max_rel_diff": diff, "ms": ms,
+            "general_ms": [first, time_ms(general)],
+            "resources": [r for r in KERNEL_RESOURCES if r["kernel"].startswith(kernel)]}
+
+
+def general_ok(rows):
+    """Whether every shape of a row's pair_f64_against_general readings is
+    within PAIR_F64_GENERAL_TOLERANCE of the general body in double."""
+    return all(r["max_rel_diff"] <= PAIR_F64_GENERAL_TOLERANCE for r in rows)
+
+
 def b3_row(dev, gen, n, groups, path="main", system="", k0=16, dtype=None):
     """The mix jet kernel on the three one-electron layers of one E_L chunk
     of `groups` walkers of n electrons (T = 3n; layer 0: k0 -> 256, k0 16
@@ -661,7 +703,7 @@ def b2_row(dev, gen, n, groups, path="main", system="", dtype=None):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    rows, ms, variants = groups * n * n, [], []
+    rows, ms, variants, general = groups * n * n, [], [], []
     err = rel = 0.0
     nbytes = flops = plain = mm = 0.0
     for k, c in ((4, 32), (32, 32)):
@@ -671,6 +713,8 @@ def b2_row(dev, gen, n, groups, path="main", system="", dtype=None):
         e, r_ = max_errs(got, jk.fused_dense_tanh_jet_plain(*args))
         err, rel = max(err, e), max(rel, r_)
         del got
+        if dtype == torch.float64:
+            general.append(pair_f64_against_general(args, False))
         ms.append(time_ms(lambda: jk.fused_dense_tanh_jet(*args)))
         variants.append(variant)
         plain += time_ms(lambda: jk.fused_dense_tanh_jet_plain(*args))
@@ -689,9 +733,10 @@ def b2_row(dev, gen, n, groups, path="main", system="", dtype=None):
         "path": path, "variant": variants, "dtype": str(dtype)[6:],
         "shapes": [[6, rows, k, 32] for k in (4, 32)],
         "max_abs_err": err, "max_rel_err": rel,
-        "tolerance": tol, "ok": rel <= tol,
+        "tolerance": tol, "ok": rel <= tol and general_ok(general),
         "ms": sum(ms), "ms_per_shape": ms, "plain_ms": plain,
         "library_ms": None, "matmul_ms": mm, "bound_ms": bnd, "bound_by": by, **extra,
+        **({"against_general_f64": general} if general else {}),
     }
 
 
@@ -3135,14 +3180,16 @@ def plain_calls():
 
 def float64_bodies_only(shapes):
     """The launch-shape records whose body is not a float64 one: B1's
-    complex128 bodies, the jets' general body in double and their wide body
-    in double at any slice count."""
+    complex128 bodies, the jets' general and pair bodies in double and
+    their wide body in double at any slice count."""
     import re
 
+    import torch
     from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
     from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
 
-    f64 = {*dk.BODIES_C128, jk.variant_label(jk.FLOAT64)}
+    f64 = {*dk.BODIES_C128, jk.variant_label(jk.FLOAT64),
+           jk.variant_label(jk.PAIR, torch.float64)}
     return [r for r in shapes if r["variant"] not in f64
             and not re.fullmatch(r"wide, float64, \d+ tangent slices", r["variant"])]
 
@@ -3152,11 +3199,17 @@ def float64_new_bodies(shapes):
     bodies redesigned for it and are not: every one-electron jet launch
     (d_out 256, closed or open mix rule) on the wide body in double, every
     complex128 B1 launch on the body its n names (`b1_body_c128`: the
-    warp body up to 32, the register body at 48, the mid body at 49-96)."""
+    warp body up to 32, the register body at 48, the mid body at 49-96),
+    every two-electron jet launch (plain rule, closed or open, d_out 32,
+    d_in 4 or 32) on the pair body in double."""
     out = []
     for r in shapes:
         if (r["kernel"] in ("fused_dense_tanh_jet_mix", "fused_dense_tanh_jet_mix_partial")
                 and r["shape"][3] == 256 and not r["variant"].startswith("wide, float64")):
+            out.append(r)
+        if (r["kernel"] in ("fused_dense_tanh_jet", "fused_dense_tanh_jet_partial")
+                and r["shape"][3] == 32 and r["shape"][2] in (4, 32)
+                and r["variant"] != "pair, float64"):
             out.append(r)
         if (r["kernel"] == "gj_inverse_slogdet"
                 and r["variant"] != b1_body_c128(r["shape"][-1])):
@@ -3177,7 +3230,7 @@ def open_row(dev, gen, name, cases, dtype):
 
     fn, plain = getattr(jk, name), getattr(jk, name + "_plain")
     err = rel = total = plain_ms = mm = nbytes = flops = 0.0
-    ms, variants = [], []
+    ms, variants, general = [], [], []
     for t, groups, n, k, c, count in cases:
         if groups:
             args = (rnd(groups, n, k), rnd(t, groups, n, k), rnd(groups, n, k),
@@ -3189,6 +3242,8 @@ def open_row(dev, gen, name, cases, dtype):
         e, r_ = max_errs(got, plain(*args))
         err, rel = max(err, e), max(rel, r_)
         del got
+        if dtype == torch.float64 and not groups:
+            general.append(pair_f64_against_general(args, True))
         t_k = time_ms(lambda: fn(*args))
         ms.append(t_k)
         variants.append(variant)
@@ -3212,9 +3267,11 @@ def open_row(dev, gen, name, cases, dtype):
                          for t, groups, n, k, c, count in cases),
         "dtype": str(dtype)[6:], "variant": variants,
         "shapes": [[t, max(groups, 1) * n, k, c] for t, groups, n, k, c, _ in cases],
-        "max_abs_err": err, "max_rel_err": rel, "tolerance": tol, "ok": rel <= tol,
+        "max_abs_err": err, "max_rel_err": rel, "tolerance": tol,
+        "ok": rel <= tol and general_ok(general),
         "ms": total, "ms_per_shape": ms, "plain_ms": plain_ms, "library_ms": None,
         "matmul_ms": mm, "bound_ms": bnd, "bound_by": by, **extra,
+        **({"against_general_f64": general} if general else {}),
     }
 
 
@@ -3495,7 +3552,7 @@ def float64_phase(dev, source, main, north_star, systems, f32_reference, gen):
     shard_diff = max(float(np.abs(r["el"] - want_el).max()) for r in ranks)
     for r in ranks:
         not_f64 += float64_bodies_only(r["launch_shapes"] + r["algebra_shapes"])
-        not_new += float64_new_bodies(r["launch_shapes"])
+        not_new += float64_new_bodies(r["launch_shapes"] + r["algebra_shapes"])
     plain_total = (sum(plain.values()) + sum(plain_unsharded.values())
                    + sum(sum(r["plain_calls"].values()) for r in ranks))
 
@@ -3882,7 +3939,8 @@ def main() -> int:
 
     seconds, log = build.build(ptxas_verbose=True)
     emit({"phase": "build", "seconds": seconds, "sources": list(build.SOURCES)})
-    emit({"kernel_resources": build.resources(log)})
+    KERNEL_RESOURCES[:] = build.resources(log)
+    emit({"kernel_resources": KERNEL_RESOURCES})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -4096,8 +4154,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi, flush=True)
     emit({"kernels": [{**{k: r[k] for k in keys}, "dtype": r.get(
-        "dtype", "complex64" if r["name"] == "gj_inverse_slogdet" else "float32")}
-        for r in kernels]})
+        "dtype", "complex64" if r["name"] == "gj_inverse_slogdet" else "float32"),
+        **({"body": r["variant"]} if "variant" in r else {})} for r in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -63,7 +63,7 @@
 //     allocates, and a small second kernel closes the Laplacian in a fixed
 //     order (no atomics: two launches on the same inputs agree bit for bit).
 // float64 (precision='float64', through dense_tanh_jet_launch_f64; tanh in
-// double, no TF32 anywhere) has two variants, both rules, closed and open:
+// double, no TF32 anywhere) has three variants, closed and open:
 //   * wide in double (the 256-wide layers, d_in up to 352): the products
 //     run on the FP64 tensor cores (mma.sync .f64, IEEE double, so they
 //     cost no accuracy where TF32 would bias E_L). The main path's
@@ -77,11 +77,15 @@
 //     fragments (one block of 8 warps per SM, a barrier per k-slice, 24
 //     shared loads per 16 products), not the bytes; see the note above
 //     dense_tanh_jet_dmma_kernel.
-//   * general in double (every other shape: the pair layers, which are
-//     bound by their bytes and which mma cannot help, and whatever the
-//     wide one does not take): the general variant templated on its
-//     scalar type, FP64 fma.
-// The pair variant is float32 only.
+//   * pair in double (the two-electron layers, plain rule, d_out = 32,
+//     d_in = 4 or 32): the float32 pair variant's streaming design on
+//     16-row warp tiles (a row takes twice the registers in double),
+//     storing whole lines straight from the registers; FP64 fma: the bytes
+//     bound these layers. It sums in the general variant's order, so the
+//     two agree bit for bit; see the note above
+//     dense_tanh_jet_pair_double_kernel.
+//   * general in double (whatever the other two do not take): the general
+//     variant templated on its scalar type, FP64 fma.
 // The open form changes no product: the pair and general variants store
 // the square sum they hold in registers instead of folding it into lap_o
 // (a compile-time flag), and the wide variants run a second finishing
@@ -1105,13 +1109,256 @@ __global__ void __launch_bounds__(kPThreads, 2) dense_tanh_jet_pair_kernel(
   cp_async_wait<0>();  // only empty groups are left
 }
 
+// ---- the pair variant in double: the same layers at precision='float64' --
+//
+// The float32 pair variant's design in double: w and b resident in shared
+// memory, every warp a pipeline over its own row tiles with a three-stage
+// cp.async ring that runs ahead across planes and tiles, tanh z and the
+// square sum in registers across the tangent loop, whole 128-byte lines
+// out, one block barrier, no atomics. Double changes the tile. A lane
+// keeps its outputs, tanh z and square sum in registers, 3 doubles an
+// output: the float32 lane tile of 4 x 8 would take 192 registers where two
+// blocks of 192 threads leave 170, so a warp owns 16 rows, a lane 4 rows x
+// 4 columns (rows rg + 4 i, columns 2 cg, 2 cg + 1, 16 + 2 cg, 17 + 2 cg):
+// 48 doubles, 160-164 registers, no spill. Each pair of k draws 4 16-byte
+// row loads (4 distinct addresses on disjoint banks with the ring row
+// stride of d_in + 2 doubles) and 4 16-byte w loads (one 128-byte row half
+// each) for 32 DFMAs. The eight lanes of a row group hold two whole
+// 128-byte lines of each of their rows, so the outputs leave straight from
+// the registers; the float32 body's staging tile, which makes its lines
+// whole, only added shared-memory traffic and two warp barriers a plane in
+// double and measured slower (time_pair_variants). At 32 -> 32 the DFMAs
+// are ~40% of the bytes' time at the FMA-only rate and hide under the
+// copies (a copy-only build is within a few percent), so the tensor cores
+// are not used. Each output is the general body in double's arithmetic in
+// the general body's order (one accumulator from 0, k ascending, fma; the
+// tangents' squares summed in order), and the epilogue's roundings are
+// written out as nvcc contracts the general body's (1 - t^2) and d * yl +
+// (-2 t d) * sq on sm_90a: fma(-t, t, 1) and fma(d, yl, (-2 t d) * sq).
+// Left to the compiler here, the Laplacian contracted the other way (1 ulp
+// apart); written out, the two bodies agree bit for bit (time_kernels' and
+// chip_smoke's same_bits).
+
+constexpr int kPRowsD = 16;   // rows of a warp's tile in double
+
+// Shared memory of a block in double: w and b (33 x 32 doubles at d_in 32)
+// and per warp kPStagesD ring stages of 16 rows x (d_in + 2) doubles:
+// 86,784 B at d_in 32 with three stages, so two blocks (12 warps) with the
+// 1 KB the system keeps per block fit an SM's 228 KB; registers allow no
+// third block (160-164 a thread).
+constexpr int kPStagesD = 3;  // ring stages of one input plane tile in double
 template <int K>
-int launch_pair(const float* val, const float* lap, const float* jac,
-                const float* w, const float* b, float* val_o, float* lap_o,
-                float* jac_o, float* sq_o, int T, int R, cudaStream_t stream) {
-  auto kernel = sq_o != nullptr ? dense_tanh_jet_pair_kernel<K, true>
-                                : dense_tanh_jet_pair_kernel<K, false>;
-  const size_t smem = PairTile<K>::kSmem;
+struct PairTileD {
+  static constexpr int kStride = K == 4 ? 4 : K + 2;  // doubles of a ring row
+  static constexpr int kStage = kPRowsD * kStride;
+  static constexpr int kWarpDoubles = kPStagesD * kStage;
+  static constexpr int kWDoubles = (K + 1) * kPC;  // w, then b
+  static constexpr size_t kSmem =
+      sizeof(double) * (kWDoubles + kPWarps * kWarpDoubles);
+};
+static_assert(2 * (PairTileD<32>::kSmem + 1024) <= 228 * 1024,
+              "two blocks of the pair variant in double fit an SM");
+
+template <int K, bool OPEN>
+__global__ void __launch_bounds__(kPThreads, 2) dense_tanh_jet_pair_double_kernel(
+    const double* __restrict__ val, const double* __restrict__ lap,
+    const double* __restrict__ jac, const double* __restrict__ w,
+    const double* __restrict__ b, double* __restrict__ val_o,
+    double* __restrict__ lap_o, double* __restrict__ jac_o,
+    double* __restrict__ sq_o, int T, int R) {
+  using Tile = PairTileD<K>;
+  extern __shared__ __align__(16) double pair_double_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rg = lane >> 3;  // rows rg + 4 i of the tile
+  const int cg = lane & 7;   // columns 2 cg, 2 cg + 1 and 16 + 2 cg, 17 + 2 cg
+  double* w_s = pair_double_smem;           // [K][32]
+  const double* b_s = w_s + K * kPC;        // [32]
+  double* ring = pair_double_smem + Tile::kWDoubles + warp * Tile::kWarpDoubles;
+
+  const int n_tiles = (R + kPRowsD - 1) / kPRowsD;
+  const int n_warps = gridDim.x * kPWarps;
+  const int first = blockIdx.x * kPWarps + warp;  // tiles first + i * n_warps
+  const int my_tiles =
+      first < n_tiles ? (n_tiles - first + n_warps - 1) / n_warps : 0;
+  const int n_planes = T + 2;
+  const int total = my_tiles * n_planes;
+  const size_t plane_in = static_cast<size_t>(R) * K;
+  const size_t plane_out = static_cast<size_t>(R) * kPC;
+
+  // ---- the producer side: the warp copies one plane tile per call ----
+  constexpr int kChunks = K / 2;                       // 16-byte chunks of a row
+  constexpr int kCopies = kPRowsD * kChunks / 32;      // per lane: 8 or 1
+  int fetched = 0, f_stage = 0, f_plane = 0, f_tile = first;
+  auto fetch = [&]() {
+    if (fetched < total) {
+      const double* base =
+          f_plane == 0 ? val
+          : f_plane <= T ? jac + static_cast<size_t>(f_plane - 1) * plane_in
+                         : lap;
+      const int row0 = f_tile * kPRowsD;
+      double* dst = ring + f_stage * Tile::kStage;
+#pragma unroll
+      for (int q = 0; q < kCopies; ++q) {
+        const int e = lane + 32 * q;  // consecutive lanes, consecutive chunks
+        const int r = e / kChunks;
+        const int kc = (e % kChunks) * 2;
+        const bool ok = row0 + r < R;
+        cp_async16(dst + r * Tile::kStride + kc,
+                   ok ? base + static_cast<size_t>(row0 + r) * K + kc : base,
+                   ok);
+      }
+      if (++f_plane == n_planes) {
+        f_plane = 0;
+        f_tile += n_warps;
+      }
+    }
+    ++fetched;
+    if (++f_stage == kPStagesD) f_stage = 0;
+    cp_async_commit();  // one group per call, empty past the last tile
+  };
+
+  // one output plane of the tile, straight from the registers: for each
+  // of its rows a lane writes two 16-byte pieces, and the eight lanes of a
+  // row group fill the row's two 128-byte lines, one per instruction
+  auto store_plane = [&](double* __restrict__ dst, const double (&v)[4][4],
+                         int row0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + rg + 4 * i;
+      if (r < R) {
+        double* o = dst + static_cast<size_t>(r) * kPC + 2 * cg;
+        *reinterpret_cast<double2*>(o) = make_double2(v[i][0], v[i][1]);
+        *reinterpret_cast<double2*>(o + 16) = make_double2(v[i][2], v[i][3]);
+      }
+    }
+  };
+
+  // the ring starts filling while w and b are copied
+#pragma unroll
+  for (int s = 0; s < kPStagesD - 1; ++s) fetch();
+  for (int e = threadIdx.x; e < K * kPC; e += kPThreads) w_s[e] = w[e];
+  if (threadIdx.x < kPC) w_s[K * kPC + threadIdx.x] = b[threadIdx.x];
+  __syncthreads();  // the block's only barrier
+
+  double tv[4][4];  // tanh z of the lane's sub-tile; d = 1 - t^2 is recomputed
+  double sq[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) tv[i][j] = sq[i][j] = 0.0;
+
+  int stage = 0;
+  for (int it = 0; it < my_tiles; ++it) {
+    const int row0 = (first + it * n_warps) * kPRowsD;
+    for (int p = 0; p < n_planes; ++p) {
+      cp_async_wait<kPStagesD - 2>();  // this lane's share of the plane landed
+      __syncwarp();                   // every lane's did; the last is consumed
+      fetch();                        // refills the last plane's stage
+      const double* as = ring + stage * Tile::kStage + rg * Tile::kStride;
+      if (++stage == kPStagesD) stage = 0;
+
+      double acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
+#pragma unroll
+      for (int k2 = 0; k2 < K; k2 += 2) {
+        double2 a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[i] = *reinterpret_cast<const double2*>(as + 4 * i * Tile::kStride + k2);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const double* wr = w_s + (k2 + kk) * kPC + 2 * cg;
+          const double2 w0 = *reinterpret_cast<const double2*>(wr);
+          const double2 w1 = *reinterpret_cast<const double2*>(wr + 16);
+          const double wv[4] = {w0.x, w0.y, w1.x, w1.y};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const double av = kk == 0 ? a[i].x : a[i].y;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fma(av, wv[j], acc[i][j]);
+          }
+        }
+      }
+
+      if (p == 0) {  // the value
+        const double2 b0 = *reinterpret_cast<const double2*>(b_s + 2 * cg);
+        const double2 b1 = *reinterpret_cast<const double2*>(b_s + 16 + 2 * cg);
+        const double bv[4] = {b0.x, b0.y, b1.x, b1.y};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            double z = acc[i][j];
+            z += bv[j];
+            const double t = tanh(z);
+            tv[i][j] = t;
+            sq[i][j] = 0.0;
+            acc[i][j] = t;
+          }
+        store_plane(val_o, acc, row0);
+      } else if (p <= T) {  // a tangent
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const double y = acc[i][j];
+            acc[i][j] = fma(-tv[i][j], tv[i][j], 1.0) * y;
+            sq[i][j] = fma(y, y, sq[i][j]);
+          }
+        store_plane(jac_o + static_cast<size_t>(p - 1) * plane_out, acc, row0);
+      } else {  // the Laplacian, closed here or left open with sq_o
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const double yl = acc[i][j];
+            const double t = tv[i][j];
+            const double d = fma(-t, t, 1.0);
+            acc[i][j] = OPEN ? d * yl : fma(d, yl, (-2.0 * t * d) * sq[i][j]);
+          }
+        store_plane(lap_o, acc, row0);
+        if (OPEN) store_plane(sq_o, sq, row0);
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups are left
+}
+
+// The pair variant's kernel and block budget by scalar type: float32's
+// 32-row warp tiles or double's 16-row ones.
+template <int K, typename S>
+struct PairBody;
+template <int K>
+struct PairBody<K, float> {
+  static constexpr int kRows = kPRows;
+  static constexpr size_t kSmem = PairTile<K>::kSmem;
+  static auto kernel(bool open) {
+    return open ? dense_tanh_jet_pair_kernel<K, true>
+                : dense_tanh_jet_pair_kernel<K, false>;
+  }
+};
+template <int K>
+struct PairBody<K, double> {
+  static constexpr int kRows = kPRowsD;
+  static constexpr size_t kSmem = PairTileD<K>::kSmem;
+  static auto kernel(bool open) {
+    return open ? dense_tanh_jet_pair_double_kernel<K, true>
+                : dense_tanh_jet_pair_double_kernel<K, false>;
+  }
+};
+
+template <int K, typename S>
+int launch_pair(const S* val, const S* lap, const S* jac, const S* w,
+                const S* b, S* val_o, S* lap_o, S* jac_o, S* sq_o, int T,
+                int R, cudaStream_t stream) {
+  using Body = PairBody<K, S>;
+  auto kernel = Body::kernel(sq_o != nullptr);
+  const size_t smem = Body::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1125,7 +1372,7 @@ int launch_pair(const float* val, const float* lap, const float* jac,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kPThreads,
                                                       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_tiles = (R + kPRows - 1) / kPRows;
+  const int n_tiles = (R + Body::kRows - 1) / Body::kRows;
   const int blocks = std::max(
       1, std::min((n_tiles + kPWarps - 1) / kPWarps, sms * std::max(per_sm, 1)));
   kernel<<<blocks, kPThreads, smem, stream>>>(val, lap, jac, w, b, val_o, lap_o,
@@ -1289,10 +1536,12 @@ int dense_tanh_jet_launch(const void* val, const void* lap, const void* jac,
 // The float64 form of dense_tanh_jet_launch: the same arguments and
 // layouts in double. slices > 0 runs the float64 wide variant on the FP64
 // tensor cores, which needs C % 64 == 0, K % 4 == 0, K <= 352, every
-// pointer 16-byte aligned and `slices` * R * C doubles of scratch (it
-// returns cudaErrorInvalidValue for another shape); slices = 0 runs the
-// general variant in double (scratch unused); there is no pair variant in
-// double (slices < 0 is refused). Returns the cudaError_t of the launches.
+// pointer 16-byte aligned and `slices` * R * C doubles of scratch; slices
+// < 0 runs the pair variant in double, which needs the plain rule, C ==
+// 32, K == 4 or 32 and every pointer 16-byte aligned (either returns
+// cudaErrorInvalidValue for another shape); slices = 0 runs the general
+// variant in double (scratch unused). Returns the cudaError_t of the
+// launches.
 int dense_tanh_jet_launch_f64(const void* val, const void* lap,
                               const void* jac, const void* w, const void* b,
                               const void* zbc, const void* lbc,
@@ -1313,7 +1562,13 @@ int dense_tanh_jet_launch_f64(const void* val, const void* lap,
   auto* jo = static_cast<double*>(jac_o);
   auto* so = static_cast<double*>(sq_out);
   auto st = static_cast<cudaStream_t>(stream);
-  if (slices < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (slices < 0) {
+    if (zbc != nullptr || C != kPC || (K != 4 && K != 32)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return K == 4 ? launch_pair<4>(v, l, jc, wp, bp, vo, lo, jo, so, T, R, st)
+                  : launch_pair<32>(v, l, jc, wp, bp, vo, lo, jo, so, T, R, st);
+  }
   if (slices > 0) {
     auto* sp = static_cast<double*>(scratch);
     return zbc != nullptr

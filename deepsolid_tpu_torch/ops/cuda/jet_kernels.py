@@ -9,11 +9,11 @@ this rank's tangents and the tangent square sum comes back as a fourth
 output, s_local, for the caller to sum over the ranks and close
     lap = lap_part + (-2 v (1 - v^2)) * sum_ranks s_local.
 The wrappers take the plain PyTorch version only for tensors on the CPU.
-float64 tensors (precision='float64') launch the wide body in double, on
-the FP64 tensor cores, at the 256-wide layers (`kernel_variant` returns
+float64 tensors (precision='float64') launch the pair body in double at
+the two-electron layers (PAIR, as float32 does), the wide body in double,
+on the FP64 tensor cores, at the 256-wide layers (`kernel_variant` returns
 its tangent slices, `wide_slices_f64`), and the general body in double at
-every other shape (FLOAT64); the pair body is float32 only. A launch
-takes one dtype for all its tensors.
+every other shape (FLOAT64). A launch takes one dtype for all its tensors.
 
 Layouts (float32 or float64 on the card; T is T_local in the open form):
   plain rule: val, lap (R, d_in); jac (T, R, d_in); w (d_in, d_out); b (d_out,)
@@ -107,9 +107,9 @@ def _slices(t_dim, tiles, sms):
 # the pair variant's shapes: the two-electron layers (d_out, d_in choices
 # kPC and the launch_pair instantiations in csrc/dense_tanh_jet.cu)
 PAIR_D_OUT, PAIR_D_IN = 32, (4, 32)
-PAIR = -1  # what `kernel_variant` returns for the pair variant
-FLOAT64 = -2  # ... and for a float64 launch the float64 wide variant does
-              # not take: the general body in double
+PAIR = -1  # what `kernel_variant` returns for the pair variant (either dtype)
+FLOAT64 = -2  # ... and for a float64 launch neither the pair nor the wide
+              # variant in double takes: the general body in double
 
 
 def pair_body(d_in, d_out, mixed):
@@ -120,22 +120,22 @@ def pair_body(d_in, d_out, mixed):
 
 
 def kernel_variant(t_dim, rows, d_in, d_out, mixed, sms, dtype=torch.float32):
-    """Which kernel body a launch runs, by dtype and shape alone: in
-    float64 a positive count of tangent slices for the float64 wide
-    variant, FLOAT64 for the general body in double; in float32 PAIR for the
-    pair variant, a positive count of tangent slices for the wide variant,
-    0 for the general one."""
-    if dtype == torch.float64:
-        return wide_slices_f64(t_dim, rows, d_in, d_out, sms) or FLOAT64
+    """Which kernel body a launch runs, by dtype and shape alone: PAIR for
+    the pair variant in either dtype; otherwise in float64 a positive count
+    of tangent slices for the float64 wide variant, FLOAT64 for the general
+    body in double; in float32 a positive count of tangent slices for the
+    wide variant, 0 for the general one."""
     if pair_body(d_in, d_out, mixed):
         return PAIR
+    if dtype == torch.float64:
+        return wide_slices_f64(t_dim, rows, d_in, d_out, sms) or FLOAT64
     return wide_slices(t_dim, rows, d_in, d_out, sms)
 
 
 def variant_label(slices, dtype=torch.float32):
     """`kernel_variant`'s answer in words."""
     if slices == PAIR:
-        return "pair"
+        return "pair, float64" if dtype == torch.float64 else "pair"
     if slices == FLOAT64:
         return "general, float64"
     if slices > 0:
@@ -234,11 +234,11 @@ def _launch(name, val, jac, lap, w, b, mix, rows_per_group, groups,
         # the one place the variant is chosen, by dtype and shape alone.
         # The wide variants split the tangents across blocks, whose partial
         # square sums need slices * rows * d_out values of scratch; PAIR is
-        # the streaming body of the two-electron layers; 0 slices (FLOAT64
-        # in double) is the general one (also for a d_in whose slice of w
-        # does not fit in shared memory). t_dim is this call's own (a rank's
-        # T_local in the open form), so scratch and the finishing grid
-        # follow `slices`
+        # the streaming body of the two-electron layers in either dtype; 0
+        # slices (FLOAT64 in double) is the general one (also for a d_in
+        # whose slice of w does not fit in shared memory). t_dim is this
+        # call's own (a rank's T_local in the open form), so scratch and the
+        # finishing grid follow `slices`
         sms = torch.cuda.get_device_properties(val.device).multi_processor_count
         slices = kernel_variant(t_dim, rows, d_in, d_out, mix is not None, sms,
                                 val.dtype)

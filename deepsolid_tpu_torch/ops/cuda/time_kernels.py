@@ -29,10 +29,14 @@ T = 6 (closed) and 3 (open); and at one 256-walker E_L chunk of LiH 2x2x2
 (T = 96 on 8192 rows; 262,144 pair rows) and of graphene (T = 36 on 3072
 rows; 36,864 pair rows). The float64 bodies at the float64 paths' shapes: B1 in
 complex128 at every production system's launch shapes (GJ_SHAPES_C128), and the
-float64 one-electron jet kernels (JET_SHAPES_F64: T = 288 closed and 144
-open on 6144 rows, d_in 16 and 320): B1 beside the other design's
-complex128 entry, the jets beside this build's general body in double
-(slices 0, what every float64 shape ran before the wide body in double).
+float64 jet kernels (JET_SHAPES_F64): the one-electron layers (T = 288
+closed and 144 open on 6144 rows, d_in 16 and 320) and the pair layers
+(d_in 4 and 32, d_out 32) of one float64 E_L chunk of C-diamond 2x2x2
+(589,824 rows), bcc-Li 3x3x3 (419,904) and Si 1x1x1 (100,352) at T = 6,
+and of one rank of the float64 sharded chunk (T_local = 3 open, 294,912
+rows): B1 beside the other design's complex128 entry, the jets beside
+this build's general body in double (slices 0, what every float64 shape
+ran before the wide and pair bodies in double).
 For the wide jet variant the
 current design is timed at each slice count of --slices beside the one
 jet_kernels.kernel_variant chooses; --baseline-slices is the slice count
@@ -95,10 +99,18 @@ JET_SHAPES = ((288, ROWS, 16, D_OUT, True, False, WALKERS),
 # shapes (warp); and the C-diamond one-electron jet kernels closed and open
 GJ_SHAPES_C128 = ((8192, 48), (512, 48), (4096, 81), (2048, 81), (128, 81),
                   (8192, 14), (1024, 14), (16384, 16), (16384, 5), (8192, 6))
+# (walkers, electrons) of the float64 paths' E_L chunks: C-diamond's
+# el_chunk 64, bcc-Li's 16, Si's 128; and the sharded chunk's 32 walkers
+F64_PAIR_CHUNKS = ((WALKERS, 96), (16, 162), (128, 28))
+F64_SHARD_WALKERS = 32
 JET_SHAPES_F64 = ((288, ROWS, 16, D_OUT, True, False, WALKERS),
                   (288, ROWS, 320, D_OUT, True, False, WALKERS),
                   (144, ROWS, 16, D_OUT, True, True, WALKERS),
-                  (144, ROWS, 320, D_OUT, True, True, WALKERS))
+                  (144, ROWS, 320, D_OUT, True, True, WALKERS),
+                  *((6, g * n * n, d_in, PAIR_D_OUT, False, False, g)
+                    for g, n in F64_PAIR_CHUNKS for d_in in (4, 32)),
+                  *((3, F64_SHARD_WALKERS * 96 * 96, d_in, PAIR_D_OUT, False, True,
+                     F64_SHARD_WALKERS) for d_in in (4, 32)))
 
 
 def baseline_library(directory: Path, name: str, signatures) -> ctypes.CDLL:
@@ -317,7 +329,7 @@ def main() -> None:
         mix = ((rnd64(walkers, d_out), rnd64(walkers, d_out),
                 rnd64(t_dim, walkers, d_out)) if mixed else None)
         chosen = jk.kernel_variant(t_dim, rows, d_in, d_out, mixed, sms, torch.float64)
-        slices = max(chosen, 0)  # FLOAT64: the general body, slices 0
+        slices = 0 if chosen == jk.FLOAT64 else chosen  # the general body: 0
         current = jet_launcher(jet, slices, val, jac, lap, w, b, mix, open_sum)
         general = jet_launcher(jet, 0, val, jac, lap, w, b, mix, open_sum)
         ms, general_ms = in_turns(current, general)
@@ -330,6 +342,7 @@ def main() -> None:
             "body": jk.variant_label(chosen, torch.float64), "ms": ms,
             "same_bits": same_bits(current, general), "general_ms": general_ms,
             "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP64_TENSOR) * 1e3,
+            "bound_ms_fp64_fma": max(nbytes / PEAK_BYTES, flops / PEAK_FP64_FMA) * 1e3,
             "matmul_ms": time_ms(lambda: torch.matmul(jac, w))}), flush=True)
         del val, jac, lap, mix, current, general
         torch.cuda.empty_cache()

@@ -11,6 +11,7 @@ import torch
 
 from deepsolid_tpu_torch.ops.cuda import det_kernels as tdk
 from deepsolid_tpu_torch.ops.cuda import jet_kernels as tjk
+from deepsolid_tpu_torch.ops.cuda import time_kernels as tk
 
 # f32 on the card against f32 plain versions: sums in another order
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -157,23 +158,30 @@ def test_dense_tanh_jet_mix_kernel_matches_plain(cuda_device, t_dim, groups, n,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("open_sum", [False, True], ids=["closed", "open"])
 @pytest.mark.parametrize("t_dim,rows,d_in", [
     (6, 9216, 4), (6, 9216, 32),    # one walker's pair rows, both layers
     (3, 9216, 4), (3, 9216, 32),    # T_local of a 2-way deriv axis
     (6, 333, 4), (3, 333, 32),      # ragged: no multiple of the 32-row tile
     (6, 120013, 32), (0, 77, 4),    # several tiles per warp; no tangent at all
+    (6, 16 * 162 * 162 + 7, 4),     # more than a wave of 16-row tiles, ragged
 ])
-def test_pair_variant_matches_plain(cuda_device, t_dim, rows, d_in, open_sum):
+def test_pair_variant_matches_plain(cuda_device, t_dim, rows, d_in, open_sum, dtype):
     """The streaming body of the two-electron layers against the plain
-    version, within 1e-5 of each output's scale (f32 sums in another order)."""
+    version: in float32 within 1e-5 of each output's scale (f32 sums in
+    another order), in float64 (the pair body in double) within 1e-10, and
+    equal bit for bit to the general body in double on the same inputs
+    (the same sums in the same order), and to a second launch."""
     assert tjk.pair_body(d_in, 32, mixed=False)
     rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(7), cuda_device)
-    case = (rnd(rows, d_in), rnd(t_dim, rows, d_in), rnd(rows, d_in),
-            rnd(d_in, 32) / d_in**0.5, rnd(32))
+    case = tuple(x.to(dtype) for x in (
+        rnd(rows, d_in), rnd(t_dim, rows, d_in), rnd(rows, d_in),
+        rnd(d_in, 32) / d_in**0.5, rnd(32)))
+    f64 = dtype == torch.float64
     name = "fused_dense_tanh_jet" + ("_partial" if open_sum else "")
     before = tjk.LAUNCHES[name]
-    key = (name, (t_dim, rows, d_in, 32), "pair")
+    key = (name, (t_dim, rows, d_in, 32), "pair, float64" if f64 else "pair")
     shape_before = tjk.SHAPES[key]
     got = getattr(tjk, name)(*case)
     torch.cuda.synchronize()
@@ -181,10 +189,25 @@ def test_pair_variant_matches_plain(cuda_device, t_dim, rows, d_in, open_sum):
     assert tjk.SHAPES[key] == shape_before + 1
     want = getattr(tjk, name + "_plain")(*case)
     assert len(got) == len(want) == (4 if open_sum else 3)
+    tol = 1e-10 if f64 else 1e-5
     for x, y in zip(got, want):
-        assert x.shape == y.shape
+        assert x.shape == y.shape and x.dtype == dtype
         if y.numel():
-            assert float((x - y).abs().max()) <= 1e-5 * max(float(y.abs().max()), 1.0)
+            assert float((x - y).abs().max()) <= tol * max(float(y.abs().max()), 1.0)
+    if f64:
+        general = _general_f64(case, open_sum)
+        for x, y, z in zip(got, general, getattr(tjk, name)(*case)):
+            assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def _general_f64(case, open_sum):
+    """The general body in double on a plain-rule float64 jet: the f64
+    entry called with slices 0, as the wrapper called it before the pair
+    body in double; (val_o, jac_o, lap_o[, sq_o])."""
+    general = tk.jet_launcher(tjk._lib(), 0, *case, None, open_sum)
+    general()
+    torch.cuda.synchronize()
+    return general.outputs
 
 
 # ---- the open ("partial") forms: tangent sum left to the caller -------------
@@ -373,7 +396,7 @@ def test_gj_complex128_edge_matrices(cuda_device, n, case):
 @pytest.mark.parametrize("open_sum", [False, True], ids=["closed", "open"])
 @pytest.mark.parametrize("mixed", [False, True], ids=["plain", "mix"])
 @pytest.mark.parametrize("t_dim,groups,n,d_in,d_out", [
-    (6, 3, 300, 32, 32),    # a pair shape (the pair body in float32)
+    (6, 3, 300, 32, 32),    # a pair shape (the pair body in double, plain rule)
     (9, 3, 10, 20, 40),     # general in float32 too
     (50, 5, 77, 320, 256),  # a wide shape, ragged rows and tangents
     (0, 2, 7, 4, 32),       # no tangent at all
@@ -381,9 +404,10 @@ def test_gj_complex128_edge_matrices(cuda_device, n, case):
 def test_jet_float64_body_matches_plain(cuda_device, t_dim, groups, n, d_in,
                                         d_out, mixed, open_sum):
     """Every rule and form at float64 takes the body its shape names (the
-    general body in double, or the wide one on the FP64 tensor cores at the
-    256-wide shape), against its float64 plain version, and two launches
-    agree bit for bit."""
+    pair body in double at the plain rule's pair shapes, the wide one on
+    the FP64 tensor cores at the 256-wide shape, the general body in double
+    elsewhere), against its float64 plain version, and two launches agree
+    bit for bit."""
     _jet_float64_case(cuda_device, t_dim, groups, n, d_in, d_out, mixed, open_sum)
 
 
@@ -426,8 +450,10 @@ def _jet_float64_case(cuda_device, t_dim, groups, n, d_in, d_out, mixed, open_su
     label = tjk.variant_label(tjk.kernel_variant(
         t_dim, groups * n, d_in, d_out, mixed, sms, torch.float64), torch.float64)
     assert label.endswith("float64") or label.startswith("wide, float64")
+    pair = tjk.pair_body(d_in, d_out, mixed)
+    assert (label == "pair, float64") is pair
     assert (label == "general, float64") == (
-        tjk.wide_slices_f64(t_dim, groups * n, d_in, d_out, sms) == 0)
+        not pair and tjk.wide_slices_f64(t_dim, groups * n, d_in, d_out, sms) == 0)
     key = (name, (t_dim, groups * n, d_in, d_out), label)
     before, shape_before = tjk.LAUNCHES[name], tjk.SHAPES[key]
     got = getattr(tjk, name)(*args)

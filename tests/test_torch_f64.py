@@ -199,8 +199,8 @@ def test_gj_wrapper_asks_the_c128_rule_for_complex128(monkeypatch):
 
 
 @pytest.mark.parametrize("shape,mixed,label", [
-    ((6, 64 * 96 * 96, 4, 32), False, "general, float64"),   # B2's pair shape:
-    ((3, 64 * 96 * 96, 32, 32), False, "general, float64"),  # pair in float32
+    ((6, 64 * 96 * 96, 4, 32), False, "pair, float64"),      # B2's pair shape
+    ((3, 64 * 96 * 96, 32, 32), False, "pair, float64"),     # B4a's, open
     ((288, 6144, 320, 256), True, "wide, float64, 1 tangent slices"),  # B3
     ((288, 6144, 16, 256), True, "wide, float64, 1 tangent slices"),
     ((144, 6144, 16, 256), True, "wide, float64, 1 tangent slices"),   # B4b
@@ -209,12 +209,16 @@ def test_gj_wrapper_asks_the_c128_rule_for_complex128(monkeypatch):
     ((9, 30, 20, 40), True, "general, float64"),              # general in float32 too
 ])
 def test_jet_float64_launches_name_the_float64_body(shape, mixed, label):
-    """The 256-wide layers take the float64 wide body with the slice count
-    its chooser gives, every other shape the general body in double."""
+    """The two-electron layers take the pair body in double, the 256-wide
+    layers the float64 wide body with the slice count its chooser gives,
+    every other shape the general body in double."""
     t_dim, rows, d_in, d_out = shape
     got = tjk.kernel_variant(t_dim, rows, d_in, d_out, mixed, 132, torch.float64)
     wide = tjk.wide_slices_f64(t_dim, rows, d_in, d_out, 132)
-    assert got == (wide if wide else tjk.FLOAT64)
+    if tjk.pair_body(d_in, d_out, mixed):
+        assert got == tjk.PAIR
+    else:
+        assert got == (wide if wide else tjk.FLOAT64)
     assert tjk.variant_label(got, torch.float64) == label
     # float32 is chosen as before, by shape alone
     assert tjk.kernel_variant(t_dim, rows, d_in, d_out, mixed, 132) == \
@@ -290,10 +294,106 @@ def test_jet_float64_entry_follows_the_source():
         assert kinds == ["ptr"] * 13 + ["int"] * 7 + ["ptr"]
         _, argtypes = tjk._SIGNATURES[entry]
         assert len(argtypes) == len(params)
-    assert "if (slices < 0) return static_cast<int>(cudaErrorInvalidValue);" in text
+    # slices < 0 is the pair body in either entry: the same shape check, and
+    # launch_pair instantiated for both d_in, deducing float or double
+    f64_entry = text[text.index("int dense_tanh_jet_launch_f64("):]
+    for entry_text in (text[text.index("int dense_tanh_jet_launch("):], f64_entry):
+        branch = entry_text[entry_text.index("if (slices < 0) {"):]
+        branch = branch[:branch.index("if (slices > 0)")]
+        assert "C != kPC || (K != 4 && K != 32)" in branch
+        assert "return static_cast<int>(cudaErrorInvalidValue);" in branch
+        assert "launch_pair<4>(v, l, jc, wp, bp, vo, lo, jo, so, T, R, st)" in branch
+        assert "launch_pair<32>(v, l, jc, wp, bp, vo, lo, jo, so, T, R, st)" in branch
+    assert "const auto* v = static_cast<const double*>(val);" in f64_entry
+    assert "struct PairBody<K, double>" in text and "dense_tanh_jet_pair_double_kernel<K, true>" in text
     assert "template <int TN, bool MIX, bool OPEN, typename S>" in text
     assert "double fma_s(double a, double b, double c) {\n  return fma(a, b, c);" in text
     assert "double tanh_s(double x) { return tanh(x); }" in text
+
+
+@pytest.mark.parametrize("d_in,d_out,mixed,pair", [
+    (4, 32, False, True),     # the first two-electron layer
+    (32, 32, False, True),    # the second
+    (4, 32, True, False),     # the mix rule has no pair body
+    (32, 32, True, False),
+    (8, 32, False, False),    # d_in neither 4 nor 32
+    (16, 32, False, False),
+    (32, 64, False, False),   # d_out off the pair width: wide in double
+    (32, 40, False, False),   # general in double
+    (4, 16, False, False),
+])
+def test_jet_float64_pair_body_is_chosen_by_shape(d_in, d_out, mixed, pair):
+    """Which (d_in, d_out, rule) take the pair body in double, whatever T
+    and rows: the float32 pair body's shapes, the same rule. Every other
+    shape falls to the wide body in double or the general one."""
+    assert tjk.pair_body(d_in, d_out, mixed) is pair
+    for t_dim, rows in ((6, 64 * 96 * 96), (6, 16 * 162 * 162), (3, 32 * 96 * 96),
+                        (3, 333), (0, 5)):
+        got = tjk.kernel_variant(t_dim, rows, d_in, d_out, mixed, 132, torch.float64)
+        assert (got == tjk.PAIR) is pair
+        assert (tjk.variant_label(got, torch.float64) == "pair, float64") is pair
+        assert (got == tjk.PAIR) == (
+            tjk.kernel_variant(t_dim, rows, d_in, d_out, mixed, 132) == tjk.PAIR)
+        if not pair:
+            wide = tjk.wide_slices_f64(t_dim, rows, d_in, d_out, 132)
+            assert got == (wide if wide else tjk.FLOAT64)
+
+
+def test_jet_float64_pair_constants_match_the_source():
+    """The pair body in double's tile, ring and shared memory as
+    csrc/dense_tanh_jet.cu states them: 16-row warp tiles, the float32
+    body's six warps, three ring stages of rows of d_in + 2 doubles (d_in 4:
+    no padding) and no staging tile, and two blocks with the 1 KB the
+    system keeps per block within an SM's 228 KB at both widths."""
+    text = (build.CSRC / "dense_tanh_jet.cu").read_text()
+    assert "constexpr int kPRowsD = 16;" in text and "constexpr int kPRows = 32;" in text
+    assert "constexpr int kPWarps = 6;" in text and "constexpr int kPStagesD = 3;" in text
+    assert "static constexpr int kStride = K == 4 ? 4 : K + 2;" in text
+    assert "static constexpr int kWarpDoubles = kPStagesD * kStage;" in text
+    assert "static_assert(2 * (PairTileD<32>::kSmem + 1024) <= 228 * 1024" in text
+
+    def block(d_in):  # w and b, then per warp the ring
+        stride = 4 if d_in == 4 else d_in + 2
+        return 8 * ((d_in + 1) * 32 + 6 * 3 * 16 * stride)
+
+    assert block(32) == 86784 and "86,784 B at d_in 32" in text
+    for d_in in tjk.PAIR_D_IN:
+        assert 2 * (block(d_in) + 1024) <= 228 * 1024
+        # ring rows and each warp's ring stay 16-byte aligned
+        stride = 4 if d_in == 4 else d_in + 2
+        assert (8 * stride) % 16 == 0 and (8 * 3 * 16 * stride) % 16 == 0
+    # a lane's rows rg + 4 i at one k: for fixed i the warp's four row
+    # groups read consecutive rows, four 16-byte loads on disjoint banks
+    stride = 32 + 2
+    banks = sorted(((rg * stride * 8) % 128) // 4 + q for rg in range(4) for q in range(4))
+    assert banks == list(range(16))
+
+
+def test_pair_variants_differ_from_the_source_in_the_pair_body_in_double():
+    """time_pair_variants' variants are csrc/dense_tanh_jet.cu with
+    dense_tanh_jet_pair_double_kernel (and its tile) changed and nothing
+    before it; the timed shapes are the float64 pair shapes of
+    time_kernels, which the chooser gives the pair body."""
+    from deepsolid_tpu_torch.ops.cuda import time_kernels as tk
+    from deepsolid_tpu_torch.ops.cuda import time_pair_variants as tp
+
+    text = (build.CSRC / "dense_tanh_jet.cu").read_text()
+    cut = text.index("constexpr int kPStagesD = 3;")
+    got = tp.variants()
+    assert sorted(got) == ["current", "no_fma", "staged", "stages4"]
+    assert got["current"] == text
+    for name, src in got.items():
+        assert src[:cut] == text[:cut]
+        assert (src == text) is (name == "current")
+    assert "double* out_s = ring + kPStagesD * Tile::kStage;" in got["staged"]
+    pair = [s for s in tk.JET_SHAPES_F64 if tjk.pair_body(s[2], s[3], s[4])]
+    assert [(t, r, k, o) for t, r, k, _, _, o, _ in pair] == [
+        (6, 64 * 96 * 96, 4, False), (6, 64 * 96 * 96, 32, False),
+        (6, 16 * 162 * 162, 4, False), (6, 16 * 162 * 162, 32, False),
+        (6, 128 * 28 * 28, 4, False), (6, 128 * 28 * 28, 32, False),
+        (3, 32 * 96 * 96, 4, True), (3, 32 * 96 * 96, 32, True)]
+    for t, r, k, c, mixed, _, _ in pair:
+        assert tjk.kernel_variant(t, r, k, c, mixed, 132, torch.float64) == tjk.PAIR
 
 
 class _Face:
