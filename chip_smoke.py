@@ -220,6 +220,7 @@ kernels line and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -954,18 +955,26 @@ def reset_launches():
     from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
     from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
 
-    for counts in (dk.LAUNCHES, jk.LAUNCHES):
-        for key in counts:
-            counts[key] = 0
     dk.SHAPES.clear()
     jk.SHAPES.clear()
 
 
+# every kernel the two wrappers launch, so each reading names all of them
+KERNELS = ("gj_inverse_slogdet", "fused_dense_tanh_jet", "fused_dense_tanh_jet_mix",
+           "fused_dense_tanh_jet_partial", "fused_dense_tanh_jet_mix_partial")
+
+
 def read_launches():
+    """Launches by kernel since reset_launches, every kernel of KERNELS
+    present (0 for one that has not launched): the wrappers' SHAPES summed
+    over shapes and bodies."""
     from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
     from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
 
-    return {**dk.LAUNCHES, **jk.LAUNCHES}
+    counts = collections.Counter(dict.fromkeys(KERNELS, 0))
+    for (kernel, _, _), count in (dk.SHAPES + jk.SHAPES).items():
+        counts[kernel] += count
+    return counts
 
 
 @contextlib.contextmanager
@@ -3622,7 +3631,7 @@ def float64_phase(dev, source, main, north_star, systems, f32_reference, gen):
     # the kernel rows, each with the float64 path's launches at its shapes
     rows = float64_kernel_rows(dev, gen, el_chunk,
                                ((BATCH * 8 // n_psi, 48), (el_chunk * 8, 48)))
-    path = {"launches": {k: inf_launches[k] + kfac["launches"][k] for k in inf_launches},
+    path = {"launches": {k: inf_launches[k] + kfac["launches"][k] for k in KERNELS},
             "launch_shapes": inf_shapes + kfac["launch_shapes"]}
     for r in ranks[:1]:
         for k in ("fused_dense_tanh_jet_partial", "fused_dense_tanh_jet_mix_partial"):
@@ -3814,7 +3823,7 @@ def si_float64(dev, f32):
                     and float64_run_ok(kfac, want["kfac"], n, F64_SYSTEM_KFAC_ITERATIONS))
     # what the kernel rows read: both runs' launches
     result["launches"] = {k: inference["launches"][k] + kfac["launches"][k]
-                          for k in kfac["launches"]}
+                          for k in KERNELS}
     result["launch_shapes"] = inference["launch_shapes"] + kfac["launch_shapes"]
     return result
 

@@ -12,6 +12,7 @@ import torch
 from deepsolid_tpu_torch.models.fwdlap_forward import make_kinetic_forward
 from deepsolid_tpu_torch.ops.ewald import EwaldSum
 from deepsolid_tpu_torch.ops.laplacian import make_kinetic
+from deepsolid_tpu_torch.utils import profiling
 
 
 def make_local_energy(network, supercell, mode: str = "forward",
@@ -33,8 +34,10 @@ def make_local_energy(network, supercell, mode: str = "forward",
     ewald = EwaldSum.build(supercell)
 
     def local_energy(params, x) -> Tuple[torch.Tensor, torch.Tensor]:
-        ke = kinetic(params, x)
-        ee, ei, ii = ewald.energy(x)
-        return ke, ee + ei + ii
+        with profiling.annotate("el.kinetic"):
+            ke = kinetic(params, x)
+        with profiling.annotate("el.ewald"):
+            ee, ei, ii = ewald.energy(x)
+            return ke, ee + ei + ii
 
     return local_energy

@@ -23,6 +23,7 @@ from deepsolid_tpu_torch.models import features as features_lib
 from deepsolid_tpu_torch.models.network import NetworkConfig, SystemSpec
 from deepsolid_tpu_torch.ops import fwdlap as fl
 from deepsolid_tpu_torch.ops.distance import enforce_pbc
+from deepsolid_tpu_torch.utils import profiling
 
 
 _ORB_SCAN_ENV = "DEEPSOLID_TPU_ORB_SCAN"
@@ -112,113 +113,115 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
     pair-sparse two-electron jets (6 tangents) and the per-electron
     envelope jets (3) stay rank-local.
     """
-    dtype, dev = x.dtype, x.device
-    spins = spec.spins
-    n = spec.nelectron
-    batch = x.shape[0]
-    pos = x.reshape(batch, n, 3)
+    # the trunk: features, layers, residuals, the orbital head's input
+    with profiling.annotate("el.trunk"):
+        dtype, dev = x.dtype, x.device
+        spins = spec.spins
+        n = spec.nelectron
+        batch = x.shape[0]
+        pos = x.reshape(batch, n, 3)
 
-    atoms = constant(spec.atoms, x)
-    natom = atoms.shape[0]
-    rel = features_lib.REL_DIMS[cfg.distance_type]
-    dist_fn = features_lib.DISTANCE_FNS[cfg.distance_type]
-    jet_fn = features_lib.DISTANCE_JET_FNS[cfg.distance_type]
-    width = natom * (rel + 1)
+        atoms = constant(spec.atoms, x)
+        natom = atoms.shape[0]
+        rel = features_lib.REL_DIMS[cfg.distance_type]
+        dist_fn = features_lib.DISTANCE_FNS[cfg.distance_type]
+        jet_fn = features_lib.DISTANCE_JET_FNS[cfg.distance_type]
+        width = natom * (rel + 1)
 
-    # ---- electron-atom features: analytic per-electron jets -----------------
-    prim_x, _ = enforce_pbc(spec.prim_lattice, x)
-    ae_disp = prim_x.reshape(batch, n, 1, 3) - atoms
-    sd, dsd, lap_sd, rl, drl, lap_rl = jet_fn(ae_disp, spec.prim_av, spec.prim_bv)
-    ae_jac = torch.cat([dsd[..., None], drl], dim=-1)  # (B, n, natom, 3, rel+1)
-    ae_jac = ae_jac.movedim(3, 0).reshape(3, batch, n, width)
-    h_one = fl.Jet(
-        val=torch.cat([sd[..., None], rl], dim=-1).reshape(batch, n, width),
-        jac=_slice_tangents(fl.dense_from_electron_rows(ae_jac), shard),
-        lap=torch.cat([lap_sd[..., None], lap_rl], dim=-1).reshape(batch, n, width),
-    )
+        # ---- electron-atom features: analytic per-electron jets -----------------
+        prim_x, _ = enforce_pbc(spec.prim_lattice, x)
+        ae_disp = prim_x.reshape(batch, n, 1, 3) - atoms
+        sd, dsd, lap_sd, rl, drl, lap_rl = jet_fn(ae_disp, spec.prim_av, spec.prim_bv)
+        ae_jac = torch.cat([dsd[..., None], drl], dim=-1)  # (B, n, natom, 3, rel+1)
+        ae_jac = ae_jac.movedim(3, 0).reshape(3, batch, n, width)
+        h_one = fl.Jet(
+            val=torch.cat([sd[..., None], rl], dim=-1).reshape(batch, n, width),
+            jac=_slice_tangents(fl.dense_from_electron_rows(ae_jac), shard),
+            lap=torch.cat([lap_sd[..., None], lap_rl], dim=-1).reshape(batch, n, width),
+        )
 
-    # ---- electron-electron features: analytic pair-sparse jets -------------
-    sim_x, _ = enforce_pbc(spec.sim_lattice, x)
-    sim_pos = sim_x.reshape(batch, n, 3)
-    eye = torch.eye(n, dtype=dtype, device=dev)
-    u = sim_pos[:, :, None, :] - sim_pos[:, None, :, :] + eye[..., None]
-    sd, dsd, lap_sd, rl, drl, lap_rl = jet_fn(u, spec.sim_av, spec.sim_bv)
-    ee_jac = torch.cat([dsd[..., None], drl], dim=-1).movedim(3, 0)  # wrt u
-    mask = (1.0 - eye)[..., None]
-    h_two = fl.Jet(
-        val=torch.cat([sd[..., None], rl], dim=-1) * mask,
-        jac=torch.cat([ee_jac, -ee_jac], dim=0) * mask,
-        # Lap_{r_i} + Lap_{r_j} = 2 Lap_u
-        lap=2.0 * torch.cat([lap_sd[..., None], lap_rl], dim=-1) * mask,
-    )
+        # ---- electron-electron features: analytic pair-sparse jets -------------
+        sim_x, _ = enforce_pbc(spec.sim_lattice, x)
+        sim_pos = sim_x.reshape(batch, n, 3)
+        eye = torch.eye(n, dtype=dtype, device=dev)
+        u = sim_pos[:, :, None, :] - sim_pos[:, None, :, :] + eye[..., None]
+        sd, dsd, lap_sd, rl, drl, lap_rl = jet_fn(u, spec.sim_av, spec.sim_bv)
+        ee_jac = torch.cat([dsd[..., None], drl], dim=-1).movedim(3, 0)  # wrt u
+        mask = (1.0 - eye)[..., None]
+        h_two = fl.Jet(
+            val=torch.cat([sd[..., None], rl], dim=-1) * mask,
+            jac=torch.cat([ee_jac, -ee_jac], dim=0) * mask,
+            # Lap_{r_i} + Lap_{r_j} = 2 Lap_u
+            lap=2.0 * torch.cat([lap_sd[..., None], lap_rl], dim=-1) * mask,
+        )
 
-    ranges = _channel_ranges(spins)
+        ranges = _channel_ranges(spins)
 
-    # ---- symmetric feature mixing ---------------------------------------------
-    # [h1 | mean_ch(h1) | mean_ch(h2)] is kept as a row-varying jet (h1 and
-    # the pair means) plus a row-constant jet (the per-channel h1 means);
-    # weight rows split the same way: w_rv = [w[:f1]; w[f1 (1+nch):]],
-    # w_rc = w[f1 : f1 (1+nch)].
-    def symmetric_split_parts(h1: fl.Jet, h2: fl.Jet):
-        rc_parts = [fl.mean_axis(fl.slice_axis(h1, 1, s, e), axis=1, keepdims=True)
-                    for (s, e) in ranges]
-        rv_parts = [h1]
-        for (s, e) in ranges:
-            rv_parts.append(fl.Jet(
-                val=torch.mean(h2.val[:, s:e], dim=1),
-                jac=_slice_tangents(fl.dense_row_mean_from_pairs(h2.jac, s, e),
-                                    shard),
-                lap=torch.mean(h2.lap[:, s:e], dim=1),
-            ))
-        return rv_parts, fl.concat(rc_parts, axis=-1)
+        # ---- symmetric feature mixing ---------------------------------------------
+        # [h1 | mean_ch(h1) | mean_ch(h2)] is kept as a row-varying jet (h1 and
+        # the pair means) plus a row-constant jet (the per-channel h1 means);
+        # weight rows split the same way: w_rv = [w[:f1]; w[f1 (1+nch):]],
+        # w_rc = w[f1 : f1 (1+nch)].
+        def symmetric_split_parts(h1: fl.Jet, h2: fl.Jet):
+            rc_parts = [fl.mean_axis(fl.slice_axis(h1, 1, s, e), axis=1, keepdims=True)
+                        for (s, e) in ranges]
+            rv_parts = [h1]
+            for (s, e) in ranges:
+                rv_parts.append(fl.Jet(
+                    val=torch.mean(h2.val[:, s:e], dim=1),
+                    jac=_slice_tangents(fl.dense_row_mean_from_pairs(h2.jac, s, e),
+                                        shard),
+                    lap=torch.mean(h2.lap[:, s:e], dim=1),
+                ))
+            return rv_parts, fl.concat(rc_parts, axis=-1)
 
-    def symmetric_split(h1: fl.Jet, h2: fl.Jet):
-        rv_parts, rc = symmetric_split_parts(h1, h2)
-        return fl.concat(rv_parts, axis=-1), rc
+        def symmetric_split(h1: fl.Jet, h2: fl.Jet):
+            rv_parts, rc = symmetric_split_parts(h1, h2)
+            return fl.concat(rv_parts, axis=-1), rc
 
-    def split_w(w, f1):
-        nch = len(ranges)
-        return torch.cat([w[:f1], w[f1 * (1 + nch):]], dim=0), w[f1:f1 * (1 + nch)]
+        def split_w(w, f1):
+            nch = len(ranges)
+            return torch.cat([w[:f1], w[f1 * (1 + nch):]], dim=0), w[f1:f1 * (1 + nch)]
 
-    inv_sqrt2 = float(2.0 ** -0.5)
+        inv_sqrt2 = float(2.0 ** -0.5)
 
-    def residual(old: fl.Jet, new: fl.Jet) -> fl.Jet:
-        if old.val.shape == new.val.shape:
-            return fl.scale(fl.add(old, new), inv_sqrt2)
-        return new
+        def residual(old: fl.Jet, new: fl.Jet) -> fl.Jet:
+            if old.val.shape == new.val.shape:
+                return fl.scale(fl.add(old, new), inv_sqrt2)
+            return new
 
-    n_double = len(params["double"])
-    for i in range(n_double):
-        f1 = h_one.val.shape[-1]
-        h_rv, h_rc = symmetric_split(h_one, h_two)
-        p1 = params["single"][i]
-        w_rv, w_rc = split_w(p1["w"], f1)
-        h_one_next = fl.dense_tanh_mix(h_rv, h_rc, w_rv, w_rc, p1.get("b"),
-                                       shard=shard)
-        p2 = params["double"][i]
-        h_two_next = fl.dense_tanh(h_two, p2["w"], p2.get("b"))
-        h_one = residual(h_one, h_one_next)
-        h_two = residual(h_two, h_two_next)
+        n_double = len(params["double"])
+        for i in range(n_double):
+            f1 = h_one.val.shape[-1]
+            h_rv, h_rc = symmetric_split(h_one, h_two)
+            p1 = params["single"][i]
+            w_rv, w_rc = split_w(p1["w"], f1)
+            h_one_next = fl.dense_tanh_mix(h_rv, h_rc, w_rv, w_rc, p1.get("b"),
+                                           shard=shard)
+            p2 = params["double"][i]
+            h_two_next = fl.dense_tanh(h_two, p2["w"], p2.get("b"))
+            h_one = residual(h_one, h_one_next)
+            h_two = residual(h_two, h_two_next)
 
-    if n_double != len(params["single"]):
-        f1 = h_one.val.shape[-1]
-        h_rv, h_rc = symmetric_split(h_one, h_two)
-        p1 = params["single"][-1]
-        w_rv, w_rc = split_w(p1["w"], f1)
-        h_one = residual(h_one, fl.dense_tanh_mix(h_rv, h_rc, w_rv, w_rc,
-                                                  p1.get("b"), shard=shard))
-        orb_parts, h_orb_rc, f1_orb = [h_one], None, None
-    else:
-        f1_orb = h_one.val.shape[-1]
-        orb_parts, h_orb_rc = symmetric_split_parts(h_one, h_two)
+        if n_double != len(params["single"]):
+            f1 = h_one.val.shape[-1]
+            h_rv, h_rc = symmetric_split(h_one, h_two)
+            p1 = params["single"][-1]
+            w_rv, w_rc = split_w(p1["w"], f1)
+            h_one = residual(h_one, fl.dense_tanh_mix(h_rv, h_rc, w_rv, w_rc,
+                                                      p1.get("b"), shard=shard))
+            orb_parts, h_orb_rc, f1_orb = [h_one], None, None
+        else:
+            f1_orb = h_one.val.shape[-1]
+            orb_parts, h_orb_rc = symmetric_split_parts(h_one, h_two)
 
-    use_scan = _use_orb_scan()
-    if use_scan:
-        h_orb_rv = fl.concat([_jet0(p) for p in orb_parts], axis=-1)
-        rc0 = None if h_orb_rc is None else _jet0(h_orb_rc)
-    else:
-        h_orb_rv = orb_parts[0] if len(orb_parts) == 1 else fl.concat(orb_parts, axis=-1)
-        rc0 = h_orb_rc
+        use_scan = _use_orb_scan()
+        if use_scan:
+            h_orb_rv = fl.concat([_jet0(p) for p in orb_parts], axis=-1)
+            rc0 = None if h_orb_rc is None else _jet0(h_orb_rc)
+        else:
+            h_orb_rv = orb_parts[0] if len(orb_parts) == 1 else fl.concat(orb_parts, axis=-1)
+            rc0 = h_orb_rc
 
     # ---- orbital heads ----------------------------------------------------------
     envelope_fn = envelopes_lib.ENVELOPES[cfg.envelope_type]
@@ -228,87 +231,90 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
     channel_jets = []
     scan_ing = []  # per-channel ingredients of the tangent-chunk scan
     for ch, (s, e) in enumerate(ranges):
-        spin = e - s
-        w_orb = params["orbital"][ch]["w"]
-        b_orb = params["orbital"][ch].get("b")
-        rows = fl.slice_axis(h_orb_rv, 1, s, e)
-        if h_orb_rc is None:
-            raw = fl.dense(rows, w_orb, b_orb)
-            w_rv = w_orb
-        else:
-            w_rv, w_rc = split_w(w_orb, f1_orb)
-            raw = fl.dense_mix(rows, rc0, w_rv, w_rc, b_orb)
-        nparam = raw.val.shape[-1] // 2
-        orb = fl.complexify(fl.slice_axis(raw, -1, 0, nparam),
-                            fl.slice_axis(raw, -1, nparam, 2 * nparam))
+        with profiling.annotate("el.orbitals", ch):
+            spin = e - s
+            w_orb = params["orbital"][ch]["w"]
+            b_orb = params["orbital"][ch].get("b")
+            rows = fl.slice_axis(h_orb_rv, 1, s, e)
+            if h_orb_rc is None:
+                raw = fl.dense(rows, w_orb, b_orb)
+                w_rv = w_orb
+            else:
+                w_rv, w_rc = split_w(w_orb, f1_orb)
+                raw = fl.dense_mix(rows, rc0, w_rv, w_rc, b_orb)
+            nparam = raw.val.shape[-1] // 2
+            orb = fl.complexify(fl.slice_axis(raw, -1, 0, nparam),
+                                fl.slice_axis(raw, -1, nparam, 2 * nparam))
+            norb = sum(spins) if cfg.full_det else spin
+            ndet = cfg.determinants
+            # (B, spin, ndet*norb) -> (B, ndet, spin, norb) on every component
+            orb = fl.linear_op(
+                lambda v: v.unflatten(-1, (ndet, norb)).transpose(-3, -2), orb)
 
-        env_params = params["envelope"][ch]
-        if cfg.envelope_type == "isotropic":
-            envr = _isotropic_envelope_jet(pos[:, s:e], env_params, spec, cfg, atoms)
-        else:
-            def env_fn(r, env_params=env_params):
-                pr, _ = enforce_pbc(spec.prim_lattice, r)
-                _, rl_ = dist_fn(pr[..., None, :] - atoms, prim_av, prim_bv)
-                return envelope_fn(rl_, env_params)  # (..., nparam)
+        with profiling.annotate("el.det_head", ch):
+            env_params = params["envelope"][ch]
+            if cfg.envelope_type == "isotropic":
+                envr = _isotropic_envelope_jet(pos[:, s:e], env_params, spec, cfg, atoms)
+            else:
+                def env_fn(r, env_params=env_params):
+                    pr, _ = enforce_pbc(spec.prim_lattice, r)
+                    _, rl_ = dist_fn(pr[..., None, :] - atoms, prim_av, prim_bv)
+                    return envelope_fn(rl_, env_params)  # (..., nparam)
 
-            envr = fl.jet_of_function(env_fn, pos[:, s:e])  # jac (3, B, spin, nparam)
+                envr = fl.jet_of_function(env_fn, pos[:, s:e])  # jac (3, B, spin, nparam)
 
-        norb = sum(spins) if cfg.full_det else spin
-        ndet = cfg.determinants
-        # (B, spin, ndet*norb) -> (B, ndet, spin, norb) on every component
-        orb = fl.linear_op(
-            lambda v: v.unflatten(-1, (ndet, norb)).transpose(-3, -2), orb)
+            # Bloch phases: analytic per-electron jets (B, spin, norb)
+            kcol = torch.cat(klist, dim=0) if cfg.full_det else klist[ch]
+            phase_val = torch.exp(1j * (pos[:, s:e] @ kcol.T))
+            phase_jac3 = 1j * kcol.T[:, None, None, :] * phase_val  # (3, B, spin, norb)
+            phase_lap = -torch.sum(kcol**2, dim=-1) * phase_val
 
-        # Bloch phases: analytic per-electron jets (B, spin, norb)
-        kcol = torch.cat(klist, dim=0) if cfg.full_det else klist[ch]
-        phase_val = torch.exp(1j * (pos[:, s:e] @ kcol.T))
-        phase_jac3 = 1j * kcol.T[:, None, None, :] * phase_val  # (3, B, spin, norb)
-        phase_lap = -torch.sum(kcol**2, dim=-1) * phase_val
+            # envelope * phase: a row-local factor, multiplied into the
+            # orbital jet by fl.mul_row in one pass over the tangent stream
+            env_val = envr.val.unflatten(-1, (ndet, norb))
+            env_jac3 = envr.jac.unflatten(-1, (ndet, norb))  # (3, B, spin, ndet, norb)
+            env_lap = envr.lap.unflatten(-1, (ndet, norb))
+            pv = phase_val[:, :, None, :]
+            pj = phase_jac3[:, :, :, None, :]
+            ep_val = env_val * pv
+            ep_jac3 = env_jac3 * pv + env_val * pj
+            ep_lap = (env_lap * pv + 2.0 * torch.sum(env_jac3 * pj, dim=0)
+                      + env_val * phase_lap[:, :, None, :])
+            ep_val_sw = ep_val.transpose(1, 2)     # (B, ndet, spin, norb)
+            ep_jac3_sw = ep_jac3.transpose(2, 3)   # (3, B, ndet, spin, norb)
+            orb_val0 = orb.val
+            orb = fl.mul_row(orb, ep_val_sw, ep_jac3_sw, ep_lap.transpose(1, 2),
+                             n_total=n, offset=s, shard=shard)
+            channel_jets.append(orb)
+            if use_scan:
+                offs = [0]
+                for p in orb_parts:
+                    offs.append(offs[-1] + p.val.shape[-1])
+                scan_ing.append(dict(
+                    s=s, spin=spin, ndet=ndet, norb=norb, nparam=nparam,
+                    w_parts=[w_rv[offs[i]:offs[i + 1]] for i in range(len(orb_parts))],
+                    # the row-constant block's tangents, (T_loc, B, d_out)
+                    jbc=None if h_orb_rc is None else (h_orb_rc.jac @ w_rc)[:, :, 0],
+                    ep_val_sw=ep_val_sw, ep_jac3_sw=ep_jac3_sw, orb_val0=orb_val0))
 
-        # envelope * phase: a row-local factor, multiplied into the
-        # orbital jet by fl.mul_row in one pass over the tangent stream
-        env_val = envr.val.unflatten(-1, (ndet, norb))
-        env_jac3 = envr.jac.unflatten(-1, (ndet, norb))  # (3, B, spin, ndet, norb)
-        env_lap = envr.lap.unflatten(-1, (ndet, norb))
-        pv = phase_val[:, :, None, :]
-        pj = phase_jac3[:, :, :, None, :]
-        ep_val = env_val * pv
-        ep_jac3 = env_jac3 * pv + env_val * pj
-        ep_lap = (env_lap * pv + 2.0 * torch.sum(env_jac3 * pj, dim=0)
-                  + env_val * phase_lap[:, :, None, :])
-        ep_val_sw = ep_val.transpose(1, 2)     # (B, ndet, spin, norb)
-        ep_jac3_sw = ep_jac3.transpose(2, 3)   # (3, B, ndet, spin, norb)
-        orb_val0 = orb.val
-        orb = fl.mul_row(orb, ep_val_sw, ep_jac3_sw, ep_lap.transpose(1, 2),
-                         n_total=n, offset=s, shard=shard)
-        channel_jets.append(orb)
+    # the rest of the det head: the determinants and their sum
+    with profiling.annotate("el.det_head"):
+        mats = [fl.concat(channel_jets, axis=2)] if cfg.full_det else channel_jets
+
         if use_scan:
-            offs = [0]
-            for p in orb_parts:
-                offs.append(offs[-1] + p.val.shape[-1])
-            scan_ing.append(dict(
-                s=s, spin=spin, ndet=ndet, norb=norb, nparam=nparam,
-                w_parts=[w_rv[offs[i]:offs[i + 1]] for i in range(len(orb_parts))],
-                # the row-constant block's tangents, (T_loc, B, d_out)
-                jbc=None if h_orb_rc is None else (h_orb_rc.jac @ w_rc)[:, :, 0],
-                ep_val_sw=ep_val_sw, ep_jac3_sw=ep_jac3_sw, orb_val0=orb_val0))
+            sign_total, l_total = _orbital_det_scan(mats, scan_ing, orb_parts,
+                                                    cfg.full_det, shard)
+            return fl.logsumexp_det_jet(sign_total, l_total, shard=shard)
 
-    mats = [fl.concat(channel_jets, axis=2)] if cfg.full_det else channel_jets
-
-    if use_scan:
-        sign_total, l_total = _orbital_det_scan(mats, scan_ing, orb_parts,
-                                                cfg.full_det, shard)
+        sign_total, l_total = None, None
+        for mat in mats:
+            sign, l = fl.slogdet_jet(mat, shard=shard)
+            if l_total is None:
+                sign_total, l_total = sign, l
+            else:
+                sign_total = sign_total * sign
+                l_total = fl.add(l_total, l)
         return fl.logsumexp_det_jet(sign_total, l_total, shard=shard)
-
-    sign_total, l_total = None, None
-    for mat in mats:
-        sign, l = fl.slogdet_jet(mat, shard=shard)
-        if l_total is None:
-            sign_total, l_total = sign, l
-        else:
-            sign_total = sign_total * sign
-            l_total = fl.add(l_total, l)
-    return fl.logsumexp_det_jet(sign_total, l_total, shard=shard)
 
 
 def _orbital_det_scan(mats0, ing, parts, full_det: bool, shard):

@@ -27,8 +27,8 @@ from typing import Tuple
 import torch
 
 from deepsolid_tpu_torch.ops.cuda import build
+from deepsolid_tpu_torch.utils import profiling
 
-LAUNCHES = {"gj_inverse_slogdet": 0}
 # the kernel bodies by the code gj_body returns
 BODIES = ("shared", "warp", "registers", "mid")
 # the complex128 bodies by the code gj_body_c128 returns: the
@@ -39,7 +39,7 @@ BODY_C128_REGISTERS = "registers, complex128"
 BODY_C128_WARP = "warp, complex128"
 BODY_C128_MID = "mid, complex128"
 BODIES_C128 = (BODY_C128, BODY_C128_REGISTERS, BODY_C128_WARP, BODY_C128_MID)
-# launches by (kernel, (matrices, n, n), variant), counted beside LAUNCHES
+# launches by (kernel, (matrices, n, n), variant): every launch, counted once
 SHAPES = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -141,33 +141,34 @@ def launcher(lib, dtype, n: int, device: torch.device):
 
 
 def _gj_cuda(a: torch.Tensor):
-    if a.device.type != "cuda":
-        raise ValueError(f"gj_inverse_slogdet kernel needs a CUDA tensor, "
-                         f"got device {a.device}")
-    if a.dtype not in _REAL:
-        raise TypeError(f"gj_inverse_slogdet kernel takes complex64 or complex128, "
-                        f"got {a.dtype}")
-    if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
-        raise ValueError(f"expected (..., n, n) matrices, got {tuple(a.shape)}")
-    lib = _lib()
-    n = a.shape[-1]
-    body, launch = launcher(lib, a.dtype, n, a.device)
-    lead = a.shape[:-2]
-    a2 = a.reshape(-1, n, n).contiguous()  # copies only a strided input
-    nb = a2.shape[0]
-    ainv = torch.empty_like(a2)
-    sign = torch.empty(nb, dtype=a.dtype, device=a.device)
-    logdet = torch.empty(nb, dtype=_REAL[a.dtype], device=a.device)
-    if nb:
-        with torch.cuda.device(a.device):
-            stream = torch.cuda.current_stream(a.device).cuda_stream
-            code = launch(
-                a2.data_ptr(), ainv.data_ptr(), sign.data_ptr(),
-                logdet.data_ptr(), nb, n, stream)
-        build.check(lib, code, "gj_inverse_slogdet")
-        LAUNCHES["gj_inverse_slogdet"] += 1
-        SHAPES["gj_inverse_slogdet", (nb, n, n), body] += 1
-    return ainv.reshape(a.shape), sign.reshape(lead), logdet.reshape(lead)
+    # one wrapper call, from its checks to its count: the host's cost
+    with profiling.annotate("op.gj_inverse_slogdet"):
+        if a.device.type != "cuda":
+            raise ValueError(f"gj_inverse_slogdet kernel needs a CUDA tensor, "
+                             f"got device {a.device}")
+        if a.dtype not in _REAL:
+            raise TypeError(f"gj_inverse_slogdet kernel takes complex64 or complex128, "
+                            f"got {a.dtype}")
+        if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
+            raise ValueError(f"expected (..., n, n) matrices, got {tuple(a.shape)}")
+        lib = _lib()
+        n = a.shape[-1]
+        body, launch = launcher(lib, a.dtype, n, a.device)
+        lead = a.shape[:-2]
+        a2 = a.reshape(-1, n, n).contiguous()  # copies only a strided input
+        nb = a2.shape[0]
+        ainv = torch.empty_like(a2)
+        sign = torch.empty(nb, dtype=a.dtype, device=a.device)
+        logdet = torch.empty(nb, dtype=_REAL[a.dtype], device=a.device)
+        if nb:
+            with torch.cuda.device(a.device):
+                stream = torch.cuda.current_stream(a.device).cuda_stream
+                code = launch(
+                    a2.data_ptr(), ainv.data_ptr(), sign.data_ptr(),
+                    logdet.data_ptr(), nb, n, stream)
+            build.check(lib, code, "gj_inverse_slogdet")
+            SHAPES["gj_inverse_slogdet", (nb, n, n), body] += 1
+        return ainv.reshape(a.shape), sign.reshape(lead), logdet.reshape(lead)
 
 
 def gj_inverse_slogdet(a: torch.Tensor):

@@ -29,12 +29,10 @@ import ctypes
 import torch
 
 from deepsolid_tpu_torch.ops.cuda import build
+from deepsolid_tpu_torch.utils import profiling
 
-LAUNCHES = {"fused_dense_tanh_jet": 0, "fused_dense_tanh_jet_mix": 0,
-            "fused_dense_tanh_jet_partial": 0,
-            "fused_dense_tanh_jet_mix_partial": 0}
-# launches by (kernel, (T, rows, d_in, d_out), variant_label), counted
-# beside LAUNCHES
+# launches by (kernel, (T, rows, d_in, d_out), variant_label): every
+# launch, counted once
 SHAPES = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -215,52 +213,53 @@ def _launch(name, val, jac, lap, w, b, mix, rows_per_group, groups,
             open_sum=False):
     """Launches the kernel; returns (val_o, jac_o, lap_o) or, with
     `open_sum`, (val_o, jac_o, lap_part, s_local)."""
-    t_dim, rows, d_in = jac.shape
-    d_out = w.shape[1]
-    if val.shape != (rows, d_in) or lap.shape != (rows, d_in):
-        raise ValueError(f"{name}: val/lap must be {(rows, d_in)}")
-    if w.shape[0] != d_in or b.shape != (d_out,):
-        raise ValueError(f"{name}: w must be ({d_in}, d_out), b (d_out,)")
-    # the kernel reads dense row-major tiles; _dense copies only an input
-    # that arrives strided or offset (the trunk's jets arrive dense)
-    val, jac, lap, w, b = (_dense(x) for x in (val, jac, lap, w, b))
-    zbc, lbc, jbc = (_dense(x) for x in mix) if mix else (None,) * 3
-    val_o = torch.empty((rows, d_out), dtype=val.dtype, device=val.device)
-    lap_o = torch.empty_like(val_o)
-    jac_o = torch.empty((t_dim, rows, d_out), dtype=val.dtype, device=val.device)
-    sq_o = torch.empty_like(val_o) if open_sum else None
-    if rows and d_out:
-        lib = _lib()
-        # the one place the variant is chosen, by dtype and shape alone.
-        # The wide variants split the tangents across blocks, whose partial
-        # square sums need slices * rows * d_out values of scratch; PAIR is
-        # the streaming body of the two-electron layers in either dtype; 0
-        # slices (FLOAT64 in double) is the general one (also for a d_in
-        # whose slice of w does not fit in shared memory). t_dim is this
-        # call's own (a rank's T_local in the open form), so scratch and the
-        # finishing grid follow `slices`
-        sms = torch.cuda.get_device_properties(val.device).multi_processor_count
-        slices = kernel_variant(t_dim, rows, d_in, d_out, mix is not None, sms,
-                                val.dtype)
-        scratch = (torch.empty((slices, rows, d_out), dtype=val.dtype,
-                               device=val.device) if slices > 0 else None)
-        entry = (lib.dense_tanh_jet_launch_f64 if val.dtype == torch.float64
-                 else lib.dense_tanh_jet_launch)
-        ptr = (lambda x: None if x is None else x.data_ptr())
-        with torch.cuda.device(val.device):
-            stream = torch.cuda.current_stream(val.device).cuda_stream
-            code = entry(
-                ptr(val), ptr(lap), ptr(jac), ptr(w), ptr(b), ptr(zbc),
-                ptr(lbc), ptr(jbc), ptr(val_o), ptr(lap_o), ptr(jac_o),
-                ptr(scratch), ptr(sq_o), 0 if slices == FLOAT64 else slices,
-                t_dim, rows, d_in, d_out, rows_per_group, groups, stream)
-        build.check(lib, code, name)
-        LAUNCHES[name] += 1
-        SHAPES[name, (t_dim, rows, d_in, d_out),
-               variant_label(slices, val.dtype)] += 1
-    if open_sum:
-        return val_o, jac_o, lap_o, sq_o
-    return val_o, jac_o, lap_o
+    # one wrapper call, from its checks to its count: the host's cost
+    with profiling.annotate("op." + name):
+        t_dim, rows, d_in = jac.shape
+        d_out = w.shape[1]
+        if val.shape != (rows, d_in) or lap.shape != (rows, d_in):
+            raise ValueError(f"{name}: val/lap must be {(rows, d_in)}")
+        if w.shape[0] != d_in or b.shape != (d_out,):
+            raise ValueError(f"{name}: w must be ({d_in}, d_out), b (d_out,)")
+        # the kernel reads dense row-major tiles; _dense copies only an input
+        # that arrives strided or offset (the trunk's jets arrive dense)
+        val, jac, lap, w, b = (_dense(x) for x in (val, jac, lap, w, b))
+        zbc, lbc, jbc = (_dense(x) for x in mix) if mix else (None,) * 3
+        val_o = torch.empty((rows, d_out), dtype=val.dtype, device=val.device)
+        lap_o = torch.empty_like(val_o)
+        jac_o = torch.empty((t_dim, rows, d_out), dtype=val.dtype, device=val.device)
+        sq_o = torch.empty_like(val_o) if open_sum else None
+        if rows and d_out:
+            lib = _lib()
+            # the one place the variant is chosen, by dtype and shape alone.
+            # The wide variants split the tangents across blocks, whose partial
+            # square sums need slices * rows * d_out values of scratch; PAIR is
+            # the streaming body of the two-electron layers in either dtype; 0
+            # slices (FLOAT64 in double) is the general one (also for a d_in
+            # whose slice of w does not fit in shared memory). t_dim is this
+            # call's own (a rank's T_local in the open form), so scratch and the
+            # finishing grid follow `slices`
+            sms = torch.cuda.get_device_properties(val.device).multi_processor_count
+            slices = kernel_variant(t_dim, rows, d_in, d_out, mix is not None, sms,
+                                    val.dtype)
+            scratch = (torch.empty((slices, rows, d_out), dtype=val.dtype,
+                                   device=val.device) if slices > 0 else None)
+            entry = (lib.dense_tanh_jet_launch_f64 if val.dtype == torch.float64
+                     else lib.dense_tanh_jet_launch)
+            ptr = (lambda x: None if x is None else x.data_ptr())
+            with torch.cuda.device(val.device):
+                stream = torch.cuda.current_stream(val.device).cuda_stream
+                code = entry(
+                    ptr(val), ptr(lap), ptr(jac), ptr(w), ptr(b), ptr(zbc),
+                    ptr(lbc), ptr(jbc), ptr(val_o), ptr(lap_o), ptr(jac_o),
+                    ptr(scratch), ptr(sq_o), 0 if slices == FLOAT64 else slices,
+                    t_dim, rows, d_in, d_out, rows_per_group, groups, stream)
+            build.check(lib, code, name)
+            SHAPES[name, (t_dim, rows, d_in, d_out),
+                   variant_label(slices, val.dtype)] += 1
+        if open_sum:
+            return val_o, jac_o, lap_o, sq_o
+        return val_o, jac_o, lap_o
 
 
 def fused_dense_tanh_jet(val, jac, lap, w, b):

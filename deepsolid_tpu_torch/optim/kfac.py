@@ -49,6 +49,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from deepsolid_tpu_torch.utils import profiling
 from deepsolid_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -406,7 +407,8 @@ class KfacOptimizer:
         sums = None
         for i, part in enumerate(data.split(chunk)):
             part_draws = None if draws is None else draws[i * chunk:(i + 1) * chunk]
-            part_sums = self._factor_sums(params, part, part_draws)
+            with profiling.annotate("kfac.capture", i):
+                part_sums = self._factor_sums(params, part, part_draws)
             sums = part_sums if sums is None else tree_map(torch.add, sums, part_sums)
         dense_s, env_s, diag_s = sums
 
@@ -536,7 +538,8 @@ class KfacOptimizer:
         step = int(state["step"])  # the update's one host read
         lr = self.learning_rate_schedule(step)
         if step % self.invert_every == 0:
-            state = self.refresh_inverses(state, damping)
+            with profiling.annotate("kfac.inverse"):
+                state = self.refresh_inverses(state, damping)
         if self.l2_reg > 0.0:
             grads = tree_map(lambda g, p: g + self.l2_reg * p, grads, params)
         precond = self.precondition(state, params, grads, damping)
@@ -581,16 +584,19 @@ class KfacOptimizer:
         lap = lap or _identity
         t = int(state["step"])
         if self.cov_update_every <= 1 or t % self.cov_update_every == 0:
-            state = self.update_curvature(state, params, data)
+            with profiling.annotate("kfac.curvature"):
+                state = self.update_curvature(state, params, data)
         lap("curvature")
         old_params = params
-        params, state = self.step_fn(params, state, grads, state["damping"])
+        with profiling.annotate("kfac.update"):
+            params, state = self.step_fn(params, state, grads, state["damping"])
         lap("update")
         if (self.adaptive_damping and loss_fn is not None
                 and t % self.damping_adaptation_interval == 0):
-            new_loss, _ = loss_fn(params, data)
-            state = self.adapt_damping(state, old_params, params, grads, loss,
-                                       new_loss)
+            with profiling.annotate("kfac.adapt"):
+                new_loss, _ = loss_fn(params, data)
+                state = self.adapt_damping(state, old_params, params, grads, loss,
+                                           new_loss)
             lap("adapt")
         return params, state
 

@@ -26,6 +26,7 @@ import torch
 
 from deepsolid_tpu_torch.ops.distance import enforce_pbc
 from deepsolid_tpu_torch.train.loss import walker_value_and_grad
+from deepsolid_tpu_torch.utils import profiling
 
 
 def draw_move(gen: torch.Generator, x: torch.Tensor
@@ -74,10 +75,11 @@ def limit_drift(g: torch.Tensor, cutoff: float = 1.0) -> torch.Tensor:
 
 
 def _accept(x1, x2, lp_1, lp_2, ratio, uniform, num_accepts):
-    cond = ratio > torch.log(uniform)
-    x_new = torch.where(cond[:, None], x2, x1)
-    lp_new = torch.where(cond, lp_2, lp_1)
-    return x_new, lp_new, num_accepts + torch.sum(cond)
+    with profiling.annotate("mcmc.accept"):
+        cond = ratio > torch.log(uniform)
+        x_new = torch.where(cond[:, None], x2, x1)
+        lp_new = torch.where(cond, lp_2, lp_1)
+        return x_new, lp_new, num_accepts + torch.sum(cond)
 
 
 def mh_update(f: Callable, x1: torch.Tensor, lp_1: torch.Tensor,
@@ -173,28 +175,35 @@ def make_mcmc_step(batch_slog_network: Callable, latvec, steps: int = 10,
         logging.info("MCMC: all-electron Metropolis")
 
     def mcmc_step(params, data, gen, width):
+        # the value path (and the drift) on the walkers and the proposals
         def f(x):
-            return batch_slog_network(params, x)
+            with profiling.annotate("mcmc.logpsi"):
+                return batch_slog_network(params, x)
+
+        def f_val_grad(x):
+            with profiling.annotate("mcmc.logpsi"):
+                return val_grad(params, x)
 
         nsteps = data.shape[-1] // 3 * steps if one_electron_moves else steps
         lp = 2.0 * f(data)
         num_accepts = torch.zeros((), dtype=torch.int64, device=data.device)
         for i in range(nsteps):
-            if importance_network is not None:
-                noise, uniform = draw_move(gen, data)
-                data, lp, num_accepts = importance_update(
-                    lambda x: val_grad(params, x), data, lp, num_accepts,
-                    latvec, width, noise, uniform)
-            elif one_electron_moves:
-                noise, uniform = draw_one_electron_move(gen, data)
-                data, lp, num_accepts = mh_one_electron_update(
-                    f, data, lp, num_accepts, latvec, width, noise, uniform,
-                    i=i, atoms=atoms)
-            else:
-                noise, uniform = draw_move(gen, data)
-                data, lp, num_accepts = mh_update(
-                    f, data, lp, num_accepts, latvec, width, noise, uniform,
-                    atoms=atoms)
+            with profiling.annotate("mcmc.move", i):
+                if importance_network is not None:
+                    noise, uniform = draw_move(gen, data)
+                    data, lp, num_accepts = importance_update(
+                        f_val_grad, data, lp, num_accepts,
+                        latvec, width, noise, uniform)
+                elif one_electron_moves:
+                    noise, uniform = draw_one_electron_move(gen, data)
+                    data, lp, num_accepts = mh_one_electron_update(
+                        f, data, lp, num_accepts, latvec, width, noise, uniform,
+                        i=i, atoms=atoms)
+                else:
+                    noise, uniform = draw_move(gen, data)
+                    data, lp, num_accepts = mh_update(
+                        f, data, lp, num_accepts, latvec, width, noise, uniform,
+                        atoms=atoms)
         pmove = num_accepts.to(data.dtype) / (nsteps * data.shape[0])
         return data, pmove
 

@@ -23,6 +23,7 @@ from typing import Callable, Optional
 import torch
 
 from deepsolid_tpu_torch.hamiltonian import make_local_energy
+from deepsolid_tpu_torch.utils import profiling
 from deepsolid_tpu_torch.utils.tree import tree_map
 
 
@@ -51,11 +52,15 @@ def chunk_batch_fn(fn: Callable, chunk: int) -> Callable:
     def wrapped(params, data):
         n = data.shape[0]
         if n <= chunk:
-            return fn(params, data)
+            with profiling.annotate("psi.chunk", 0):
+                return fn(params, data)
         if n % chunk != 0:
             raise ValueError(
                 f"optim.psi_chunk={chunk} must divide the walker batch ({n})")
-        parts = [fn(params, d) for d in data.split(chunk)]
+        parts = []
+        for i, d in enumerate(data.split(chunk)):
+            with profiling.annotate("psi.chunk", i):
+                parts.append(fn(params, d))
         if isinstance(parts[0], tuple):
             return tuple(torch.cat(p) for p in zip(*parts))
         return torch.cat(parts)
@@ -117,11 +122,15 @@ def make_batch_local_energy(network, supercell, el_chunk: int = 0,
     def batch_local_energy(params, data):
         n = data.shape[0]
         if not el_chunk or el_chunk <= 0 or n <= el_chunk:
-            return el_fun(params, data)
+            with profiling.annotate("el.chunk", 0):
+                return el_fun(params, data)
         if n % el_chunk != 0:
             raise ValueError(
                 f"optim.el_chunk={el_chunk} must divide the walker batch ({n})")
-        parts = [el_fun(params, chunk) for chunk in data.split(el_chunk)]
+        parts = []
+        for i, chunk in enumerate(data.split(el_chunk)):
+            with profiling.annotate("el.chunk", i):
+                parts.append(el_fun(params, chunk))
         return (torch.cat([p[0] for p in parts]),
                 torch.cat([p[1] for p in parts]))
 
@@ -200,13 +209,14 @@ def make_loss(network, supercell, el_chunk: int = 0, mode: str = "forward",
             raise ValueError(
                 f"optim.psi_chunk={chunk} must divide the walker batch ({n})")
         leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        for x, cd, okc in zip(data.split(chunk), clip_diff.split(chunk),
-                              ok.split(chunk)):
-            with torch.enable_grad():
-                logpsi = network.logdet(leaves, x)
-                logpsi = torch.where(okc, logpsi, torch.zeros_like(logpsi))
-                surrogate = torch.sum((cd * torch.conj(logpsi)).real) / n
-            surrogate.backward()  # adds this chunk's part to each leaf's grad
+        parts = zip(data.split(chunk), clip_diff.split(chunk), ok.split(chunk))
+        for i, (x, cd, okc) in enumerate(parts):
+            with profiling.annotate("gradient.chunk", i):
+                with torch.enable_grad():
+                    logpsi = network.logdet(leaves, x)
+                    logpsi = torch.where(okc, logpsi, torch.zeros_like(logpsi))
+                    surrogate = torch.sum((cd * torch.conj(logpsi)).real) / n
+                surrogate.backward()  # adds this chunk's part to each leaf's grad
         return tree_map(lambda t: torch.zeros_like(t) if t.grad is None
                          else t.grad, leaves)
 

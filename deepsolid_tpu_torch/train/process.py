@@ -19,7 +19,9 @@ polarization under `log.complex_polarization`), structure_factor.csv
 and local_energies.csv when asked, adapt the proposal width and save
 checkpoints. With `log.trace_path` a torch.profiler trace of iterations
 [log.trace_start, + log.trace_steps) (counted from this run's first) is
-written there.
+written there; under any profiler each iteration and its phases (`mcmc`,
+`local_energy`, `gradient`, `stats`, `checkpoint`) are named spans
+(`utils/profiling.annotate`), closed before `on_iteration` is called.
 
 Several ranks (torch.distributed initialized by the caller, see
 parallel.run_ranks) run this same function, SPMD: `parallel.deriv_devices`
@@ -328,109 +330,120 @@ def process(cfg, max_iterations: Optional[int] = None, device="cuda",
                 contextlib.closing(tracer):
             for t in range(t_init, iterations):
                 tracer.step(t - t_init)
-                if cfg.debug.check_nan:
-                    # every step returns new tensors and writes into none,
-                    # so these references are the state before the step
-                    prev = (params, data, opt_state)
-                seconds = {}
-                t0 = time.perf_counter()
-                data, pmove = mcmc_step(params, data, gen, width)
-                pmove = float(mesh.all_mean(pmove))  # waits for the sampler
-                t1 = time.perf_counter()
-                loss, aux = total_energy(params, data)
-                energy = float(loss) / scale
-                kinetic = float(mesh.all_mean(torch.mean(aux.kinetic.real))) / scale
-                row = {
-                    "energy": energy,
-                    "variance": float(aux.variance) / scale**2,
-                    "pmove": pmove,
-                    "imaginary": float(aux.imaginary) / scale,
-                    "kinetic": kinetic,
-                    "ewald": energy - kinetic,
-                    "nonfinite": 1.0 - float(mesh.all_mean(torch.mean(aux.finite))),
-                }
-                t2 = time.perf_counter()
-                seconds.update(mcmc=t1 - t0, local_energy=t2 - t1)
-                extra = {"local_energy": aux.local_energy}
-                if optimizer is not None:
-                    grads = total_energy.gradient(params, data, loss, aux)
-                    grads = adam_lib.tree_map(mesh.all_mean, grads)
-                    extra["grad_norm"] = float(adam_lib.global_norm(grads))
-                    t3 = time.perf_counter()
-                    seconds["gradient"] = t3 - t2
-                if optimizer_name == "adam":
-                    updates, opt_state = optimizer.update(grads, opt_state)
-                    params = adam_lib.apply_updates(params, updates)
-                    _sync(device)
-                    seconds["update"] = time.perf_counter() - t3
-                elif optimizer_name == "kfac":
-                    # the state's own step counter (not t) schedules the
-                    # learning rate, the curvature and inverse refreshes and
-                    # the damping adaptation: it continues a restored state's
-                    kfac_step = int(opt_state["step"])
-                    mark = [t3]
-
-                    def lap(name):
-                        _sync(device)
-                        now = time.perf_counter()
-                        seconds[name], mark[0] = now - mark[0], now
-
-                    params, opt_state = optimizer.step(
-                        params, opt_state, grads, data, loss=loss,
-                        loss_fn=total_energy, lap=lap)
-                    extra.update(optimizer_step=kfac_step,
-                                 damping=float(opt_state["damping"]),
-                                 rho=float(opt_state["rho"]))
-                    if log_damping:
-                        row["damping"] = extra["damping"]
-                seconds["step"] = time.perf_counter() - t0
-                if cfg.debug.check_nan and not _all_finite(tree_leaves(params) + [loss]):
-                    # discard the iteration (no row, no width update, no
-                    # checkpoint) and go on from the state before it; the
-                    # generator runs on
-                    logging.warning("Non-finite update at step %d; retrying", t)
-                    params, data, opt_state = prev
-                    continue
-                if row["nonfinite"] > 0.01:
-                    logging.warning(
-                        "Step %d: %.1f%% of walkers had non-finite local "
-                        "energies (masked out)", t, 100.0 * row["nonfinite"])
-                if t % cfg.log.stats_frequency == 0:
-                    logging.info(
-                        "%s Step %05d: %.4f E_h, variance=%.4f, pmove=%.2f, "
-                        "imag=%.4f, kinetic=%.4f, ewald=%.4f",
-                        datetime.datetime.now(), t, energy, row["variance"],
-                        pmove, row["imaginary"], kinetic, row["ewald"])
-                    if polarization_fn is not None:
-                        row["complex_polarization"] = complex(polarization_fn(data)).real
-                    if writer is not None:
-                        writer.write(t, **row)
-                # every rank takes part in the means and the gather
-                if structure_factor_fn is not None:
-                    sk = structure_factor_fn(data).cpu().numpy()
-                    if writes:
-                        _append_row(os.path.join(save_path, "structure_factor.csv"),
-                                    t, (str(v) for v in sk))
-                if cfg.log.local_energies and t % cfg.log.stats_frequency == 0:
-                    # the global batch, Re and Im interleaved
-                    el = torch.view_as_complex(mesh.gather_data(
-                        torch.view_as_real(aux.local_energy)).contiguous()).numpy()
-                    if writes:
-                        _append_row(os.path.join(save_path, "local_energies.csv"),
-                                    t, (f"{v.real:.10g},{v.imag:.10g}" for v in el))
-                width, pmoves = update_mcmc_width(
-                    t, width, pmoves, pmove, cfg.mcmc.adapt_frequency)
-                if on_iteration is not None:
-                    on_iteration(t, {**row, **extra}, seconds)
-
-                # rank 0's clock decides, so every rank joins the gather
-                due = mesh.broadcast_int(int(
-                    time.time() - time_of_last_ckpt > cfg.log.save_frequency * 60
-                    or t >= iterations - 1
-                    or (cfg.log.save_frequency_in_step > 0
-                        and t % cfg.log.save_frequency_in_step == 0)))
-                if due:
+                # the iteration's span; its phases each close before
+                # on_iteration, which may start or stop a profiler
+                with profiling.annotate("iteration", t):
+                    if cfg.debug.check_nan:
+                        # every step returns new tensors and writes into
+                        # none, so these references are the state before it
+                        prev = (params, data, opt_state)
+                    seconds = {}
+                    t0 = time.perf_counter()
+                    with profiling.annotate("mcmc"):
+                        data, pmove = mcmc_step(params, data, gen, width)
+                        pmove = float(mesh.all_mean(pmove))  # waits for the sampler
+                    t1 = time.perf_counter()
+                    with profiling.annotate("local_energy"):
+                        loss, aux = total_energy(params, data)
+                        energy = float(loss) / scale
+                        kinetic = float(mesh.all_mean(torch.mean(aux.kinetic.real))) / scale
+                        row = {
+                            "energy": energy,
+                            "variance": float(aux.variance) / scale**2,
+                            "pmove": pmove,
+                            "imaginary": float(aux.imaginary) / scale,
+                            "kinetic": kinetic,
+                            "ewald": energy - kinetic,
+                            "nonfinite": 1.0 - float(mesh.all_mean(torch.mean(aux.finite))),
+                        }
+                    t2 = time.perf_counter()
+                    seconds.update(mcmc=t1 - t0, local_energy=t2 - t1)
+                    extra = {"local_energy": aux.local_energy}
                     if optimizer is not None:
-                        save_checkpoint(t)
-                    time_of_last_ckpt = time.time()
+                        with profiling.annotate("gradient"):
+                            grads = total_energy.gradient(params, data, loss, aux)
+                            grads = adam_lib.tree_map(mesh.all_mean, grads)
+                            extra["grad_norm"] = float(adam_lib.global_norm(grads))
+                        t3 = time.perf_counter()
+                        seconds["gradient"] = t3 - t2
+                    if optimizer_name == "adam":
+                        updates, opt_state = optimizer.update(grads, opt_state)
+                        params = adam_lib.apply_updates(params, updates)
+                        _sync(device)
+                        seconds["update"] = time.perf_counter() - t3
+                    elif optimizer_name == "kfac":
+                        # the state's own step counter (not t) schedules the
+                        # learning rate, the curvature and inverse refreshes
+                        # and the damping adaptation: it continues a
+                        # restored state's
+                        kfac_step = int(opt_state["step"])
+                        mark = [t3]
+
+                        def lap(name):
+                            _sync(device)
+                            now = time.perf_counter()
+                            seconds[name], mark[0] = now - mark[0], now
+
+                        params, opt_state = optimizer.step(
+                            params, opt_state, grads, data, loss=loss,
+                            loss_fn=total_energy, lap=lap)
+                        extra.update(optimizer_step=kfac_step,
+                                     damping=float(opt_state["damping"]),
+                                     rho=float(opt_state["rho"]))
+                        if log_damping:
+                            row["damping"] = extra["damping"]
+                    seconds["step"] = time.perf_counter() - t0
+                    with profiling.annotate("stats"):
+                        if cfg.debug.check_nan and not _all_finite(
+                                tree_leaves(params) + [loss]):
+                            # discard the iteration (no row, no width
+                            # update, no checkpoint) and go on from the
+                            # state before it; the generator runs on
+                            logging.warning("Non-finite update at step %d; retrying", t)
+                            params, data, opt_state = prev
+                            continue
+                        if row["nonfinite"] > 0.01:
+                            logging.warning(
+                                "Step %d: %.1f%% of walkers had non-finite local "
+                                "energies (masked out)", t, 100.0 * row["nonfinite"])
+                        if t % cfg.log.stats_frequency == 0:
+                            logging.info(
+                                "%s Step %05d: %.4f E_h, variance=%.4f, pmove=%.2f, "
+                                "imag=%.4f, kinetic=%.4f, ewald=%.4f",
+                                datetime.datetime.now(), t, energy, row["variance"],
+                                pmove, row["imaginary"], kinetic, row["ewald"])
+                            if polarization_fn is not None:
+                                row["complex_polarization"] = complex(
+                                    polarization_fn(data)).real
+                            if writer is not None:
+                                writer.write(t, **row)
+                        # every rank takes part in the means and the gather
+                        if structure_factor_fn is not None:
+                            sk = structure_factor_fn(data).cpu().numpy()
+                            if writes:
+                                _append_row(os.path.join(save_path, "structure_factor.csv"),
+                                            t, (str(v) for v in sk))
+                        if cfg.log.local_energies and t % cfg.log.stats_frequency == 0:
+                            # the global batch, Re and Im interleaved
+                            el = torch.view_as_complex(mesh.gather_data(
+                                torch.view_as_real(aux.local_energy)).contiguous()).numpy()
+                            if writes:
+                                _append_row(os.path.join(save_path, "local_energies.csv"),
+                                            t, (f"{v.real:.10g},{v.imag:.10g}" for v in el))
+                        width, pmoves = update_mcmc_width(
+                            t, width, pmoves, pmove, cfg.mcmc.adapt_frequency)
+                    if on_iteration is not None:
+                        on_iteration(t, {**row, **extra}, seconds)
+
+                    # rank 0's clock decides, so every rank joins the gather
+                    due = mesh.broadcast_int(int(
+                        time.time() - time_of_last_ckpt > cfg.log.save_frequency * 60
+                        or t >= iterations - 1
+                        or (cfg.log.save_frequency_in_step > 0
+                            and t % cfg.log.save_frequency_in_step == 0)))
+                    if due:
+                        with profiling.annotate("checkpoint"):
+                            if optimizer is not None:
+                                save_checkpoint(t)
+                        time_of_last_ckpt = time.time()
     return params, data, energy

@@ -1,12 +1,22 @@
 """Profiling hooks on torch.profiler.
 
 Mirrors deepsolid_tpu/utils/profiling.py: `trace()` records the enclosed
-span, `annotate()` names a region inside it, `StepTracer` records a
-window of training iterations (`log.trace_path`, `log.trace_start`,
-`log.trace_steps` in train/process.py) and `timed()` logs a span's
-wall-clock time. A trace records the host's operators and, on a GPU, the
-card's kernels (CUDA activity), and is written as a Chrome trace JSON
-file (chrome://tracing, Perfetto) into the trace directory.
+span, `annotate()` is the program's named span, and `StepTracer` records
+a window of training iterations (`log.trace_path`, `log.trace_start`,
+`log.trace_steps` in train/process.py). A trace records the host's
+operators and, on a GPU, the card's kernels (CUDA activity), and is
+written as a Chrome trace JSON file (chrome://tracing, Perfetto) into the
+trace directory.
+
+The program opens `annotate` spans at its layer boundaries, each named
+`deepsolid.<layer>.<stage>`: `iteration` and its phases (`mcmc`,
+`local_energy`, `gradient`, `stats`, `checkpoint`) in train/process.py,
+`kfac.*` in optim/kfac.py, `mcmc.*` in sampling/mcmc.py, `el.chunk`,
+`psi.chunk` and `gradient.chunk` in train/loss.py, `el.kinetic` and
+`el.ewald` in hamiltonian.py, `el.trunk`, `el.orbitals` and `el.det_head`
+in models/fwdlap_forward.py, and `op.<kernel>` around each call of a CUDA
+kernel's wrapper in ops/cuda. Spans nest, so a kernel launched under
+`el.det_head` lies under `el.chunk` and `local_energy` too.
 
 Usage:
     from deepsolid_tpu_torch.utils import profiling
@@ -59,9 +69,26 @@ def trace(logdir: str) -> Iterator[None]:
         _stop(prof, logdir)
 
 
-def annotate(name: str):
-    """A named region of a trace (a context manager)."""
-    return torch.profiler.record_function(name)
+SPAN_PREFIX = "deepsolid."
+# whether a profiler records: torch's own global check, far cheaper than
+# entering and leaving an idle record_function
+_recording = torch._C._autograd._profiler_enabled
+_IDLE = contextlib.nullcontext()
+
+
+def annotate(name: str, args=None):
+    """The program's span `deepsolid.<name>` (a context manager).
+
+    While a profiler records, a torch.profiler.record_function, which the
+    profiler times on its own host clock beside the device events it
+    traces; `args` (a step, a chunk's index) is its argument string.
+    Otherwise a shared no-op context, so an untraced run pays one check a
+    span. A span synchronizes nothing and holds no tensor.
+    """
+    if not _recording():
+        return _IDLE
+    return torch.profiler.record_function(
+        SPAN_PREFIX + name, None if args is None else str(args))
 
 
 class StepTracer:
@@ -93,16 +120,3 @@ class StepTracer:
         if self._prof is not None:
             prof, self._prof = self._prof, None
             self.path = _stop(prof, self.logdir)
-
-
-@contextlib.contextmanager
-def timed(name: str, sync: bool = True) -> Iterator[None]:
-    """Log the wall-clock time of the enclosed span; with `sync` the work
-    queued on the current GPU is waited for first."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if sync and torch.cuda.is_available():
-            torch.cuda.synchronize()
-        logging.info("%s: %.1f ms", name, (time.perf_counter() - t0) * 1e3)

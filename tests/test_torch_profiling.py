@@ -1,6 +1,8 @@
 """The port's profiling hooks (utils/profiling.py) and their config keys:
 StepTracer records its window only, process() writes a trace under
-log.trace_path, `trace`, `annotate` and `timed` work on the CPU, and the
+log.trace_path that holds its phase spans, `trace` and `annotate` work on
+the CPU, `annotate` enters no record_function while no profiler records,
+the program's spans nest layer in layer through a training run, and the
 keys log.trace_* and system.ndim are accepted (ndim other than 3 is
 refused)."""
 
@@ -35,8 +37,8 @@ def test_step_tracer_records_its_window_only(tmp_path):
     assert names[:4] == [[], [], [], []] and len(names[4]) == 1
     assert os.listdir(tmp_path) == names[4] and tracer.path.endswith(names[4][0])
     seen = {e.get("name") for e in _events(tracer.path)}
-    assert {"iteration_2", "iteration_3"} <= seen
-    assert not seen & {"iteration_0", "iteration_1", "iteration_4", "iteration_5"}
+    assert {"deepsolid.iteration_2", "deepsolid.iteration_3"} <= seen
+    assert not seen & {f"deepsolid.iteration_{i}" for i in (0, 1, 4, 5)}
 
 
 def test_step_tracer_without_a_directory_records_nothing(tmp_path):
@@ -48,13 +50,31 @@ def test_step_tracer_without_a_directory_records_nothing(tmp_path):
 
 
 def test_trace_annotate_and_timed(tmp_path, caplog):
+    """`trace` writes one file and logs it; an `annotate` span inside is
+    named deepsolid.<name> there."""
     with caplog.at_level(logging.INFO):
         with profiling.trace(str(tmp_path / "t")):
-            with profiling.annotate("span"), profiling.timed("span"):
+            with profiling.annotate("span", 3):
                 torch.ones(8) @ torch.ones(8)
     (path,) = os.listdir(tmp_path / "t")
-    assert "span" in {e.get("name") for e in _events(tmp_path / "t" / path)}
-    assert "span:" in caplog.text
+    assert "deepsolid.span" in {e.get("name") for e in _events(tmp_path / "t" / path)}
+    assert "Profiler trace written" in caplog.text
+
+
+def test_annotate_enters_no_record_function_without_a_profiler(monkeypatch):
+    """With no profiler recording, a span is the shared no-op context:
+    record_function, made to raise here, is never entered; under a
+    profiler it is."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function entered")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    with profiling.annotate("iteration", 7):
+        torch.ones(2).sum()
+    assert profiling.annotate("a") is profiling.annotate("b", 1)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with pytest.raises(AssertionError, match="record_function entered"):
+            profiling.annotate("iteration", 7)
 
 
 def test_process_writes_a_trace_of_its_window(tmp_path):
@@ -72,6 +92,69 @@ def test_process_writes_a_trace_of_its_window(tmp_path):
     (path,) = os.listdir(tmp_path / "trace")
     names = {e.get("name") for e in _events(tmp_path / "trace" / path)}
     assert any(n and n.startswith("aten::") for n in names)
+    # the traced iteration's span and its phases'
+    assert {f"deepsolid.{phase}" for phase in (
+        "iteration", "mcmc", "local_energy", "gradient", "stats", "el.chunk",
+        "el.trunk", "el.orbitals", "el.det_head")} <= names
+
+
+def _spans(path):
+    """{name without `deepsolid.`: [(start, end)]} of the complete spans."""
+    out = {}
+    for e in _events(path):
+        name = e.get("name") or ""
+        if (e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                and name.startswith("deepsolid.")
+                and e.get("args", {}).get("finished", True)):
+            out.setdefault(name[len("deepsolid."):], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    return out
+
+
+def _inside(spans, name, outer):
+    lo, hi = outer
+    return [s for s in spans.get(name, []) if lo <= s[0] and s[1] <= hi]
+
+
+def test_process_spans_nest_layer_in_layer(tmp_path):
+    """A CPU profile of two KFAC iterations of the forward engine: two
+    iteration spans, batch / el_chunk el.chunk spans in each local_energy,
+    the trunk, the orbital head and the determinant head in every
+    el.chunk, mcmc.steps moves (each with its value path and acceptance)
+    in each mcmc, and the KFAC stages in each iteration."""
+    batch, el_chunk, steps = 4, 2, 3
+    _, _, params, x = seed_state(n_walkers=batch, seed=2)
+    write_start(tmp_path / "run", params, x)
+    cfg = torch_cfg(tmp_path / "run", optimizer="kfac", iterations=2, batch=batch,
+                    el_chunk=el_chunk)
+    cfg.mcmc.steps = steps
+    path = tmp_path / "trace.json"
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        tprocess.process(cfg, device="cpu")
+    prof.export_chrome_trace(str(path))
+    spans = _spans(path)
+    assert len(spans["iteration"]) == 2
+    for it in spans["iteration"]:
+        (mcmc,) = _inside(spans, "mcmc", it)
+        moves = _inside(spans, "mcmc.move", mcmc)
+        assert len(moves) == steps
+        for move in moves:
+            assert len(_inside(spans, "mcmc.logpsi", move)) == 1
+            assert len(_inside(spans, "mcmc.accept", move)) == 1
+        (energy,) = _inside(spans, "local_energy", it)
+        chunks = _inside(spans, "el.chunk", energy)
+        assert len(chunks) == batch // el_chunk
+        for chunk in chunks:
+            assert _inside(spans, "el.kinetic", chunk) and _inside(spans, "el.ewald", chunk)
+            assert len(_inside(spans, "el.trunk", chunk)) == 1
+            # one orbital head a spin channel; one det head each and the sum
+            assert len(_inside(spans, "el.orbitals", chunk)) == 2
+            assert len(_inside(spans, "el.det_head", chunk)) == 3
+        assert len(_inside(spans, "gradient", it)) == 1
+        for stage in ("kfac.curvature", "kfac.capture", "kfac.update", "kfac.inverse",
+                      "stats"):
+            assert len(_inside(spans, stage, it)) == 1, stage
+    assert "checkpoint" in spans  # the run's last iteration saves
 
 
 def test_trace_keys_are_accepted_and_ndim_must_be_three(tmp_path):
