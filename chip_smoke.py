@@ -369,6 +369,13 @@ F64_KFAC_ITERATIONS = 2
 F64_EL_TOLERANCE = 1e-9
 F64_REL_TOLERANCE = 1e-10
 F32_BIAS_BUDGET = 2e-4     # Ha per 2-atom primitive cell: 1e-4 Ha/atom
+# Ha/cell, |E_L float32 - float64| per walker on the card over the 1024
+# checkpoint walkers: the median, the largest, and the most any walker's
+# reads above the float32 composition's on the same walker. Readings of
+# the one-pass path (the same on every run: fixed walkers, no atomics):
+# 8.1e-5, 7.83e-2 (walker 327, where the composition reads the same:
+# float32's own error near a node; the next 5.8e-3) and 3.7e-4
+F32_EL_LIMITS = {"median": 3e-4, "max": 0.1, "above_composition": 1e-3}
 F64_SHARD_WALKERS = 32     # one E_L chunk over two deriv ranks on the card
 JET_F64_TOLERANCE = 1e-10  # relative, a float64 jet body against its plain version
 # relative, the pair body in double against the general body in double:
@@ -577,6 +584,77 @@ def b1_row(dev, gen, nb, n, path="main", dtype=None):
     }
 
 
+def dethead_row(dev, gen, walkers, n, t_dim, path="main", dtype=None):
+    """The det head kernel through the main path's call
+    (dethead_kernels.dethead_traces) on one spin channel of an E_L chunk:
+    `walkers` x 8 determinants of n x n matrices, all t_dim tangents, the
+    second channel (offset n) with the row-constant block's tangents, in
+    float32 (or `dtype`) products; against its plain version (each output
+    within 2e-5 of its largest entry, 1e-12 in float64), two launches bit
+    for bit, timed beside its bound. `path` names the driven path whose
+    launch count the row reports."""
+    import torch
+    from deepsolid_tpu_torch.ops import fwdlap as fl
+    from deepsolid_tpu_torch.ops.cuda import dethead_kernels as dh
+
+    real = dtype or torch.float32
+    f64 = real == torch.float64
+    ndet, offset = 8, n
+    matrices = walkers * ndet
+    torch.cuda.empty_cache()
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(real)
+
+    def crnd(*shape):
+        return torch.complex(rnd(*shape), rnd(*shape))
+
+    mat = (walkers, ndet, n, n)
+    # orbitals near the identity and a factor near 1: moderate inverses
+    val = torch.eye(n, device=dev, dtype=real) + crnd(*mat) / math.sqrt(2 * n)
+    b_val = 1.0 + 0.1 * crnd(*mat)
+    a_inv = fl.det_factor(val * b_val)[0]
+    jr = rnd(t_dim, walkers, n, 2 * ndet * n) / math.sqrt(n)
+    jbc = rnd(t_dim, walkers, 2 * ndet * n) / math.sqrt(n)
+    args = (jr, jbc, b_val, crnd(3, *mat), val, a_inv, offset, 0)
+    before = dh.SHAPES.copy()
+    got = dh.dethead_traces(*args)
+    again = dh.dethead_traces(*args)
+    torch.cuda.synchronize(dev)
+    counted = dh.SHAPES - before
+    want = dh.dethead_traces_plain(*args)
+    abs_errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    errs = [e / float(w.abs().max()) for e, w in zip(abs_errs, want)]
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    del got, again, want
+    tol = 1e-12 if f64 else 2e-5
+    item = jr.element_size()
+    nbytes = item * (jr.numel() + jbc.numel()) + 2 * item * (
+        5 * matrices * n * n + (t_dim + dh.splits(t_dim)) * matrices)
+    flops = 8.0 * n**3 * matrices * t_dim  # A^-1 J_t, n^3 complex multiply-adds
+    bnd, by = bound_ms(nbytes, flops, PEAK_FP64_TENSOR if f64 else None)
+    extra = {"bound_ms_fp64_fma": bound_ms(nbytes, flops, PEAK_FP64_FMA)[0]} if f64 else {}
+    key = (dh.KERNEL, (matrices, n, t_dim), dh.BODIES[real])
+    row = {
+        "name": dh.KERNEL, "route": "cuda",
+        "source": "deepsolid_tpu_torch/ops/cuda/csrc/dethead_trace.cu",
+        "replaces": None,  # XLA's fl.mul_row + slogdet_jet in the JAX package
+        "per": f"one launch on ({matrices}, {n}, T {t_dim}) {dh.BODIES[real]}",
+        "path": path, "dtype": str(real)[6:], "shapes": [[matrices, n, t_dim]],
+        "variant": dh.BODIES[real], "splits": dh.splits(t_dim),
+        "max_abs_err": max(abs_errs), "max_rel_err_trb": errs[0], "max_rel_err_l2": errs[1],
+        "max_rel_err": max(errs),
+        "tolerance": tol, "same_bits_two_launches": same, "counted": counted == {key: 2},
+        "ok": max(errs) <= tol and same and counted == {key: 2}, **extra,
+        "ms": time_ms(lambda: dh.dethead_traces(*args), reps=10),
+        "plain_ms": time_ms(lambda: dh.dethead_traces_plain(*args), warmup=1, reps=3),
+        "library_ms": None, "bound_ms": bnd, "bound_by": by,
+    }
+    del args, jr, jbc, val, b_val, a_inv
+    torch.cuda.empty_cache()
+    return row
+
+
 def recorded(fn):
     """fn()'s result and the kernel body of the one jet launch it made, as
     the wrapper counted it."""
@@ -762,6 +840,8 @@ def kernel_phase(dev, gen):
         row.update(singular_logdet=sing_ld, edge_cases=edge,
                    ok=row["ok"] and sing_ld == -math.inf and all(c["ok"] for c in edge))
         rows.append(row)
+    # the det head's tangent stream: one channel of one 64-walker E_L chunk
+    rows.append(dethead_row(dev, gen, EL_CHUNK, 48, 3 * 96))
 
     # B2: two-electron layers of one 64-walker E_L chunk (pair rows)
     rows_b2 = EL_CHUNK * 96 * 96
@@ -891,7 +971,7 @@ def production_kernel_rows(dev, gen, bcc_li_el_chunk, bcc_li_psi_chunk):
     """B1, B2 and B3 at every shape the Si and bcc-Li paths give them: B1
     on a sampler launch (psi_chunk x 8 determinants) and an E_L launch
     (el_chunk x 8) of each, n = 14 and 81; B2 and B3 on one E_L chunk of
-    each. Each row lists its shapes; the Si sampler row also holds 1024
+    each; the det head kernel on one channel of a bcc-Li E_L chunk. Each row lists its shapes; the Si sampler row also holds 1024
     walkers x 8 at n = 14, as runs/si_diamond_run.py samples with
     psi_chunk unset, a shape this run does not launch."""
     si_n, bcc_n = 14, 81
@@ -903,7 +983,8 @@ def production_kernel_rows(dev, gen, bcc_li_el_chunk, bcc_li_psi_chunk):
             b2_row(dev, gen, 2 * si_n, SI_EL_CHUNK, "si", "Si "),
             b2_row(dev, gen, 2 * bcc_n, bcc_li_el_chunk, "bcc_li", "bcc-Li "),
             b3_row(dev, gen, 2 * si_n, SI_EL_CHUNK, "si", "Si "),
-            b3_row(dev, gen, 2 * bcc_n, bcc_li_el_chunk, "bcc_li", "bcc-Li ")]
+            b3_row(dev, gen, 2 * bcc_n, bcc_li_el_chunk, "bcc_li", "bcc-Li "),
+            dethead_row(dev, gen, bcc_li_el_chunk, bcc_n, 6 * bcc_n, "bcc_li")]
     si["ok"] = si["ok"] and si["run_script_shape"]["ok"]
     for row in rows[:4]:  # B1: Si's n = 14 on the warp body, bcc-Li's 81 on the mid one
         row["ok"] = row["ok"] and row["variant"] == B1_BODY[row["path"]]
@@ -951,30 +1032,53 @@ def b1_bodies(shapes):
     return {n: sorted(v) for n, v in sorted(out.items())}
 
 
-def reset_launches():
+def _launch_counters():
+    """The SHAPES counters of the three kernel wrappers."""
     from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+    from deepsolid_tpu_torch.ops.cuda import dethead_kernels as dh
     from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
 
-    dk.SHAPES.clear()
-    jk.SHAPES.clear()
+    return dk.SHAPES, jk.SHAPES, dh.SHAPES
 
 
-# every kernel the two wrappers launch, so each reading names all of them
+def reset_launches():
+    for shapes in _launch_counters():
+        shapes.clear()
+
+
+# every kernel the three wrappers launch, so each reading names all of them
 KERNELS = ("gj_inverse_slogdet", "fused_dense_tanh_jet", "fused_dense_tanh_jet_mix",
-           "fused_dense_tanh_jet_partial", "fused_dense_tanh_jet_mix_partial")
+           "fused_dense_tanh_jet_partial", "fused_dense_tanh_jet_mix_partial",
+           "dethead_traces")
 
 
 def read_launches():
     """Launches by kernel since reset_launches, every kernel of KERNELS
     present (0 for one that has not launched): the wrappers' SHAPES summed
     over shapes and bodies."""
-    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
-    from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
-
     counts = collections.Counter(dict.fromkeys(KERNELS, 0))
-    for (kernel, _, _), count in (dk.SHAPES + jk.SHAPES).items():
-        counts[kernel] += count
+    for shapes in _launch_counters():
+        for (kernel, _, _), count in shapes.items():
+            counts[kernel] += count
     return counts
+
+
+@contextlib.contextmanager
+def composition_det_head():
+    """Inside the block the full-width det head runs as mul_row +
+    slogdet_jet, the contractions the orbital scan chunks, in place of the
+    one-pass kernel (dethead_kernels.serves answers no): the scan's like
+    for like. Two float32 algorithms of E_L differ by their rounding, up to
+    ~1e-3 Ha/cell at a walker near a node; `float32_bias` holds the
+    one-pass path to the card's float64 with this composition beside."""
+    from deepsolid_tpu_torch.ops.cuda import dethead_kernels as dh
+
+    serves = dh.serves
+    dh.serves = lambda *args: False
+    try:
+        yield
+    finally:
+        dh.serves = serves
 
 
 @contextlib.contextmanager
@@ -1002,11 +1106,10 @@ def collective_tensors():
 def read_shapes():
     """Launches by kernel, shape and kernel body since reset_launches, as
     the wrappers count them."""
-    from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
-    from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
-
+    dk_shapes, jk_shapes, dh_shapes = _launch_counters()
     return [{"kernel": k, "shape": list(shape), "variant": v, "launches": c}
-            for (k, shape, v), c in sorted((dk.SHAPES + jk.SHAPES).items(), key=str)]
+            for (k, shape, v), c in sorted((dk_shapes + jk_shapes + dh_shapes).items(),
+                                           key=str)]
 
 
 def diamond_cfg(optimizer, batch, save_name, deriv_devices=1):
@@ -1186,7 +1289,9 @@ def sharded_phase(dev, backend="gloo"):
     chunks = SHARD_BATCH // EL_CHUNK
     expect_b4b = 3 * chunks * SHARD_ITERATIONS
     diffs = [float(np.abs(r["first_el"] - want_el.numpy()).max()) for r in ranks]
-    want_scan, _ = scan_el_chunk(cfg, scan="off")
+    with composition_det_head():
+        want_scan, _ = scan_el_chunk(cfg, scan="off")
+    one_pass, _ = scan_el_chunk(cfg, scan="off")
     scan_diffs = [float(np.abs(r["scan_el"] - want_scan).max()) for r in ranks]
     sharded = statistics.median(
         SHARD_BATCH / it["seconds"]["local_energy"] for it in ranks[0]["iterations"])
@@ -1202,6 +1307,8 @@ def sharded_phase(dev, backend="gloo"):
         "expected_mix_partial_launches": expect_b4b,
         "max_abs_el_diff_per_cell_by_rank": diffs, "tolerance": SHARD_EL_TOLERANCE,
         "orb_scan_max_abs_el_diff_per_cell_by_rank": scan_diffs,
+        "orb_scan_max_abs_el_diff_per_cell_against_one_pass":
+            max(float(np.abs(r["scan_el"] - one_pass).max()) for r in ranks),
         "orb_scan_launches_per_rank": [r["scan_launches"] for r in ranks],
         "energy_per_cell": [r["energy_per_cell"] for r in ranks],
         "energy_per_cell_unsharded": energy,
@@ -2830,7 +2937,9 @@ def full_envelope_phase(dev, si_reference):
 
 def orb_scan_phase(dev, source, bcc_li_reference):
     """DEEPSOLID_TPU_ORB_SCAN=on against off: one 64-walker C-diamond E_L
-    chunk (values, device ms, peak memory) and bcc-Li's chunk memory."""
+    chunk (device ms, peak memory; the scan's values against the full-width
+    composition it chunks, `composition_det_head`, and beside it against
+    the one-pass path) and bcc-Li's chunk memory."""
     import numpy as np
     import torch
     from deepsolid_tpu_torch.hamiltonian import make_local_energy
@@ -2859,7 +2968,12 @@ def orb_scan_phase(dev, source, bcc_li_reference):
             out[scan] = {"device_ms_per_chunk": ms, "peak_memory_bytes": peak,
                          "b1_launches": b1,
                          "el": ((el[0] + el[1]) / cfg.system.cell.scale).cpu().numpy()}
-        diff = float(np.abs(out["on"].pop("el") - out["off"].pop("el")).max())
+        os.environ[ORB_SCAN_ENV] = "off"
+        with torch.no_grad(), composition_det_head():
+            el = el_fn(params, x)
+        composition = ((el[0] + el[1]) / cfg.system.cell.scale).cpu().numpy()
+        diff = float(np.abs(out["on"]["el"] - composition).max())
+        diff_one_pass = float(np.abs(out["on"].pop("el") - out["off"].pop("el")).max())
 
         bcc_cfg, bcc_klist, bcc_params, _ = bcc_li_reference
         el_fn, params, x = setup(bcc_cfg, bcc_klist, BCC_LI_CKPT, bcc_params)
@@ -2880,6 +2994,7 @@ def orb_scan_phase(dev, source, bcc_li_reference):
             and bcc[f"on_{c}"]["peak_memory_bytes"] < PROBE_LIMIT_BYTES]
     result = {"phase": "orb_scan", "diamond_el_chunk": EL_CHUNK, "diamond": out,
               "max_abs_el_diff_per_cell": diff, "tolerance": ORB_SCAN_TOLERANCE,
+              "max_abs_el_diff_per_cell_against_one_pass": diff_one_pass,
               "bcc_li": bcc, "bcc_li_largest_el_chunk_with_scan": max(fits) if fits else None,
               "limit_bytes": PROBE_LIMIT_BYTES}
     result["ok"] = (diff <= ORB_SCAN_TOLERANCE and bool(fits)
@@ -3163,11 +3278,13 @@ def plain_calls():
     block (each module's function wrapped): the counter it yields."""
     import collections
     from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+    from deepsolid_tpu_torch.ops.cuda import dethead_kernels as dh
     from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
 
     counts = collections.Counter()
     saved = []
     for module, name in ((dk, "gj_inverse_slogdet_plain"),
+                         (dh, "dethead_traces_plain"),
                          (jk, "fused_dense_tanh_jet_plain"),
                          (jk, "fused_dense_tanh_jet_mix_plain"),
                          (jk, "fused_dense_tanh_jet_partial_plain"),
@@ -3189,16 +3306,18 @@ def plain_calls():
 
 def float64_bodies_only(shapes):
     """The launch-shape records whose body is not a float64 one: B1's
-    complex128 bodies, the jets' general and pair bodies in double and
-    their wide body in double at any slice count."""
+    complex128 bodies, the jets' general and pair bodies in double,
+    their wide body in double at any slice count, and the det head's
+    complex128 body."""
     import re
 
     import torch
     from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
+    from deepsolid_tpu_torch.ops.cuda import dethead_kernels as dh
     from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
 
     f64 = {*dk.BODIES_C128, jk.variant_label(jk.FLOAT64),
-           jk.variant_label(jk.PAIR, torch.float64)}
+           jk.variant_label(jk.PAIR, torch.float64), dh.BODIES[torch.float64]}
     return [r for r in shapes if r["variant"] not in f64
             and not re.fullmatch(r"wide, float64, \d+ tangent slices", r["variant"])]
 
@@ -3290,7 +3409,8 @@ def float64_kernel_rows(dev, gen, el_chunk, b1_path_shapes):
     production shapes of every system and on the edge matrices (on every
     complex128 body: 40 and 100 take the shared-memory one), B2 and B3
     on one C-diamond E_L chunk of `el_chunk` walkers, B4a and B4b at the
-    float64 sharded chunk's shapes. Each row lists in "path_shapes" the
+    float64 sharded chunk's shapes, the det head kernel (complex128) on
+    one channel of that E_L chunk. Each row lists in "path_shapes" the
     shapes the float64 path launches."""
     import torch
     from deepsolid_tpu_torch.ops.cuda import det_kernels as dk
@@ -3315,7 +3435,8 @@ def float64_kernel_rows(dev, gen, el_chunk, b1_path_shapes):
              open_row(dev, gen, "fused_dense_tanh_jet_partial",
                       [(3, 0, w * 96 * 96, 32, 32, 1), (3, 0, w * 96 * 96, 4, 32, 1)], f64),
              open_row(dev, gen, "fused_dense_tanh_jet_mix_partial",
-                      [(t_loc, w, 96, 16, 256, 1), (t_loc, w, 96, 320, 256, 2)], f64)]
+                      [(t_loc, w, 96, 16, 256, 1), (t_loc, w, 96, 320, 256, 2)], f64),
+             dethead_row(dev, gen, el_chunk, 48, 3 * 96, dtype=f64)]
     for row in rows:
         row["path"] = "float64"
         row.setdefault("path_shapes", row["shapes"][:1] if row["name"] ==
@@ -3428,7 +3549,10 @@ def float32_bias(dev, source, el_chunk):
     """E_L of the 1024 C-diamond checkpoint walkers in float32 and float64
     on the card: the batch-mean difference per primitive cell, its
     standard error, the per-walker median and max, beside the 1e-4
-    Ha/atom budget; and the float64 E_L's walkers/s."""
+    Ha/atom budget; and the float64 E_L's walkers/s. The float32 main path
+    (the det head's one-pass kernel) is held per walker to the float64
+    E_L (F32_EL_LIMITS), with the float32 composition it replaced
+    (`composition_det_head`) read beside it on the same walkers."""
     import numpy as np
     import torch
     from deepsolid_tpu_torch.configs import diamond
@@ -3444,29 +3568,43 @@ def float32_bias(dev, source, el_chunk):
         find_last_checkpoint(os.path.join(REPO, "runs", "ckpt_diamond")))
     data = data[:BATCH]
     out, seconds = {}, {}
-    for dtype in (torch.float32, torch.float64):
+    runs = (("float32", torch.float32, contextlib.nullcontext),
+            ("composition", torch.float32, composition_det_head),
+            ("float64", torch.float64, contextlib.nullcontext))
+    for key, dtype, det_head in runs:
         params = params_from_jax(params_np, dev, dtype)
         x = torch.as_tensor(np.asarray(data, np.float64), dtype=dtype, device=dev)
         torch.cuda.synchronize(dev)
         start = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad(), det_head():
             els = [sum(el_fn(params, x[i:i + el_chunk]))
                    for i in range(0, len(x), el_chunk)]
         torch.cuda.synchronize(dev)
-        seconds[dtype] = time.perf_counter() - start
-        out[dtype] = (torch.cat(els).real.double() / sc.scale).cpu().numpy()
+        seconds[key] = time.perf_counter() - start
+        out[key] = (torch.cat(els).real.double() / sc.scale).cpu().numpy()
         del params, x, els
-    d = out[torch.float32] - out[torch.float64]
+    d = out["float32"] - out["float64"]
+    dc = out["composition"] - out["float64"]
+    worst = np.argsort(-np.abs(d))[:5]
+    median, largest = float(np.median(np.abs(d))), float(np.abs(d).max())
+    above = float((np.abs(d) - np.abs(dc)).max())
     return {"walkers": len(d), "el_chunk": el_chunk,
-            "el_mean_f64_per_cell": float(out[torch.float64].mean()),
+            "el_mean_f64_per_cell": float(out["float64"].mean()),
             "mean_diff_f32_minus_f64_per_cell": float(d.mean()),
             "standard_error_per_cell": float(d.std(ddof=1) / math.sqrt(len(d))),
-            "median_abs_diff_per_cell": float(np.median(np.abs(d))),
-            "max_abs_diff_per_cell": float(np.abs(d).max()),
+            "median_abs_diff_per_cell": median, "max_abs_diff_per_cell": largest,
+            "composition_median_abs_diff_per_cell": float(np.median(np.abs(dc))),
+            "composition_max_abs_diff_per_cell": float(np.abs(dc).max()),
+            "worst_walkers": [{"walker": int(i), "diff": float(d[i]),
+                               "composition_diff": float(dc[i])} for i in worst],
+            "max_abs_diff_above_composition_per_cell": above,
+            "limits_per_cell": F32_EL_LIMITS,
+            "ok": (median <= F32_EL_LIMITS["median"] and largest <= F32_EL_LIMITS["max"]
+                   and above <= F32_EL_LIMITS["above_composition"]),
             "budget_per_cell": F32_BIAS_BUDGET,
-            "seconds_f32": seconds[torch.float32], "seconds_f64": seconds[torch.float64],
-            "walkers_per_s_local_energy_f32": len(d) / seconds[torch.float32],
-            "walkers_per_s_local_energy_f64": len(d) / seconds[torch.float64]}
+            "seconds_f32": seconds["float32"], "seconds_f64": seconds["float64"],
+            "walkers_per_s_local_energy_f32": len(d) / seconds["float32"],
+            "walkers_per_s_local_energy_f64": len(d) / seconds["float64"]}
 
 
 def float64_phase(dev, source, main, north_star, systems, f32_reference, gen):
@@ -3626,7 +3764,7 @@ def float64_phase(dev, source, main, north_star, systems, f32_reference, gen):
                 and r["algebra_launches"]["fused_dense_tanh_jet_partial"] == 1
                 and r["algebra_max_rel_err"] <= JET_F64_TOLERANCE for r in ranks)
         and shard_diff <= F64_EL_TOLERANCE and against_cpu["ok"]
-        and math.isfinite(bias["mean_diff_f32_minus_f64_per_cell"]))
+        and math.isfinite(bias["mean_diff_f32_minus_f64_per_cell"]) and bias["ok"])
 
     # the kernel rows, each with the float64 path's launches at its shapes
     rows = float64_kernel_rows(dev, gen, el_chunk,
@@ -3989,6 +4127,11 @@ def main() -> int:
     idle = [r["name"] for r in kernels if r["launches"] <= 0]
     if idle:
         return fail(f"the driven paths launched no {idle}")
+    # the det head kernel: one launch a spin channel and E_L chunk
+    want = 2 * (BATCH // EL_CHUNK) * ITERATIONS
+    if path_launches["dethead_traces"] != want:
+        return fail(f"the main path launched the det head kernel "
+                    f"{path_launches['dethead_traces']} times, not {want}")
 
     if not bootstrap_phase(dev)["ok"]:
         return fail("the bootstrap phase failed its checks (torchrun's rank not "
@@ -4134,7 +4277,8 @@ def main() -> int:
                     "one-electron jet launch off the wide body in double or a "
                     "complex128 B1 launch off the body its n names, a call "
                     "of a plain version, the sharded E_L, card float64 against "
-                    "CPU float64 or the float32 control, or a float64 body "
+                    "CPU float64 or the float32 control, float32 E_L against "
+                    "the card's float64 (F32_EL_LIMITS), or a float64 body "
                     "against its plain version or never launched at a path shape)")
     f64_systems, shaped = float64_systems_phase(dev, gen, si, bcc_li)
     kernels += shaped

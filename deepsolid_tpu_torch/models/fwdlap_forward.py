@@ -22,6 +22,7 @@ from deepsolid_tpu_torch.models import envelopes as envelopes_lib
 from deepsolid_tpu_torch.models import features as features_lib
 from deepsolid_tpu_torch.models.network import NetworkConfig, SystemSpec
 from deepsolid_tpu_torch.ops import fwdlap as fl
+from deepsolid_tpu_torch.ops.cuda import dethead_kernels
 from deepsolid_tpu_torch.ops.distance import enforce_pbc
 from deepsolid_tpu_torch.utils import profiling
 
@@ -33,10 +34,12 @@ _WARNED = set()
 def _use_orb_scan() -> bool:
     """Gate of the tangent-chunked orbital and determinant head: off by
     default, on with DEEPSOLID_TPU_ORB_SCAN=on (the JAX package's gate). A
-    memory lever: the full-width head builds the (T, B, ndet, n, n)
-    orbital Jacobian after mul_row and the det head packs it again; the
-    scan builds a chunk of tangents at a time and never holds a post-trunk
-    (T, ...) tensor. An unrecognized value warns once and keeps it off."""
+    memory lever: the full-width head holds a channel's orbital products
+    (T, B, n, 2 ndet norb) at once (with full_det also the complex (T, B,
+    ndet, n, n) Jacobian after mul_row, which the det head packs again);
+    the scan builds a chunk of tangents at a time and never holds a
+    post-trunk (T, ...) tensor. An unrecognized value warns once and keeps
+    it off."""
     value = os.environ.get(_ORB_SCAN_ENV, "")
     if value and value not in ("on", "off"):
         if _ORB_SCAN_ENV not in _WARNED:
@@ -228,7 +231,8 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
     klist = [constant(k, x) for k in spec.klist]
     prim_av, prim_bv = spec.prim_av, spec.prim_bv
 
-    channel_jets = []
+    channel_jets = []  # the envelope-phase products, for full_det and the scan
+    dets = []  # per-channel (sign, jet of log det), in channel order
     scan_ing = []  # per-channel ingredients of the tangent-chunk scan
     for ch, (s, e) in enumerate(ranges):
         with profiling.annotate("el.orbitals", ch):
@@ -236,12 +240,24 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
             w_orb = params["orbital"][ch]["w"]
             b_orb = params["orbital"][ch].get("b")
             rows = fl.slice_axis(h_orb_rv, 1, s, e)
+            # a channel's own square matrices: its tangents stay the
+            # orbital GEMM's real products, read once by the det head's
+            # kernel (fl.det_head_jet); full_det's matrices span both
+            # channels and the scan builds its own, so both keep the
+            # complex Jacobian and mul_row
+            one_pass = (not cfg.full_det and not use_scan
+                        and dethead_kernels.serves(spin, dtype, dev))
+            jr = jbc = None
             if h_orb_rc is None:
-                raw = fl.dense(rows, w_orb, b_orb)
                 w_rv = w_orb
+                raw = fl.dense(_jet0(rows) if one_pass else rows, w_orb, b_orb)
             else:
                 w_rv, w_rc = split_w(w_orb, f1_orb)
-                raw = fl.dense_mix(rows, rc0, w_rv, w_rc, b_orb)
+                raw = (fl.dense_mix(_jet0(rows), _jet0(rc0), w_rv, w_rc, b_orb)
+                       if one_pass else fl.dense_mix(rows, rc0, w_rv, w_rc, b_orb))
+            if one_pass:
+                jr = rows.jac @ w_rv  # (T_loc, B, spin, 2 nparam)
+                jbc = None if h_orb_rc is None else (rc0.jac @ w_rc)[:, :, 0]
             nparam = raw.val.shape[-1] // 2
             orb = fl.complexify(fl.slice_axis(raw, -1, 0, nparam),
                                 fl.slice_axis(raw, -1, nparam, 2 * nparam))
@@ -270,7 +286,8 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
             phase_lap = -torch.sum(kcol**2, dim=-1) * phase_val
 
             # envelope * phase: a row-local factor, multiplied into the
-            # orbital jet by fl.mul_row in one pass over the tangent stream
+            # orbital jet in one pass over the tangent stream (by the det
+            # head's kernel, or by fl.mul_row)
             env_val = envr.val.unflatten(-1, (ndet, norb))
             env_jac3 = envr.jac.unflatten(-1, (ndet, norb))  # (3, B, spin, ndet, norb)
             env_lap = envr.lap.unflatten(-1, (ndet, norb))
@@ -282,10 +299,19 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
                       + env_val * phase_lap[:, :, None, :])
             ep_val_sw = ep_val.transpose(1, 2)     # (B, ndet, spin, norb)
             ep_jac3_sw = ep_jac3.transpose(2, 3)   # (3, B, ndet, spin, norb)
+            ep_lap_sw = ep_lap.transpose(1, 2)
+            if one_pass:
+                dets.append(fl.det_head_jet(orb.val, orb.lap, jr, jbc, ep_val_sw,
+                                            ep_jac3_sw, ep_lap_sw, offset=s, shard=shard))
+                del jr, jbc  # before the next channel's orbital GEMM
+                continue
             orb_val0 = orb.val
-            orb = fl.mul_row(orb, ep_val_sw, ep_jac3_sw, ep_lap.transpose(1, 2),
+            orb = fl.mul_row(orb, ep_val_sw, ep_jac3_sw, ep_lap_sw,
                              n_total=n, offset=s, shard=shard)
-            channel_jets.append(orb)
+            if cfg.full_det or use_scan:
+                channel_jets.append(orb)
+            else:
+                dets.append(fl.slogdet_jet(orb, shard=shard))
             if use_scan:
                 offs = [0]
                 for p in orb_parts:
@@ -306,9 +332,10 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
                                                     cfg.full_det, shard)
             return fl.logsumexp_det_jet(sign_total, l_total, shard=shard)
 
+        if cfg.full_det:
+            dets = [fl.slogdet_jet(mats[0], shard=shard)]
         sign_total, l_total = None, None
-        for mat in mats:
-            sign, l = fl.slogdet_jet(mat, shard=shard)
+        for sign, l in dets:
             if l_total is None:
                 sign_total, l_total = sign, l
             else:

@@ -2,7 +2,7 @@
 
 Each source in csrc/ compiles with nvcc into its own shared library with
 a plain C interface, for sm_90a. No PyTorch header is compiled: on an
-H100 machine both sources built in 5.6 s, where a torch/extension.h
+H100 machine the first two sources built in 5.6 s, where a torch/extension.h
 binding alone took 33.6 s through torch.utils.cpp_extension
 (time_builds.py). Device, dtype and shape checks live in the Python
 wrappers, and every launcher returns cudaGetLastError() right after its
@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Tuple
 HERE = Path(__file__).resolve().parent
 CSRC = HERE / "csrc"
 BUILD_DIR = HERE / "_build"
-SOURCES = ("gj_inverse", "dense_tanh_jet")
+SOURCES = ("gj_inverse", "dense_tanh_jet", "dethead_trace")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

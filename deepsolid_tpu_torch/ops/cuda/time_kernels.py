@@ -3,6 +3,7 @@
     python -m deepsolid_tpu_torch.ops.cuda.time_kernels
     python -m deepsolid_tpu_torch.ops.cuda.time_kernels \\
         --baseline DIR [--baseline-slices N] [--baseline-pair] [--slices 2,4,8]
+    python -m deepsolid_tpu_torch.ops.cuda.time_kernels --dethead-only
 
 A kernel's time moves by up to ~30% between machines and runs, so two
 designs are compared inside one process, in turns (baseline, current,
@@ -47,6 +48,19 @@ JSON line per shape, with the bytes bound beside the times, and
 `same_bits`: whether the two designs' outputs on the same inputs agree
 bit for bit (a design that changes no arithmetic must read true; a
 float64 body that sums in another order reads false).
+
+The det head's one-pass kernel (dethead_kernels, csrc/dethead_trace.cu)
+is timed at one spin channel of an E_L chunk of C-diamond 2x2x2 (512
+matrices of 48, T = 288) in float32 and float64 and of bcc-Li 3x3x3 (256
+of 81, T = 486) in float32 (DETHEAD_SHAPES): its launcher alone, the
+wrapper, its plain version, and the whole stage it serves from the
+orbital GEMM's products to (sign, jet of log det) (fl.det_head_jet)
+against today's composition of that stage (the broadcast add, complexify,
+fl.mul_row, fl.slogdet_jet), in turns, with its bound (8 n^3 flops a
+matrix and tangent at the precision's peak: FP32 FMA, and for float64 the
+FP64 tensor cores, with the FMA-only bound beside), and the launcher with
+one block a matrix beside the tangent split it takes (`unsplit_ms`).
+`--dethead-only` times these rows alone.
 """
 
 from __future__ import annotations
@@ -103,6 +117,10 @@ GJ_SHAPES_C128 = ((8192, 48), (512, 48), (4096, 81), (2048, 81), (128, 81),
 # el_chunk 64, bcc-Li's 16, Si's 128; and the sharded chunk's 32 walkers
 F64_PAIR_CHUNKS = ((WALKERS, 96), (16, 162), (128, 28))
 F64_SHARD_WALKERS = 32
+# (walkers, determinants, n, T, precision) of one spin channel of an E_L
+# chunk: C-diamond at el_chunk 64 in float32 and float64, bcc-Li at 32
+DETHEAD_SHAPES = ((WALKERS, 8, 48, 288, "float32"), (WALKERS, 8, 48, 288, "float64"),
+                  (32, 8, 81, 486, "float32"))
 JET_SHAPES_F64 = ((288, ROWS, 16, D_OUT, True, False, WALKERS),
                   (288, ROWS, 320, D_OUT, True, False, WALKERS),
                   (144, ROWS, 16, D_OUT, True, True, WALKERS),
@@ -228,6 +246,7 @@ def main() -> None:
     parser.add_argument("--baseline-slices", type=int, default=None)
     parser.add_argument("--baseline-pair", action="store_true")
     parser.add_argument("--slices", default="2,4,8")
+    parser.add_argument("--dethead-only", action="store_true")
     args = parser.parse_args()
     sweep = [int(s) for s in args.slices.split(",") if s]
 
@@ -242,6 +261,9 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"card": smi, "baseline": str(args.baseline)}), flush=True)
+    if args.dethead_only:
+        dethead_rows(dev, gen)
+        return
 
     gj, jet = dk._lib(), jk._lib()
     gj_base = jet_base = None
@@ -346,6 +368,113 @@ def main() -> None:
             "matmul_ms": time_ms(lambda: torch.matmul(jac, w))}), flush=True)
         del val, jac, lap, mix, current, general
         torch.cuda.empty_cache()
+    dethead_rows(dev, gen)
+
+
+def dethead_launcher(lib, jr, jbc, ep_val, ep_jac3, orb_val0, a_inv, offset, splits):
+    """The det head kernel's launch entry of jr's dtype, on outputs
+    allocated once."""
+    import torch
+
+    from deepsolid_tpu_torch.ops.cuda import dethead_kernels as dh
+
+    t_loc, batch, n, _ = jr.shape
+    ndet = ep_val.shape[1]
+    trb = torch.empty(t_loc, batch, ndet, dtype=ep_val.dtype, device=jr.device)
+    l2 = torch.empty(splits, batch, ndet, dtype=ep_val.dtype, device=jr.device)
+    entry = (lib.dethead_trace_launch_c128 if jr.dtype == torch.float64
+             else lib.dethead_trace_launch)
+
+    def run():
+        code = entry(jr.data_ptr(), jbc.data_ptr(), ep_val.data_ptr(), ep_jac3.data_ptr(),
+                     orb_val0.data_ptr(), a_inv.data_ptr(), trb.data_ptr(), l2.data_ptr(),
+                     n, ndet, batch, t_loc, splits, offset, 0,
+                     torch.cuda.current_stream().cuda_stream)
+        build.check(lib, code, dh.KERNEL)
+    run.outputs = (trb, l2)
+    return run
+
+
+def dethead_rows(dev, gen) -> None:
+    """One JSON line per DETHEAD_SHAPES entry (the second spin channel, the
+    row-constant block's tangents present, as on both systems' path)."""
+    import torch
+
+    from deepsolid_tpu_torch.ops import fwdlap as fl
+    from deepsolid_tpu_torch.ops.cuda import dethead_kernels as dh
+
+    lib = dh._lib()
+    for walkers, ndet, n, t_dim, precision in DETHEAD_SHAPES:
+        real = getattr(torch, precision)
+        cplx = dh._COMPLEX[real]
+
+        def rnd(*shape, dtype=real):
+            return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+        two_p, offset = 2 * ndet * n, n
+        eye = torch.eye(n, device=dev, dtype=real).repeat(1, ndet)
+        val = torch.complex(eye + rnd(walkers, n, ndet * n) / n**0.5,
+                            rnd(walkers, n, ndet * n) / n**0.5)
+        val = val.unflatten(-1, (ndet, n)).transpose(1, 2)  # (B, D, n, n)
+        lap = torch.complex(rnd(walkers, ndet, n, n), rnd(walkers, ndet, n, n))
+        jr, jbc = rnd(t_dim, walkers, n, two_p) / n**0.5, rnd(t_dim, walkers, two_p) / n**0.5
+        b_val = 1.0 + 0.1 * torch.complex(rnd(walkers, ndet, n, n), rnd(walkers, ndet, n, n))
+        b_jac3 = torch.complex(rnd(3, walkers, ndet, n, n), rnd(3, walkers, ndet, n, n))
+        b_lap = torch.complex(rnd(walkers, ndet, n, n), rnd(walkers, ndet, n, n))
+        assert b_val.dtype == cplx
+        a_inv = fl.det_factor(val * b_val)[0]
+        matrices = walkers * ndet
+        splits = dh.splits(t_dim)
+        kernel = dethead_launcher(lib, jr, jbc, b_val, b_jac3, val, a_inv, offset, splits)
+        unsplit = dethead_launcher(lib, jr, jbc, b_val, b_jac3, val, a_inv, offset, 1)
+        kernel_ms, unsplit_ms = [], []
+        for _ in range(2):  # in turns: the split, one block a matrix
+            kernel_ms.append(time_ms(kernel))
+            unsplit_ms.append(time_ms(unsplit))
+        first = tuple(x.clone() for x in kernel.outputs)
+        kernel()
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(first, kernel.outputs))
+        args = (jr, jbc, b_val, b_jac3, val, a_inv, offset, 0)
+        got = dh.dethead_traces(*args)
+        want = dh.dethead_traces_plain(*args)
+        err = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(got, want))
+        plain_ms = time_ms(lambda: dh.dethead_traces_plain(*args), warmup=1, reps=3)
+        del want
+
+        def composition():
+            jac = jr + jbc[:, :, None, :]
+            jc = torch.complex(jac[..., :ndet * n], jac[..., ndet * n:])
+            orb = fl.Jet(val, jc.unflatten(-1, (ndet, n)).transpose(2, 3), lap)
+            mat = fl.mul_row(orb, b_val, b_jac3, b_lap, n_total=2 * n, offset=offset)
+            return fl.slogdet_jet(mat)
+
+        def one_pass():
+            return fl.det_head_jet(val, lap, jr, jbc, b_val, b_jac3, b_lap, offset=offset)
+
+        comp_first = time_ms(composition, warmup=1, reps=5)
+        stage_ms = [time_ms(one_pass, warmup=1, reps=5), time_ms(one_pass, warmup=1, reps=5)]
+        comp_ms = [comp_first, time_ms(composition, warmup=1, reps=5)]
+        f64 = real == torch.float64
+        flops = 8.0 * n**3 * matrices * t_dim
+        real_bytes = jr.element_size()
+        nbytes = real_bytes * (jr.numel() + jbc.numel()) + 2 * real_bytes * (
+            5 * matrices * n * n + t_dim * matrices + splits * matrices)
+        print(json.dumps({
+            "kernel": dh.KERNEL, "precision": precision, "matrices": matrices, "n": n,
+            "T": t_dim, "splits": splits, "body": dh.BODIES[real],
+            "ms": kernel_ms, "unsplit_ms": unsplit_ms,
+            "wrapper_ms": time_ms(lambda: dh.dethead_traces(*args)),
+            "bound_ms": max(flops / (PEAK_FP64_TENSOR if f64 else PEAK_FP32),
+                            nbytes / PEAK_BYTES) * 1e3,
+            **({"bound_ms_fp64_fma": max(flops / PEAK_FP64_FMA, nbytes / PEAK_BYTES) * 1e3}
+               if f64 else {}),
+            "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3, "plain_ms": plain_ms,
+            "max_rel_err_vs_plain": err, "same_bits_two_launches": same,
+            "stage_ms": stage_ms, "composition_stage_ms": comp_ms}), flush=True)
+        del jr, jbc, val, lap, b_val, b_jac3, b_lap, a_inv, kernel, unsplit, got, first
+        torch.cuda.empty_cache()
+
 
 if __name__ == "__main__":
     main()

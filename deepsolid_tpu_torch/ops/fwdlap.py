@@ -13,10 +13,11 @@ where the JAX package vmapped over walkers, so e.g. a one-electron layer
 has val (B, n, f) and jac (T, B, n, f). Functions that index electron
 rows say which axis holds them.
 
-The fused dense+tanh rules (`dense_tanh`, `dense_tanh_mix`) and the
-determinant factorization (`det_factor`) always go through the kernel
-wrappers of ops/cuda: the CUDA kernels on the card, their plain versions
-for CPU tensors.
+The fused dense+tanh rules (`dense_tanh`, `dense_tanh_mix`), the
+determinant factorization (`det_factor`) and the determinant head's
+tangent stream (`det_head_jet`) always go through the kernel wrappers of
+ops/cuda: the CUDA kernels on the card, their plain versions for CPU
+tensors.
 
 Tangent sharding: functions that contract over the tangent axis take
 `shard` (a parallel.TangentShard, or None), the counterpart of the JAX
@@ -34,7 +35,7 @@ from typing import Callable, Sequence, Tuple
 import torch
 from torch.func import jvp
 
-from deepsolid_tpu_torch.ops.cuda import det_kernels, jet_kernels
+from deepsolid_tpu_torch.ops.cuda import dethead_kernels, det_kernels, jet_kernels
 
 
 def _tsum(x, shard=None):
@@ -205,15 +206,24 @@ def mul_row(a: Jet, b_val, b_jac3, b_lap, n_total: int, offset: int,
     """
     rows, t_loc = a.val.shape[-2], a.jac.shape[0]
     t0 = 0 if shard is None else shard.t0(t_loc)
-    lo = max(3 * offset, t0)
-    hi = max(lo, min(3 * (offset + rows), t0 + t_loc))  # lo == hi: no overlap
-    g = torch.arange(lo, hi, device=a.val.device)
-    i, c, tl = g // 3 - offset, g % 3, g - t0
+    tl, i, c = dethead_kernels.slab(t0, t_loc, offset, rows, a.val.device)
     bj = b_jac3[c, :, :, i, :]  # (len, B, D, F)
-    slab = a.jac[tl, :, :, i, :]  # (len, B, D, F)
-    prod = slab * bj
-    cross = torch.zeros((rows,) + slab.shape[1:], dtype=slab.dtype,
-                        device=slab.device)
+    cross = _row_cross(a.jac[tl, :, :, i, :] * bj, max(3 * offset, t0), offset, rows,
+                       shard)
+    jac = a.jac * b_val
+    jac[tl, :, :, i, :] = jac[tl, :, :, i, :] + a.val[:, :, i, :].permute(2, 0, 1, 3) * bj
+    return Jet(a.val * b_val, jac, a.lap * b_val + a.val * b_lap + 2.0 * cross)
+
+
+def _row_cross(prod, lo: int, offset: int, rows: int, shard=None):
+    """The product rule's cross term of a row-local factor: prod (len, B,
+    D, F) holds, for the consecutive global tangents lo, lo + 1, ... that
+    move an electron of the channel (`dethead_kernels.slab`), that
+    tangent's slab row of the jet's Jacobian times the factor's Jacobian;
+    each row sums its (up to) three. Returns (B, D, rows, F), summed over
+    the deriv ranks with a shard."""
+    cross = torch.zeros((rows,) + prod.shape[1:], dtype=prod.dtype,
+                        device=prod.device)
     # a row's (up to) three tangents added in the order of their
     # components, one strided slice of consecutive rows a component: the
     # same sums as index_add_ on the CPU, without the card's atomics,
@@ -224,11 +234,7 @@ def mul_row(a: Jet, b_val, b_jac3, b_lap, n_total: int, offset: int,
         r0 = (lo + s) // 3 - offset
         cross[r0:r0 + part.shape[0]] += part
     cross = cross.permute(1, 2, 0, 3)  # (B, D, rows, F)
-    if shard is not None:
-        cross = shard.all_sum(cross)
-    jac = a.jac * b_val
-    jac[tl, :, :, i, :] = jac[tl, :, :, i, :] + a.val[:, :, i, :].permute(2, 0, 1, 3) * bj
-    return Jet(a.val * b_val, jac, a.lap * b_val + a.val * b_lap + 2.0 * cross)
+    return cross if shard is None else shard.all_sum(cross)
 
 
 def complexify(re: Jet, im: Jet) -> Jet:
@@ -370,6 +376,43 @@ def slogdet_jet(mat: Jet, shard=None) -> Tuple[torch.Tensor, Jet]:
     if shard is not None:
         lap2 = shard.all_sum(lap2)
     return sign, Jet(logdet, jac, lap1 - lap2)
+
+
+def det_head_jet(val, lap, jr, jbc, b_val, b_jac3, b_lap, offset: int,
+                 shard=None) -> Tuple[torch.Tensor, Jet]:
+    """(sign, jet of log det A) of one spin channel's determinant head,
+    A = orb * b with b a row-local factor: mul_row's product, then
+    slogdet_jet, without building orb's complex Jacobian.
+
+    val, lap: (B, D, rows, rows) complex, the orbitals' value and
+    Laplacian (electron rows, orbital columns). Their Jacobian arrives as
+    the orbital GEMM's real products: jr (T_loc, B, rows, 2P), P = D rows,
+    the P real parts then the P imaginary ones of each row, and the
+    row-constant block's jbc (T_loc, B, 2P) or None, added to every row.
+    b_val, b_lap (B, D, rows, rows) and b_jac3 (3, B, D, rows, rows) as
+    mul_row takes them; `offset` and `shard` as there. The tangent stream
+    goes through dethead_kernels.dethead_traces in one pass; mul_row's
+    cross term reads only jr's slab rows, in mul_row's order.
+    """
+    rows, ndet, t_loc = val.shape[-2], val.shape[1], jr.shape[0]
+    p = ndet * val.shape[-1]
+    t0 = 0 if shard is None else shard.t0(t_loc)
+    tl, i, c = dethead_kernels.slab(t0, t_loc, offset, rows, val.device)
+    slab = jr[tl, :, i, :]  # (len, B, 2P)
+    if jbc is not None:
+        slab = slab + jbc[tl]
+    slab = torch.complex(slab[..., :p], slab[..., p:]).unflatten(-1, (ndet, -1))
+    cross = _row_cross(slab * b_jac3[c, :, :, i, :], max(3 * offset, t0), offset,
+                       rows, shard)
+    mat_val = val * b_val
+    mat_lap = lap * b_val + val * b_lap + 2.0 * cross
+    a_inv, sign, logdet = det_factor(mat_val)
+    lap1 = torch.sum(a_inv * mat_lap.transpose(-1, -2), dim=(-1, -2))
+    trb, lap2 = dethead_kernels.dethead_traces(jr, jbc, b_val, b_jac3, val, a_inv,
+                                               offset, t0)
+    if shard is not None:
+        lap2 = shard.all_sum(lap2)
+    return sign, Jet(logdet, trb, lap1 - lap2)
 
 
 def logsumexp_det_jet(sign, l: Jet, w=None, shard=None) -> Jet:

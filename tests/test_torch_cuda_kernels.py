@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from deepsolid_tpu_torch.ops.cuda import det_kernels as tdk
+from deepsolid_tpu_torch.ops.cuda import dethead_kernels as tdh
 from deepsolid_tpu_torch.ops.cuda import jet_kernels as tjk
 from deepsolid_tpu_torch.ops.cuda import time_kernels as tk
 
@@ -471,3 +472,74 @@ def _jet_float64_case(cuda_device, t_dim, groups, n, d_in, d_out, mixed, open_su
         torch.testing.assert_close(x, y, **TOL64)
     for x, y in zip(got, getattr(tjk, name)(*args)):
         assert torch.equal(x, y)
+
+
+# the det head's one-pass tangent stream (csrc/dethead_trace.cu) at the
+# production matrices, the tangents cut for time: C-diamond's 512 (64
+# walkers x 8 determinants) of n = 48, bcc-Li's 256 of n = 81, each the
+# second channel with a window whose first tangents lie before its slab
+# (split over 3 and 2 blocks a matrix); a few matrices split over 6
+# blocks; and n = 90, a tile of 6 columns a thread (complex64 only:
+# complex128 serves n <= 84)
+DETHEAD_CASES = {
+    "diamond": dict(batch=64, ndet=8, n=48, offset=48, t0=138, t_loc=48, jbc=True),
+    "bcc_li": dict(batch=32, ndet=8, n=81, offset=81, t0=238, t_loc=32, jbc=True),
+    "split": dict(batch=2, ndet=2, n=16, offset=0, t0=0, t_loc=96, jbc=False),
+    "wide": dict(batch=4, ndet=2, n=90, offset=2, t0=3, t_loc=12, jbc=True),
+}
+
+
+def _dethead_inputs(dev, real, batch, ndet, n, offset, t0, t_loc, jbc, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cplx = tdh._COMPLEX[real]
+
+    def rnd(*shape, dtype=real):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    mat = (batch, ndet, n, n)
+    return (rnd(t_loc, batch, n, 2 * ndet * n), rnd(t_loc, batch, 2 * ndet * n) if jbc else None,
+            rnd(*mat, dtype=cplx), rnd(3, *mat, dtype=cplx), rnd(*mat, dtype=cplx),
+            rnd(*mat, dtype=cplx) / n**0.5, offset, t0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("real", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(DETHEAD_CASES))
+def test_dethead_kernel_matches_plain(cuda_device, case, real):
+    spec = DETHEAD_CASES[case]
+    if spec["n"] > tdh.MAX_N[real]:
+        spec = dict(spec, n=tdh.MAX_N[real])  # the largest complex128 matrix
+    args = _dethead_inputs(cuda_device, real, **spec)
+    matrices, n, t_loc = spec["batch"] * spec["ndet"], spec["n"], spec["t_loc"]
+    key = (tdh.KERNEL, (matrices, n, t_loc), tdh.BODIES[real])
+    before = tdh.SHAPES.copy()
+    b1, jets = tdk.SHAPES.copy(), tjk.SHAPES.copy()
+    got = tdh.dethead_traces(*args)
+    again = tdh.dethead_traces(*args)
+    torch.cuda.synchronize()
+    # one count a launch, under its own key, and none in B1's or the jets'
+    assert tdh.SHAPES - before == {key: 2}
+    assert tdk.SHAPES == b1 and tjk.SHAPES == jets
+    tol = 2e-5 if real == torch.float32 else 1e-12
+    for x, y, z in zip(got, again, tdh.dethead_traces_plain(*args)):
+        assert torch.equal(x, y)  # no atomics: two launches, the same bits
+        torch.testing.assert_close(x, z, rtol=0, atol=tol * float(z.abs().max()))
+
+
+@pytest.mark.cuda
+def test_dethead_kernel_refuses(cuda_device):
+    args = list(_dethead_inputs(cuda_device, torch.float32, 2, 2, 8, 0, 0, 6, True))
+    bad = [
+        (0, args[0].double(), TypeError),                 # products not float32 with complex64
+        (2, args[2].to(torch.complex128), TypeError),     # factors of another precision
+        (5, args[5].cpu(), ValueError),                   # a tensor off the card
+        (4, args[4][:, :, :7], ValueError),               # orb_val0 not (B, D, n, n)
+        (1, args[1][:, :, :-2], ValueError),              # jbc of another width
+        (3, args[3][:2], ValueError),                     # ep_jac3 without three components
+    ]
+    for index, value, error in bad:
+        with pytest.raises(error):
+            tdh.dethead_traces(*args[:index], value, *args[index + 1:])
+    for real, n in ((torch.float32, 97), (torch.float64, 85)):  # past shared memory
+        with pytest.raises(ValueError, match="serves n <="):
+            tdh.dethead_traces(*_dethead_inputs(cuda_device, real, 1, 1, n, 0, 0, 3, False))
