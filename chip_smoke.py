@@ -210,6 +210,15 @@ Phases, one JSON line each; any failure exits non-zero:
                 the two paths launched. `python3 chip_smoke.py
                 --float64-bcc-li` runs the bcc-Li part alone, on the
                 kernels of the checkout it is run from;
+     si_2x2x2 - Si 2x2x2 (224 electrons, 112 a spin) as the benchmark
+                cell si-f32-kfac-512 runs it (portbench's configuration,
+                traffic and step-0 handoff): one KFAC iteration through
+                process() with B1's exact launch count, every (., 112, 112)
+                launch on the mid wide body and every det head launch on
+                the staged complex64 body at (el_chunk x 8, 112, T 672),
+                two an E_L chunk and pass; then B1 at both of its shapes
+                and the det head kernel at its shape against their plain
+                versions (the det head's 96 tangents at a time);
  19. profile  - torch.profiler over one 64-walker C-diamond local-energy
                 chunk and one bcc-Li chunk (el_chunk walkers): kernels by
                 device time and the device's idle share.
@@ -319,9 +328,18 @@ NORTH_STAR_FALLBACK_PSI_CHUNKS = (256, 512)
 NORTH_STAR_BATCH = 4096
 NORTH_STAR_BATCH_ITERATIONS = 2
 NORTH_STAR_PSI_CHUNKS = (512, 1024, 2048, 4096)
+# Si 2x2x2 (16 atoms, 224 electrons, 112 a spin) as the benchmark cell
+# runs it: its configuration, traffic and step-0 handoff (portbench/), one
+# KFAC iteration from the start the seed draws
+SI_2X2X2_CELL = "si-f32-kfac-512"
+SI_2X2X2_SEED = 3000000501
+SI_2X2X2_ITERATIONS = 1
+# tangents a window of the det head row's plain version at Si 2x2x2's
+# (256, 112, T 672): all 672 at once do not fit beside the row's jr
+DETHEAD_PLAIN_WINDOW = 96
 # the Gauss-Jordan body each system's launches must take (by n alone)
 B1_BODY = {"si": "warp", "bcc_li": "mid", "h10": "warp", "lih": "warp",
-           "graphene": "warp", "north_star_4096": "registers"}
+           "graphene": "warp", "north_star_4096": "registers", "si_2x2x2": "mid, wide"}
 BCC_LI_REFERENCE_WALKERS = 2
 SI_REFERENCE_WALKERS = 8
 # E_L card f32 against CPU f64 per primitive cell: median and max limits
@@ -496,9 +514,11 @@ def gj_edge_cases(dev, gen, errs, dtype=None, tol=5e-3, ns=(48, 14, 81)):
             f"tie{sfx}": tie,
         })
     # warp 1-16 (two matrices a warp) and 17-32, shared 33-47, mid 49-96,
-    # shared from 97 to the shared-memory limit (complex128's at 118)
+    # complex64's mid wide 97-128, shared from 97 (complex128) or 129 to the
+    # shared-memory limit (complex128's at 118)
     top = 168 if dtype == torch.complex64 else 118
-    for n in (1, 13, 16, 17, 32, 33, 47, 49, 96, 97, top):
+    wide = (112, 128, 129) if dtype == torch.complex64 else ()
+    for n in (1, 13, 16, 17, 32, 33, 47, 49, 96, 97, *wide, top):
         cases[f"generic_{n}"] = rnd_c(16, n) / math.sqrt(2 * n)
     out = []
     for name, a in cases.items():
@@ -584,15 +604,30 @@ def b1_row(dev, gen, nb, n, path="main", dtype=None):
     }
 
 
-def dethead_row(dev, gen, walkers, n, t_dim, path="main", dtype=None):
+def windowed_plain(args, window=None):
+    """dethead_traces_plain on `window` tangents at a time (all at once
+    for None): trb concatenated, l2 summed over the windows."""
+    import torch
+    from deepsolid_tpu_torch.ops.cuda import dethead_kernels as dh
+
+    jr, jbc, ep_val, ep_jac3, orb_val0, a_inv, offset, t0 = args
+    window = window or jr.shape[0]
+    parts = [dh.dethead_traces_plain(jr[s:s + window], jbc[s:s + window], ep_val, ep_jac3,
+                                     orb_val0, a_inv, offset, t0 + s)
+             for s in range(0, jr.shape[0], window)]
+    return torch.cat([p[0] for p in parts]), sum(p[1] for p in parts)
+
+
+def dethead_row(dev, gen, walkers, n, t_dim, path="main", dtype=None, window=None):
     """The det head kernel through the main path's call
     (dethead_kernels.dethead_traces) on one spin channel of an E_L chunk:
     `walkers` x 8 determinants of n x n matrices, all t_dim tangents, the
     second channel (offset n) with the row-constant block's tangents, in
     float32 (or `dtype`) products; against its plain version (each output
-    within 2e-5 of its largest entry, 1e-12 in float64), two launches bit
-    for bit, timed beside its bound. `path` names the driven path whose
-    launch count the row reports."""
+    within 2e-5 of its largest entry, 1e-12 in float64; `window` tangents
+    at a time where all do not fit), two launches bit for bit, timed
+    beside its bound. `path` names the driven path whose launch count the
+    row reports."""
     import torch
     from deepsolid_tpu_torch.ops import fwdlap as fl
     from deepsolid_tpu_torch.ops.cuda import dethead_kernels as dh
@@ -622,7 +657,7 @@ def dethead_row(dev, gen, walkers, n, t_dim, path="main", dtype=None):
     again = dh.dethead_traces(*args)
     torch.cuda.synchronize(dev)
     counted = dh.SHAPES - before
-    want = dh.dethead_traces_plain(*args)
+    want = windowed_plain(args, window)
     abs_errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
     errs = [e / float(w.abs().max()) for e, w in zip(abs_errs, want)]
     same = all(torch.equal(g, a) for g, a in zip(got, again))
@@ -634,20 +669,22 @@ def dethead_row(dev, gen, walkers, n, t_dim, path="main", dtype=None):
     flops = 8.0 * n**3 * matrices * t_dim  # A^-1 J_t, n^3 complex multiply-adds
     bnd, by = bound_ms(nbytes, flops, PEAK_FP64_TENSOR if f64 else None)
     extra = {"bound_ms_fp64_fma": bound_ms(nbytes, flops, PEAK_FP64_FMA)[0]} if f64 else {}
-    key = (dh.KERNEL, (matrices, n, t_dim), dh.BODIES[real])
+    body = dh.body(n, real)
+    key = (dh.KERNEL, (matrices, n, t_dim), body)
     row = {
         "name": dh.KERNEL, "route": "cuda",
         "source": "deepsolid_tpu_torch/ops/cuda/csrc/dethead_trace.cu",
         "replaces": None,  # XLA's fl.mul_row + slogdet_jet in the JAX package
-        "per": f"one launch on ({matrices}, {n}, T {t_dim}) {dh.BODIES[real]}",
+        "per": f"one launch on ({matrices}, {n}, T {t_dim}) {body}",
         "path": path, "dtype": str(real)[6:], "shapes": [[matrices, n, t_dim]],
-        "variant": dh.BODIES[real], "splits": dh.splits(t_dim),
+        "variant": body, "splits": dh.splits(t_dim),
         "max_abs_err": max(abs_errs), "max_rel_err_trb": errs[0], "max_rel_err_l2": errs[1],
         "max_rel_err": max(errs),
         "tolerance": tol, "same_bits_two_launches": same, "counted": counted == {key: 2},
         "ok": max(errs) <= tol and same and counted == {key: 2}, **extra,
         "ms": time_ms(lambda: dh.dethead_traces(*args), reps=10),
-        "plain_ms": time_ms(lambda: dh.dethead_traces_plain(*args), warmup=1, reps=3),
+        "plain_ms": time_ms(lambda: windowed_plain(args, window), warmup=1, reps=3),
+        "plain_window": window,
         "library_ms": None, "bound_ms": bnd, "bound_by": by,
     }
     del args, jr, jbc, val, b_val, a_inv
@@ -988,6 +1025,23 @@ def production_kernel_rows(dev, gen, bcc_li_el_chunk, bcc_li_psi_chunk):
     si["ok"] = si["ok"] and si["run_script_shape"]["ok"]
     for row in rows[:4]:  # B1: Si's n = 14 on the warp body, bcc-Li's 81 on the mid one
         row["ok"] = row["ok"] and row["variant"] == B1_BODY[row["path"]]
+    return rows
+
+
+def si_2x2x2_kernel_rows(dev, gen, record):
+    """B1 on Si 2x2x2's sampler launch (the whole batch x 8 determinants;
+    psi_chunk unset) and E_L launch (el_chunk x 8) at n = 112, each on the
+    mid wide body, and the det head kernel on one channel of its E_L chunk
+    (el_chunk x 8, 112, T 672) on the staged complex64 body."""
+    from deepsolid_tpu_torch.ops.cuda import dethead_kernels as dh
+
+    n, batch, chunk = record["electrons"][0], record["batch"], record["el_chunk"]
+    rows = [b1_row(dev, gen, batch * 8, n, "si_2x2x2"),
+            b1_row(dev, gen, chunk * 8, n, "si_2x2x2"),
+            dethead_row(dev, gen, chunk, n, 6 * n, "si_2x2x2", window=DETHEAD_PLAIN_WINDOW)]
+    for row in rows[:2]:
+        row["ok"] = row["ok"] and row["variant"] == B1_BODY["si_2x2x2"]
+    rows[2]["ok"] = rows[2]["ok"] and rows[2]["variant"] == dh.BODY_C64_STAGED
     return rows
 
 
@@ -2235,6 +2289,90 @@ def bcc_li_phase(dev):
     return result, (cfg, klist, start_params, start_data[:BCC_LI_REFERENCE_WALKERS])
 
 
+def si_2x2x2_phase(dev):
+    """Si 2x2x2 on the main path as the benchmark cell SI_2X2X2_CELL runs
+    it (portbench's configuration, traffic and start from the step-0
+    handoff; no pretraining): SI_2X2X2_ITERATIONS KFAC iterations through
+    process(), the launch counters reset just before. Every det head
+    launch must take the staged complex64 body on one channel of an E_L
+    chunk, two an E_L chunk and pass (the composition never runs), and
+    every B1 launch the mid wide body, at B1's exact count."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from deepsolid_tpu_torch.ops.cuda import dethead_kernels as dh
+    from deepsolid_tpu_torch.optim.adam import tree_leaves
+    from deepsolid_tpu_torch.train.process import process
+    from portbench import harness, spec
+
+    cell = spec.Cell(SI_2X2X2_CELL)
+    conf, traffic = cell.config, cell.traffic
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_si_2x2x2-"))
+    iters = []
+
+    def on_iteration(t, row, seconds):
+        row.pop("local_energy")
+        rec = {"phase": "si_2x2x2_iteration", "step": t, **row, "seconds": seconds,
+               "adapted": "adapt" in seconds}
+        iters.append(rec)
+        emit(rec)
+
+    try:
+        harness.write_start(conf, traffic, SI_2X2X2_SEED, work / "restore")
+        cfg = harness.program_config(conf, traffic, work)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        start = time.perf_counter()
+        params, _, energy = process(cfg, SI_2X2X2_ITERATIONS, device="cuda",
+                                    on_iteration=on_iteration)
+        wall = time.perf_counter() - start
+        launches, shapes = read_launches(), read_shapes()
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    sc = cfg.system.cell
+    batch, el_chunk = cfg.batch_size, cfg.optim.el_chunk
+    n = sc.nelec[0]
+    # B1 as bcc_li counts it, the sampler, gradient and capture unchunked
+    n_psi = batch // cfg.optim.psi_chunk if cfg.optim.psi_chunk else 1
+    n_el = -(-batch // el_chunk)
+    adapted = sum(r["adapted"] for r in iters)
+    sweep = (cfg.mcmc.steps + 1) * n_psi
+    b1_want = 2 * (cfg.mcmc.burn_in * sweep
+                   + len(iters) * (sweep + n_el + 2 * n_psi) + adapted * n_el)
+    dethead_want = {(dh.KERNEL, (el_chunk * conf["network"]["determinants"], n, 3 * sum(sc.nelec)),
+                     dh.BODY_C64_STAGED): 2 * n_el * (len(iters) + adapted)}
+    dethead_got = {(r["kernel"], tuple(r["shape"]), r["variant"]): r["launches"]
+                   for r in shapes if r["kernel"] == dh.KERNEL}
+    result = {
+        "phase": "si_2x2x2", "cell": SI_2X2X2_CELL, "seed": SI_2X2X2_SEED,
+        "electrons": list(sc.nelec), "atoms": sc.natom, "batch": batch,
+        "el_chunk": el_chunk, "psi_chunk": cfg.optim.psi_chunk, "burn_in": cfg.mcmc.burn_in,
+        "steps": [r["step"] for r in iters], "adapted": [r["adapted"] for r in iters],
+        "seconds": wall, "seconds_per_iteration": [r["seconds"] for r in iters],
+        "energy_per_cell": energy, "peak_memory_bytes": peak, "launches": launches,
+        "b1_launches_expected": b1_want, "launch_shapes": shapes,
+        "b1_bodies": b1_bodies(shapes),
+        "dethead_launches_expected": [[list(k), v] for k, v in dethead_want.items()],
+    }
+    result["ok"] = (
+        result["steps"] == list(range(SI_2X2X2_ITERATIONS))
+        and launches["gj_inverse_slogdet"] == b1_want
+        and result["b1_bodies"] == {n: [B1_BODY["si_2x2x2"]]}
+        and dethead_got == dethead_want
+        and launches["fused_dense_tanh_jet"] > 0 and launches["fused_dense_tanh_jet_mix"] > 0
+        and all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+        and math.isfinite(energy)
+        and all(math.isfinite(r["energy"]) and math.isfinite(r["grad_norm"]) for r in iters))
+    emit(result)
+    del params
+    torch.cuda.empty_cache()
+    return result
+
+
 def h10_cfg():
     """runs/h10_imp_run.py's settings from its first step."""
     from deepsolid_tpu_torch.configs import hydrogen_chain
@@ -3317,7 +3455,7 @@ def float64_bodies_only(shapes):
     from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
 
     f64 = {*dk.BODIES_C128, jk.variant_label(jk.FLOAT64),
-           jk.variant_label(jk.PAIR, torch.float64), dh.BODIES[torch.float64]}
+           jk.variant_label(jk.PAIR, torch.float64), dh.BODY_C128}
     return [r for r in shapes if r["variant"] not in f64
             and not re.fullmatch(r"wide, float64, \d+ tangent slices", r["variant"])]
 
@@ -4291,6 +4429,20 @@ def main() -> int:
                     "float32 body, a call of a plain version, a non-finite "
                     "value, or B1, B2 or B3 against its plain version or off "
                     "the path's body at a path shape)")
+    si_2x2x2 = si_2x2x2_phase(dev)
+    if not si_2x2x2["ok"]:
+        return fail("the si_2x2x2 phase failed its checks (an iteration, B1's "
+                    "exact launch count or a (., 112, 112) launch off the mid "
+                    "wide body, a det head launch off the staged complex64 "
+                    "body, its shape or its count of two an E_L chunk and "
+                    "pass, or a non-finite value)")
+    shaped = si_2x2x2_kernel_rows(dev, gen, si_2x2x2)
+    kernels += shaped
+    bad = with_path_launches(shaped, {"si_2x2x2": si_2x2x2})
+    if bad:
+        return fail(f"kernels at the Si 2x2x2 shapes disagree with their plain "
+                    f"versions, take another body, or the path launched none "
+                    f"at a shape: {bad}")
     from deepsolid_tpu_torch.configs import diamond
     from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
 

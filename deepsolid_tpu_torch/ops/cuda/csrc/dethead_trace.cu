@@ -45,10 +45,14 @@
 // the pace. TC is 4 up to n = 84 (448 threads at most) and 6 above.
 // M_t then goes to shared memory, so that each thread reads the transposed
 // partner of its entries for sum M_ik M_ki, and one warp sums the
-// diagonal. Complex64 stages M_t in a buffer of its own, which leaves two
-// block barriers a tangent (J_t stored; M_t stored); complex128 stages it
-// over J_t (three buffers of 16-byte entries would not fit a block at n =
-// 81) and takes four. What the chip showed: the loop is bound by latency
+// diagonal. Complex64 stages M_t in a buffer of its own up to n = 96,
+// which leaves two block barriers a tangent (J_t stored; M_t stored);
+// complex128, and complex64 above 96, stage it over J_t (three buffers
+// would not fit a block: at n = 112 two take 202 KB) and take four.
+// Above n = 96 complex64 takes 4 x 8 tiles (n = 112: 392 threads, one
+// block an SM): per k, 6 reads of 16 bytes feed 128 FMAs; Si 2x2x2's 256
+// matrices of 112 and 672 tangents took 79 ms against a bound of 28.9.
+// What the chip showed: the loop is bound by latency
 // (each tangent's reads of device memory and its barriers), so the
 // resident blocks decide the time. Complex64 is compiled to 96 registers,
 // which lets four blocks of C-diamond's n = 48 share an SM (three at 109
@@ -60,7 +64,7 @@
 // tangents, 8 blocks a matrix took 5.56 ms against one block's 6.04
 // (complex128 10.03 against 11.35); at 256 matrices of 48 and 144
 // tangents 1.45 against 1.87; bcc-Li's n = 81 (one block an SM) read
-// the same at every split.
+// the same at every split, and so does every n above 96.
 // Every sum has a fixed order (a tangent's share of l2 in the working
 // precision, the per-thread sum over the tangents and the block's sum in
 // double; shuffles in a fixed pattern): no atomics, so two runs agree bit
@@ -70,8 +74,9 @@
 // products are four real FMAs: plain FP32 (or FP64) FMA, no TF32, no
 // split. Shared memory: n x np entries of
 // A^-1 and one or two n x (np + 16 / entry bytes) buffers for J_t and M_t,
-// np = n rounded up to the tile: complex64 serves n <= 96 (224 KB at 96),
-// complex128 n <= 84 (227 KB at 84, the block's limit).
+// np = n rounded up to the tile: complex64 serves n <= 119 (224 KB at 96
+// with M_t's own buffer, 225 KB at 119 without), complex128 n <= 84 (227
+// KB at 84, the block's limit).
 
 #include <cuda_runtime.h>
 
@@ -84,7 +89,7 @@ struct Cx;
 template <>
 struct Cx<float> {
   using C = float2;
-  static constexpr int kMaxN = 96;
+  static constexpr int kMaxN = 119;  // np = 120: two 120-wide buffers fill a block
   __device__ static float2 make(float x, float y) { return make_float2(x, y); }
   __device__ static float mad(float a, float b, float c) { return __fmaf_rn(a, b, c); }
   // two consecutive entries, 16-byte aligned, as one 128-bit read
@@ -108,19 +113,23 @@ struct Cx<double> {
 
 constexpr int kRows = 4;      // rows of a thread's tile of M_t
 constexpr int kWideN = 84;    // above it (complex64 only), 6 columns a thread
+constexpr int kStagedN = 96;  // above it (complex64 only), 8 columns, M_t over J_t
 
-// Columns of a thread's tile at n: 4 up to kWideN, 6 above (complex64 up
-// to 96), where 4 x 4 tiles would take more than 448 threads.
-__host__ __device__ inline int tile_cols(int n) { return n > kWideN ? 6 : 4; }
+// Columns of a thread's tile at n: 4 up to kWideN, 6 up to kStagedN
+// (complex64), where 4 x 4 tiles would take more than 448 threads, 8
+// above, where 4 x 6 tiles would take more than 512.
+__host__ __device__ inline int tile_cols(int n) {
+  return n > kStagedN ? 8 : n > kWideN ? 6 : 4;
+}
 
 // The tile grid for n x n matrices with TC columns a thread: n rounded up
 // to np, a multiple of 4 and of TC; gr x gc threads of 4 x TC entries, in
-// whole warps (at most 448 for TC 4, 384 for TC 6).
+// whole warps (at most 448 for TC 4, 384 for TC 6, 480 for TC 8).
 template <int TC>
 struct Grid {
   int np, gr, gc;
   __host__ __device__ explicit Grid(int n) {
-    const int unit = TC == 4 ? 4 : 12;
+    const int unit = TC == 4 ? 4 : TC == 6 ? 12 : 8;
     np = (n + unit - 1) / unit * unit;
     gr = np / kRows;
     gc = np / TC;
@@ -136,26 +145,28 @@ __host__ __device__ inline int j_stride(int np) {
   return np + static_cast<int>(16 / sizeof(typename Cx<R>::C));
 }
 
-// complex64 stages M_t in a buffer of its own, so that a tangent takes two
-// block barriers where sharing J_t's takes four; complex128's three n x np
-// buffers would not fit a block at bcc-Li's n
-template <typename R>
-constexpr bool kOwnM = sizeof(R) == 4;
+// complex64 up to n = 96 stages M_t in a buffer of its own, so that a
+// tangent takes two block barriers where sharing J_t's takes four;
+// complex128's three n x np buffers would not fit a block at bcc-Li's n,
+// nor complex64's above 96
+template <typename R, int TC>
+constexpr bool kOwnM = sizeof(R) == 4 && TC != 8;
 
 // The launch bound each kernel is compiled to, which caps its registers:
 // complex64 at 4 columns for 576 threads (at most 112 registers; ptxas
 // took 96), so that four blocks of C-diamond's n = 48 fit an SM, the
 // occupancy its latency needs (bound to 448 it took 109 registers, three
-// blocks fit, and a launch took 1.5x as long).
+// blocks fit, and a launch took 1.5x as long); at 8 columns for the 480
+// threads of n = 119 (one block an SM).
 template <typename R, int TC>
-constexpr int kBoundThreads = sizeof(R) == 8 ? 448 : TC == 4 ? 576 : 384;
+constexpr int kBoundThreads = sizeof(R) == 8 ? 448 : TC == 4 ? 576 : TC == 6 ? 384 : 480;
 
-constexpr int kMaxWarps = 16;  // 448 threads at most: one double2 a warp for l2
+constexpr int kMaxWarps = 16;  // 480 threads at most: one double2 a warp for l2
 
 template <typename R, int TC>
 inline size_t smem_bytes(int n) {
   const int np = Grid<TC>(n).np;
-  const size_t m_buffer = kOwnM<R> ? static_cast<size_t>(n) * j_stride<R>(np) : 0;
+  const size_t m_buffer = kOwnM<R, TC> ? static_cast<size_t>(n) * j_stride<R>(np) : 0;
   return sizeof(typename Cx<R>::C) * (static_cast<size_t>(n) * np +
                                       static_cast<size_t>(n) * j_stride<R>(np) + m_buffer) +
          sizeof(double2) * kMaxWarps;
@@ -191,7 +202,7 @@ dethead_trace_kernel(const R* __restrict__ jr, const R* __restrict__ jbc,
   const int ldj = j_stride<R>(np);
   C* as = reinterpret_cast<C*>(smem_raw);  // as[k * np + i] = A^-1[i][k]
   C* js = as + static_cast<size_t>(n) * np;  // J_t[k][j]
-  C* ms = kOwnM<R> ? js + static_cast<size_t>(n) * ldj : js;  // M_t[i][j]
+  C* ms = kOwnM<R, TC> ? js + static_cast<size_t>(n) * ldj : js;  // M_t[i][j]
   // one l2 a warp, 16-byte aligned (complex64: n np and 2 n ldj entries are even)
   double2* red = reinterpret_cast<double2*>(ms + static_cast<size_t>(n) * ldj);
 
@@ -241,7 +252,7 @@ dethead_trace_kernel(const R* __restrict__ jr, const R* __restrict__ jbc,
                          : nullptr;
     const C* ej3 = ep_jac3 + (static_cast<size_t>(g % 3) * matrices + m) * nn;
 
-    if (!kOwnM<R>) __syncthreads();  // the previous tangent's M_t has been read
+    if (!kOwnM<R, TC>) __syncthreads();  // the previous tangent's M_t has been read
     for (int e = tid; e < n * n; e += nthreads) {
       const int i = e / n, k = e - i * n;
       R re = jr_t[i * row2p + k], im = jr_t[i * row2p + p + k];
@@ -280,7 +291,7 @@ dethead_trace_kernel(const R* __restrict__ jr, const R* __restrict__ jbc,
           for (int q = 0; q < TC; ++q) cfma<C, R>(acc[a][q], av[a], bv[q]);
       }
     }
-    if (!kOwnM<R>) __syncthreads();  // every thread is done with J_t
+    if (!kOwnM<R, TC>) __syncthreads();  // every thread is done with J_t
 
     if (active) {
 #pragma unroll
@@ -380,6 +391,10 @@ int launch(const void* jr, const void* jbc, const void* ep_val, const void* ep_j
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if constexpr (sizeof(R) == 4) {
+    if (tile_cols(n) == 8) {
+      return launch_tc<R, 8>(jr, jbc, ep_val, ep_jac3, orb_val0, a_inv, trb, l2_part, n,
+                             ndet, batch, t_loc, splits, offset, t0, st);
+    }
     if (tile_cols(n) == 6) {
       return launch_tc<R, 6>(jr, jbc, ep_val, ep_jac3, orb_val0, a_inv, trb, l2_part, n,
                              ndet, batch, t_loc, splits, offset, t0, st);
@@ -393,9 +408,16 @@ int launch(const void* jr, const void* jbc, const void* ep_val, const void* ep_j
 
 extern "C" {
 
-// Largest n each scalar serves: 96 complex64, 84 complex128.
+// Largest n each scalar serves: 119 complex64, 84 complex128.
 int dethead_max_n(int is_double) {
   return is_double ? Cx<double>::kMaxN : Cx<float>::kMaxN;
+}
+
+// Columns of a thread's tile of M_t, which names the instantiation that
+// launches for n (4, 6 or 8); 0 where the scalar does not serve n.
+int dethead_tile_cols(int n, int is_double) {
+  if (is_double) return serves<double>(n) ? 4 : 0;
+  return serves<float>(n) ? tile_cols(n) : 0;
 }
 
 // jr: (t_loc, batch, n, 2 ndet n) float; jbc: (t_loc, batch, 2 ndet n) or

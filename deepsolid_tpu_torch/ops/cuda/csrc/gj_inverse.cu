@@ -27,7 +27,7 @@
 // fill the card (512 matrices of 14, 256 of 81) takes one matrix's own
 // latency, n steps of pivot search + broadcast + update.
 //
-// Design, four bodies chosen by n alone (gj_body). The three register
+// Design, five bodies chosen by n alone (gj_body). The three register
 // bodies keep the matrix in registers for the whole elimination and share
 // one scheme: rows are never swapped; a position (where the explicit
 // algorithm would hold each row) keeps the pivot rule, the tie rule and
@@ -85,7 +85,13 @@
 //     (time_gj_variants.py), as did one barrier per step with the search
 //     a step ahead, a rolled loop over the column tiles, and the pivot
 //     arithmetic left to the pivot row's owners.
-//   * shared (33-47 and 97 up to 168, the shared-memory limit): one block
+//   * mid, wide (97 <= n <= 128: Si 2x2x2's 112 electrons per spin). The
+//     mid body compiled for a padded size of 128: 8 x 8 complex entries a
+//     lane (204 registers, no spill), so one block an SM. At (4096, 112,
+//     112) it took 4.75 ms against the shared body's 14.62 (graph-timed in
+//     turns on an H100); at 81 it would take 3.20 against the 6 x 6 tile's
+//     1.63, so 49-96 keep that one.
+//   * shared (33-47 and 129 up to 168, the shared-memory limit): one block
 //     per matrix in shared memory, warp 0 picks the pivot, one pass per
 //     step applies swap and elimination, three barriers per step.
 // Plain FP32 arithmetic, no fast-math.
@@ -633,6 +639,7 @@ gj_warp_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
 constexpr int kMidMin = 49;            // smallest n of the mid kernel
 constexpr int kMidN = 96;              // its padded size: 6 x 6 per lane
 constexpr int kMidTile = kMidN / 16;   // entries per lane along each axis
+constexpr int kMidWideN = 128;         // complex64 above kMidN: 8 x 8 per lane
 constexpr int kMidThreads = 256;       // a 16 x 16 lane grid
 
 // Dynamic shared memory of the mid kernels: their n x (n + 1) tile of C.
@@ -652,16 +659,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kMidThreads, 2)
+// N is the padded size: kMidN (two blocks an SM at <= 128 registers) or
+// kMidWideN (one block an SM)
+template <int N>
+__global__ void __launch_bounds__(kMidThreads, N == kMidN ? 2 : 1)
 gj_mid_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
               float2* __restrict__ sign_out, float* __restrict__ logdet_out,
               int n) {
-  constexpr int T = kMidTile;
+  constexpr int T = N / 16;
   extern __shared__ float2 tile[];  // n x (n + 1): the matrix in, A^-1 out
-  __shared__ float2 fcol[2][kMidN];  // column k of this step, by parity of k
-  __shared__ float2 prow[2][kMidN];  // the scaled pivot row, the same
-  __shared__ int pos_s[kMidN];
-  __shared__ int row_at_s[kMidN];
+  __shared__ float2 fcol[2][N];  // column k of this step, by parity of k
+  __shared__ float2 prow[2][N];  // the scaled pivot row, the same
+  __shared__ int pos_s[N];
+  __shared__ int row_at_s[N];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -688,9 +698,9 @@ gj_mid_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
   }
 
   // every warp scans rows lane + 32 q and keeps their positions
-  int pos[kMidN / 32];
+  int pos[N / 32];
 #pragma unroll
-  for (int q = 0; q < kMidN / 32; ++q) pos[q] = lane + 32 * q;
+  for (int q = 0; q < N / 32; ++q) pos[q] = lane + 32 * q;
   float2 sign = make_float2(1.f, 0.f);
   float logdet = 0.f;
 
@@ -710,10 +720,10 @@ gj_mid_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
       }
       __syncthreads();  // one: column k is published
 
-      unsigned key[kMidN / 32];
+      unsigned key[N / 32];
       unsigned kmax = 0u;
 #pragma unroll
-      for (int q = 0; q < kMidN / 32; ++q) {
+      for (int q = 0; q < N / 32; ++q) {
         const int row = lane + 32 * q;
         key[q] = pivot_key(fcol[buf][row], row < n && pos[q] >= k);
         kmax = max(kmax, key[q]);
@@ -721,7 +731,7 @@ gj_mid_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
       kmax = __reduce_max_sync(kFull, kmax);
       unsigned cand = 0xffffffffu;  // (position, row) of the smallest position
 #pragma unroll
-      for (int q = 0; q < kMidN / 32; ++q) {
+      for (int q = 0; q < N / 32; ++q) {
         if (key[q] == kmax) {
           cand = min(cand, (static_cast<unsigned>(pos[q]) << 8) |
                                static_cast<unsigned>(lane + 32 * q));
@@ -740,7 +750,7 @@ gj_mid_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
       logdet += 0.5f * logf(den);
       const float2 d = make_float2(bval.x * inv_den, -bval.y * inv_den);
 #pragma unroll
-      for (int q = 0; q < kMidN / 32; ++q) {
+      for (int q = 0; q < N / 32; ++q) {
         if (lane + 32 * q == brow) {
           pos[q] = k;
         } else if (pos[q] == k) {
@@ -793,7 +803,7 @@ gj_mid_kernel(const float2* __restrict__ a, float2* __restrict__ ainv,
   // every row's position
   if (tid < 32) {
 #pragma unroll
-    for (int q = 0; q < kMidN / 32; ++q) {
+    for (int q = 0; q < N / 32; ++q) {
       const int row = lane + 32 * q;
       if (row < n) {
         pos_s[row] = pos[q];
@@ -1405,11 +1415,12 @@ gj_mid_double_kernel(const double2* __restrict__ a, double2* __restrict__ ainv,
 extern "C" {
 
 // The body that serves n x n matrices, by n alone: 1 warp, 2 registers,
-// 3 mid, 0 shared (det_kernels.BODIES names them).
+// 3 mid, 4 mid wide, 0 shared (det_kernels.BODIES names them).
 int gj_body(int n) {
   if (n <= 32) return 1;
   if (n == 48) return 2;
   if (n >= kMidMin && n <= kMidN) return 3;
+  if (n > kMidN && n <= kMidWideN) return 4;
   return 0;
 }
 
@@ -1419,6 +1430,7 @@ long long gj_smem_bytes(int n) {
     case 0:
       return shared_body_bytes<float2>(n);
     case 3:
+    case 4:
       return mid_tile_bytes<float2>(n);
     default:
       return 0;
@@ -1462,10 +1474,18 @@ int gj_inverse_slogdet_launch(const void* a, void* ainv, void* sign,
       break;
     case 3: {
       const cudaError_t err = cudaFuncSetAttribute(
-          gj_mid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          gj_mid_kernel<kMidN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
-      gj_mid_kernel<<<batch, kMidThreads, smem, st>>>(ap, ip, sp, lp, n);
+      gj_mid_kernel<kMidN><<<batch, kMidThreads, smem, st>>>(ap, ip, sp, lp, n);
+      break;
+    }
+    case 4: {
+      const cudaError_t err = cudaFuncSetAttribute(
+          gj_mid_kernel<kMidWideN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      gj_mid_kernel<kMidWideN><<<batch, kMidThreads, smem, st>>>(ap, ip, sp, lp, n);
       break;
     }
     default: {

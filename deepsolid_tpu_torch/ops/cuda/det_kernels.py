@@ -1,11 +1,12 @@
 """Batched complex Gauss-Jordan inverse + slogdet: CUDA kernel and plain version.
 
 Counterpart of deepsolid_tpu/ops/pallas/det_kernels.py. The source
-(csrc/gj_inverse.cu) holds four complex64 kernel bodies, chosen by the
-matrix size alone (`variant`, which asks the library's gj_body): three
+(csrc/gj_inverse.cu) holds five complex64 kernel bodies, chosen by the
+matrix size alone (`variant`, which asks the library's gj_body): four
 keep a matrix in registers, "warp" (n <= 32, one lane per row, two
-matrices per warp for n <= 16), "registers" (n = 48, one warp per matrix)
-and "mid" (49 <= n <= 96, a block of 8 warps per matrix); "shared" keeps
+matrices per warp for n <= 16), "registers" (n = 48, one warp per matrix),
+"mid" (49 <= n <= 96, a block of 8 warps per matrix) and "mid, wide"
+(97 <= n <= 128, the same with 8 x 8 entries a lane); "shared" keeps
 it in the shared memory of one block, for any other size up to the
 card's shared-memory limit. complex128 (precision='float64') has the
 same four bodies in double, chosen by n alone (`variant_c128`, which asks
@@ -30,7 +31,7 @@ from deepsolid_tpu_torch.ops.cuda import build
 from deepsolid_tpu_torch.utils import profiling
 
 # the kernel bodies by the code gj_body returns
-BODIES = ("shared", "warp", "registers", "mid")
+BODIES = ("shared", "warp", "registers", "mid", "mid, wide")
 # the complex128 bodies by the code gj_body_c128 returns: the
 # shared-memory one in double, the register one at n = 48, the warp one at
 # n <= 32 and the mid one at 49-96

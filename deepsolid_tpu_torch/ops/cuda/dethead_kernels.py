@@ -34,8 +34,13 @@ from deepsolid_tpu_torch.ops.cuda import build
 from deepsolid_tpu_torch.utils import profiling
 
 KERNEL = "dethead_traces"
-# the kernel body by the products' dtype (one template on the scalar)
-BODIES = {torch.float32: "complex64", torch.float64: "complex128"}
+# the kernel body by the products' dtype and the columns of a thread's tile
+# of M_t (dethead_tile_cols in the source): complex64 keeps M_t in a buffer
+# of its own at 4 and 6 columns (n <= 96) and stages it over J_t at 8
+# (97 <= n <= 119); complex128 stages it over J_t at 4
+BODY_C64, BODY_C64_STAGED, BODY_C128 = "complex64", "complex64, staged", "complex128"
+BODIES = {(torch.float32, 4): BODY_C64, (torch.float32, 6): BODY_C64,
+          (torch.float32, 8): BODY_C64_STAGED, (torch.float64, 4): BODY_C128}
 # launches by (kernel, (matrices, n, T_loc), body): every launch, counted once
 SHAPES = collections.Counter()
 # a matrix's tangents go to at most MAX_SPLITS blocks of at least
@@ -50,11 +55,12 @@ _SIGNATURES = {
     "dethead_trace_launch": (_I, [_P] * 8 + [_I] * 7 + [_P]),
     "dethead_trace_launch_c128": (_I, [_P] * 8 + [_I] * 7 + [_P]),
     "dethead_max_n": (_I, [_I]),
+    "dethead_tile_cols": (_I, [_I, _I]),
 }
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
-# largest n each products' dtype serves (dethead_max_n in the source):
-# complex128 is held to 84 by a block's shared memory
-MAX_N = {torch.float32: 96, torch.float64: 84}
+# largest n each products' dtype serves (dethead_max_n in the source), both
+# held there by a block's shared memory
+MAX_N = {torch.float32: 119, torch.float64: 84}
 
 
 def slab(t0: int, t_loc: int, offset: int, rows: int, device=None):
@@ -88,6 +94,12 @@ def dethead_traces_plain(jr, jbc, ep_val, ep_jac3, orb_val0, a_inv, offset, t0):
 
 def _lib():
     return build.library("dethead_trace", _SIGNATURES)
+
+
+def body(n: int, dtype: torch.dtype) -> str:
+    """The body that launches for n x n matrices with `dtype` products (one
+    of BODIES), as the library's dispatch picks it."""
+    return BODIES[dtype, _lib().dethead_tile_cols(n, int(dtype == torch.float64))]
 
 
 def splits(t_loc: int) -> int:
@@ -178,7 +190,7 @@ def _cuda(jr, jbc, ep_val, ep_jac3, orb_val0, a_inv, offset, t0):
                          a_inv.data_ptr(), trb.data_ptr(), l2_part.data_ptr(),
                          n, ndet, batch, t_loc, s, offset, t0, stream)
         build.check(lib, code, KERNEL)
-        SHAPES[KERNEL, (matrices, n, t_loc), BODIES[jr.dtype]] += 1
+        SHAPES[KERNEL, (matrices, n, t_loc), body(n, jr.dtype)] += 1
         # the split's partial sums, closed in a fixed order
         return trb, (l2_part[0] if s == 1 else l2_part.sum(0))
 

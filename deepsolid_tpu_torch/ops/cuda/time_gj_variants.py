@@ -46,7 +46,7 @@ from deepsolid_tpu_torch.ops.cuda.time_kernels import gj_launcher, graph_ms
 
 OUT = Path("build") / "gj_variants"
 KEEP_RESULTS = ("current", "persistent", "one_block")
-ATTRIBUTE = """gj_mid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+ATTRIBUTE = """gj_mid_kernel<kMidN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));"""
 
 
@@ -59,7 +59,8 @@ def variants() -> dict:
     src = (build.CSRC / "gj_inverse.cu").read_text()
     cut = src.index("gj_mid_kernel(const float2")
     head, mid = src[:cut], src[cut:]
-    launch = "gj_mid_kernel<<<batch, kMidThreads, smem, st>>>(ap, ip, sp, lp, n);"
+    launch = "gj_mid_kernel<kMidN><<<batch, kMidThreads, smem, st>>>(ap, ip, sp, lp, n);"
+    wide = "gj_mid_kernel<kMidWideN><<<batch, kMidThreads, smem, st>>>(ap, ip, sp, lp, n);"
 
     pers = _sub(mid, "              int n) {", "              int n, int batch) {")
     pers = _sub(pers, """  const size_t base = static_cast<size_t>(blockIdx.x) * nn;
@@ -97,22 +98,24 @@ def variants() -> dict:
     # two tiles a block, and the largest carveout so that two blocks fit an SM
     pers = _sub(pers, ATTRIBUTE, ATTRIBUTE.replace("(smem)", "(2 * smem)") + """
       if (err == cudaSuccess) {
-        cudaFuncSetAttribute(gj_mid_kernel,
+        cudaFuncSetAttribute(gj_mid_kernel<kMidN>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
       }""")
     pers = _sub(pers, launch, """int per_sm = 0, sms = 0, dev = 0;
       cudaGetDevice(&dev);
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gj_mid_kernel,
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gj_mid_kernel<kMidN>,
                                                     kMidThreads, 2 * smem);
       const int grid = batch < per_sm * sms ? batch : per_sm * sms;
-      gj_mid_kernel<<<grid, kMidThreads, 2 * smem, st>>>(ap, ip, sp, lp, n, batch);""")
+      gj_mid_kernel<kMidN><<<grid, kMidThreads, 2 * smem, st>>>(ap, ip, sp, lp, n, batch);""")
+    # the wide instantiation takes the new signature too (not timed here)
+    pers = _sub(pers, wide, wide.replace("lp, n)", "lp, n, batch)"))
 
     one = _sub(mid, launch, launch.replace("smem, st", "120000, st"))
     one = _sub(one, ATTRIBUTE, ATTRIBUTE.replace("static_cast<int>(smem)", "120000"))
 
-    search_from = mid.index("      unsigned key[kMidN / 32];")
+    search_from = mid.index("      unsigned key[N / 32];")
     search_to = mid.index("      const float2 bval = fcol[buf][brow];")
     return {
         "current": src,

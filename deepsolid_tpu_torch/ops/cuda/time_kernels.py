@@ -51,8 +51,9 @@ float64 body that sums in another order reads false).
 
 The det head's one-pass kernel (dethead_kernels, csrc/dethead_trace.cu)
 is timed at one spin channel of an E_L chunk of C-diamond 2x2x2 (512
-matrices of 48, T = 288) in float32 and float64 and of bcc-Li 3x3x3 (256
-of 81, T = 486) in float32 (DETHEAD_SHAPES): its launcher alone, the
+matrices of 48, T = 288) in float32 and float64, of bcc-Li 3x3x3 (256
+of 81, T = 486) and of Si 2x2x2 (128 and 256 of 112, T = 672) in float32
+(DETHEAD_SHAPES): its launcher alone, the
 wrapper, its plain version, and the whole stage it serves from the
 orbital GEMM's products to (sign, jet of log det) (fl.det_head_jet)
 against today's composition of that stage (the broadcast add, complexify,
@@ -60,7 +61,11 @@ fl.mul_row, fl.slogdet_jet), in turns, with its bound (8 n^3 flops a
 matrix and tangent at the precision's peak: FP32 FMA, and for float64 the
 FP64 tensor cores, with the FMA-only bound beside), and the launcher with
 one block a matrix beside the tangent split it takes (`unsplit_ms`).
-`--dethead-only` times these rows alone.
+Where the plain version or the composition would not fit the card's
+free memory (about five copies of the orbital Jacobian: Si's 256
+matrices), the plain version is read on the first 8 walkers and the
+composition's and the plain version's times are null. `--dethead-only` times
+these rows alone.
 """
 
 from __future__ import annotations
@@ -120,7 +125,8 @@ F64_SHARD_WALKERS = 32
 # (walkers, determinants, n, T, precision) of one spin channel of an E_L
 # chunk: C-diamond at el_chunk 64 in float32 and float64, bcc-Li at 32
 DETHEAD_SHAPES = ((WALKERS, 8, 48, 288, "float32"), (WALKERS, 8, 48, 288, "float64"),
-                  (32, 8, 81, 486, "float32"))
+                  (32, 8, 81, 486, "float32"), (16, 8, 112, 672, "float32"),
+                  (32, 8, 112, 672, "float32"))
 JET_SHAPES_F64 = ((288, ROWS, 16, D_OUT, True, False, WALKERS),
                   (288, ROWS, 320, D_OUT, True, False, WALKERS),
                   (144, ROWS, 16, D_OUT, True, True, WALKERS),
@@ -437,9 +443,16 @@ def dethead_rows(dev, gen) -> None:
         same = all(torch.equal(x, y) for x, y in zip(first, kernel.outputs))
         args = (jr, jbc, b_val, b_jac3, val, a_inv, offset, 0)
         got = dh.dethead_traces(*args)
-        want = dh.dethead_traces_plain(*args)
-        err = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(got, want))
-        plain_ms = time_ms(lambda: dh.dethead_traces_plain(*args), warmup=1, reps=3)
+        # the plain version and the composition hold ~5 copies of jr
+        whole = 5 * jr.numel() * jr.element_size() < torch.cuda.mem_get_info(dev)[0]
+        plain_ms = (time_ms(lambda: dh.dethead_traces_plain(*args), warmup=1, reps=3)
+                    if whole else None)
+        # the plain version on the walkers the card holds it for
+        part = walkers if whole else min(walkers, 8)
+        want = dh.dethead_traces_plain(jr[:, :part], jbc[:, :part], b_val[:part],
+                                       b_jac3[:, :part], val[:part], a_inv[:part], offset, 0)
+        err = max(float((x - y).abs().max() / y.abs().max())
+                  for x, y in zip((got[0][:, :part], got[1][:part]), want))
         del want
 
         def composition():
@@ -452,9 +465,9 @@ def dethead_rows(dev, gen) -> None:
         def one_pass():
             return fl.det_head_jet(val, lap, jr, jbc, b_val, b_jac3, b_lap, offset=offset)
 
-        comp_first = time_ms(composition, warmup=1, reps=5)
+        comp_first = time_ms(composition, warmup=1, reps=5) if whole else None
         stage_ms = [time_ms(one_pass, warmup=1, reps=5), time_ms(one_pass, warmup=1, reps=5)]
-        comp_ms = [comp_first, time_ms(composition, warmup=1, reps=5)]
+        comp_ms = [comp_first, time_ms(composition, warmup=1, reps=5) if whole else None]
         f64 = real == torch.float64
         flops = 8.0 * n**3 * matrices * t_dim
         real_bytes = jr.element_size()
@@ -462,7 +475,7 @@ def dethead_rows(dev, gen) -> None:
             5 * matrices * n * n + t_dim * matrices + splits * matrices)
         print(json.dumps({
             "kernel": dh.KERNEL, "precision": precision, "matrices": matrices, "n": n,
-            "T": t_dim, "splits": splits, "body": dh.BODIES[real],
+            "T": t_dim, "splits": splits, "body": dh.body(n, real),
             "ms": kernel_ms, "unsplit_ms": unsplit_ms,
             "wrapper_ms": time_ms(lambda: dh.dethead_traces(*args)),
             "bound_ms": max(flops / (PEAK_FP64_TENSOR if f64 else PEAK_FP32),

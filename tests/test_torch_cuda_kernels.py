@@ -42,17 +42,19 @@ def _gj_body(n):
         return "warp"
     if n == 48:
         return "registers"
-    return "mid" if 49 <= n <= 96 else "shared"
+    if 49 <= n <= 96:
+        return "mid"
+    return "mid, wide" if 97 <= n <= 128 else "shared"
 
 
 @pytest.mark.cuda
 def test_gj_kernel_matches_plain(cuda_device):
     rnd = _rnd(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
-    # every body at the production sizes (14, 48, 81) and at both ends of
-    # its range: warp 1-16 (two matrices a warp) and 17-32, shared 33-47,
-    # registers 48, mid 49-96, shared again from 97 (100: above 48 KB of
-    # shared memory, by opt-in)
-    for n in (1, 5, 13, 14, 16, 17, 32, 33, 47, 48, 49, 81, 96, 97, 100):
+    # every body at the production sizes (14, 48, 81, 112) and at both ends
+    # of its range: warp 1-16 (two matrices a warp) and 17-32, shared 33-47,
+    # registers 48, mid 49-96, mid wide 97-128, shared again from 129 (above
+    # 48 KB of shared memory, by opt-in)
+    for n in (1, 5, 13, 14, 16, 17, 32, 33, 47, 48, 49, 81, 96, 97, 100, 112, 128, 129):
         a = torch.complex(rnd(64, n, n), rnd(64, n, n)) + 4.0 * torch.eye(n, device=cuda_device)
         before = _launches(tdk, "gj_inverse_slogdet")
         key = ("gj_inverse_slogdet", (64, n, n), _gj_body(n))
@@ -96,8 +98,9 @@ def test_gj_warp_body_batches(cuda_device, batch, n):
 
 
 @pytest.mark.cuda
-# the registers, warp (12, 14: Si's), mid (bcc-Li's 81) and shared bodies
-@pytest.mark.parametrize("n", [48, 12, 14, 81, 40])
+# the registers, warp (12, 14: Si's), mid (bcc-Li's 81), mid wide (Si
+# 2x2x2's 112) and shared bodies
+@pytest.mark.parametrize("n", [48, 12, 14, 81, 40, 112])
 @pytest.mark.parametrize("case", ["anti_diagonal", "permutation", "tie",
                                   "zero_pivot", "nan_entry"])
 def test_gj_kernel_edge_matrices(cuda_device, n, case):
@@ -479,13 +482,16 @@ def _jet_float64_case(cuda_device, t_dim, groups, n, d_in, d_out, mixed, open_su
 # walkers x 8 determinants) of n = 48, bcc-Li's 256 of n = 81, each the
 # second channel with a window whose first tangents lie before its slab
 # (split over 3 and 2 blocks a matrix); a few matrices split over 6
-# blocks; and n = 90, a tile of 6 columns a thread (complex64 only:
-# complex128 serves n <= 84)
+# blocks; n = 90, a tile of 6 columns a thread; Si 2x2x2's 256 of n = 112
+# and the largest, 119, on 8-column tiles with M_t staged over J_t
+# (complex64 only: complex128 serves n <= 84, and takes 84 there)
 DETHEAD_CASES = {
     "diamond": dict(batch=64, ndet=8, n=48, offset=48, t0=138, t_loc=48, jbc=True),
     "bcc_li": dict(batch=32, ndet=8, n=81, offset=81, t0=238, t_loc=32, jbc=True),
     "split": dict(batch=2, ndet=2, n=16, offset=0, t0=0, t_loc=96, jbc=False),
     "wide": dict(batch=4, ndet=2, n=90, offset=2, t0=3, t_loc=12, jbc=True),
+    "si": dict(batch=32, ndet=8, n=112, offset=112, t0=326, t_loc=32, jbc=True),
+    "widest": dict(batch=2, ndet=2, n=119, offset=0, t0=345, t_loc=20, jbc=True),
 }
 
 
@@ -511,7 +517,7 @@ def test_dethead_kernel_matches_plain(cuda_device, case, real):
         spec = dict(spec, n=tdh.MAX_N[real])  # the largest complex128 matrix
     args = _dethead_inputs(cuda_device, real, **spec)
     matrices, n, t_loc = spec["batch"] * spec["ndet"], spec["n"], spec["t_loc"]
-    key = (tdh.KERNEL, (matrices, n, t_loc), tdh.BODIES[real])
+    key = (tdh.KERNEL, (matrices, n, t_loc), tdh.body(n, real))
     before = tdh.SHAPES.copy()
     b1, jets = tdk.SHAPES.copy(), tjk.SHAPES.copy()
     got = tdh.dethead_traces(*args)
@@ -540,6 +546,6 @@ def test_dethead_kernel_refuses(cuda_device):
     for index, value, error in bad:
         with pytest.raises(error):
             tdh.dethead_traces(*args[:index], value, *args[index + 1:])
-    for real, n in ((torch.float32, 97), (torch.float64, 85)):  # past shared memory
+    for real, n in ((torch.float32, 120), (torch.float64, 85)):  # past shared memory
         with pytest.raises(ValueError, match="serves n <="):
             tdh.dethead_traces(*_dethead_inputs(cuda_device, real, 1, 1, n, 0, 0, 3, False))

@@ -131,7 +131,9 @@ def test_split_rule():
         assert s == 1 or per >= dh.MIN_TANGENTS_PER_BLOCK
     assert dh.serves(200, torch.float64, torch.device("cpu"))
     assert dh.serves(96, torch.float32, torch.device("cuda"))
-    assert not dh.serves(97, torch.float32, torch.device("cuda"))
+    assert dh.serves(112, torch.float32, torch.device("cuda"))
+    assert dh.serves(119, torch.float32, torch.device("cuda"))
+    assert not dh.serves(120, torch.float32, torch.device("cuda"))
     assert not dh.serves(85, torch.float64, torch.device("cuda"))
 
 

@@ -137,13 +137,19 @@ def emulated(tmp_path_factory):
 # (n, determinants, walkers, offset, (t0, T_loc) or None for the whole
 # axis, splits, jbc): windows that cut a channel's slab, a split closed by
 # the caller's sum, 4 x 4 tiles with padding (n = 5, 9), whole warps
-# (16), 6-column tiles (90, complex64) and the largest complex128 (84)
+# (16), 6-column tiles (90, complex64), the largest complex128 (84), and
+# complex64's 8-column tiles with M_t staged over J_t: the first (97, a
+# padded tile), Si 2x2x2's 112 (a slab row inside the window, split) and
+# the largest (119)
 CASES = {
     "n5": (5, 2, 2, 0, None, 1, True),
     "n9_window_split": (9, 2, 1, 4, (10, 9), 3, True),
     "n16_window": (16, 1, 2, 17, (48, 10), 2, False),
     "n90": (90, 1, 1, 30, (88, 3), 1, True),
     "n84": (84, 1, 1, 0, (0, 2), 1, True),
+    "n97": (97, 1, 1, 0, (0, 2), 1, True),
+    "n112_window_split": (112, 1, 1, 112, (335, 4), 2, True),
+    "n119": (119, 1, 1, 0, (356, 2), 1, False),
 }
 
 
@@ -178,3 +184,33 @@ def test_kernel_source_matches_plain(emulated, case, real):
     for got, want in ((trb, want_trb), (l2.sum(0), want_l2)):
         torch.testing.assert_close(got, want, rtol=0, atol=tol * float(want.abs().max()))
     assert emulated.dethead_max_n(int(real == torch.float64)) == dh.MAX_N[real]
+
+
+def test_dispatch_keeps_the_instantiations_up_to_96(emulated):
+    # the tile a launch instantiates, as the library's dispatch picks it:
+    # up to n = 96 the two complex64 tiles of before (4 columns to 84, 6
+    # to 96), 8 columns with M_t over J_t from 97 to 119; complex128 4
+    # columns to 84; 0 where nothing serves n
+    for n in range(1, 97):
+        assert emulated.dethead_tile_cols(n, 0) == (4 if n <= 84 else 6), n
+        assert dh.BODIES[torch.float32, emulated.dethead_tile_cols(n, 0)] == "complex64"
+    for n in range(97, 120):
+        assert emulated.dethead_tile_cols(n, 0) == 8, n
+        assert dh.BODIES[torch.float32, 8] == dh.BODY_C64_STAGED
+    for n in range(1, 85):
+        assert emulated.dethead_tile_cols(n, 1) == 4, n
+    for n, is_double in ((0, 0), (120, 0), (128, 0), (85, 1), (112, 1)):
+        assert emulated.dethead_tile_cols(n, is_double) == 0, (n, is_double)
+    assert dh.MAX_N == {torch.float32: 119, torch.float64: 84}
+    assert dh.serves(112, torch.float32, torch.device("cuda"))
+    assert not dh.serves(112, torch.float64, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("n,real", [(120, torch.float32), (128, torch.float32),
+                                    (85, torch.float64)])
+def test_launch_refuses_past_the_largest_n(emulated, n, real):
+    # checked before any pointer is read: cudaErrorInvalidValue
+    entry = (emulated.dethead_trace_launch_c128 if real == torch.float64
+             else emulated.dethead_trace_launch)
+    assert entry(None, None, None, None, None, None, None, None, n, 1, 1, 2, 1, 0, 0,
+                 None) == 1

@@ -94,12 +94,14 @@ def test_gj_c128_takes_the_shared_body_where_it_fits(n):
 @pytest.mark.parametrize("n", [C128_MAX_N + 1, 168, 400])
 def test_gj_c128_beyond_the_body_raises_before_a_launch(n):
     """No fallback: a complex128 matrix that does not fit a block raises,
-    also where the complex64 bodies still serve (up to 168)."""
+    also where the complex64 bodies still serve (the mid wide body up to
+    128, the shared one up to 168)."""
     lib, dev = _FakeGjLibraryC128(), torch.device("cuda", 0)
     with pytest.raises(ValueError, match="shared memory"):
         tdk.launcher(lib, torch.complex128, n, dev)
     if n <= 168:
-        assert tdk.launcher(lib, torch.complex64, n, dev)[0] == "shared"
+        want = "mid, wide" if n <= 128 else "shared"
+        assert tdk.launcher(lib, torch.complex64, n, dev)[0] == want
 
 
 def test_gj_c128_fake_library_follows_the_source():

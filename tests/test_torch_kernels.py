@@ -137,21 +137,21 @@ def test_gj_plain_edge_matrices_match_jax_kernel(name):
 
 class _FakeGjLibrary:
     """Stands in for the built library: the size rule of csrc/gj_inverse.cu
-    (gj_body: 1 warp, 2 registers, 3 mid, 0 shared) and a card with 227 KB
-    of shared memory per block."""
+    (gj_body: 1 warp, 2 registers, 3 mid, 4 mid wide, 0 shared) and a card
+    with 227 KB of shared memory per block."""
 
     def gj_body(self, n):
         if n <= 32:
             return 1
         if n == 48:
             return 2
-        return 3 if 49 <= n <= 96 else 0
+        return 3 if 49 <= n <= 96 else 4 if 97 <= n <= 128 else 0
 
     def gj_smem_bytes(self, n):
         body = self.gj_body(n)
         if body == 0:
             return n * n * 8 + 3 * n * 8 + n * 4
-        return n * (n + 1) * 8 if body == 3 else 0
+        return n * (n + 1) * 8 if body in (3, 4) else 0
 
     def gj_max_smem_optin(self, device):
         return 232448
@@ -162,7 +162,8 @@ class _FakeGjLibrary:
                                     (400, None), (1, "warp"), (5, "warp"), (14, "warp"),
                                     (16, "warp"), (17, "warp"), (32, "warp"),
                                     (33, "shared"), (49, "mid"), (81, "mid"),
-                                    (97, "shared")])
+                                    (97, "mid, wide"), (112, "mid, wide"),
+                                    (128, "mid, wide"), (129, "shared")])
 def test_gj_variant_is_chosen_by_size_alone(n, want):
     lib, dev = _FakeGjLibrary(), torch.device("cuda", 0)
     if want is None:  # beyond the shared-memory guard: raises, no fallback
@@ -179,7 +180,9 @@ def test_gj_fake_library_follows_the_source():
     assert "if (n == 48) return 2;" in text
     assert "constexpr int kMidMin = 49;" in text and "constexpr int kMidN = 96;" in text
     assert "if (n >= kMidMin && n <= kMidN) return 3;" in text
-    assert tdk.BODIES == ("shared", "warp", "registers", "mid")
+    assert "constexpr int kMidWideN = 128;" in text
+    assert "if (n > kMidN && n <= kMidWideN) return 4;" in text
+    assert tdk.BODIES == ("shared", "warp", "registers", "mid", "mid, wide")
 
 
 def test_gj_wrapper_asks_the_size_rule_before_it_launches(monkeypatch):
