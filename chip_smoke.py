@@ -180,7 +180,8 @@ Phases, one JSON line each; any failure exits non-zero:
                 (every one-electron jet launch on the wide body in double,
                 every two-electron one, closed or open, on the pair body in
                 double, every (., 48, 48) B1 launch on the complex128
-                register body) and no plain version called; one
+                register body, every det head launch on the complex128
+                tensor-core body) and no plain version called; one
                 E_L chunk over two deriv ranks on the card (B4a, B4b) against
                 one process; the reference phase's walkers card float64
                 against CPU float64 (E_L <= 1e-9 Ha/cell, the gradient's and
@@ -205,9 +206,11 @@ Phases, one JSON line each; any failure exits non-zero:
                 float32 phase's, peak memory, B1's exact launch count with
                 every (., 81, 81) launch on the mid complex128 body and
                 every (., 14, 14) launch on the warp complex128 body, every
-                launch on a float64 body, no plain version called; B1 then
-                held against its plain version and timed at every shape
-                the two paths launched. `python3 chip_smoke.py
+                det head launch on the body its n names (bcc-Li's on the
+                tensor cores, Si's on FMA), every launch on a float64 body,
+                no plain version called; B1 then held against its plain
+                version and timed at every shape the two paths launched,
+                and the det head kernel at bcc-Li's E_L chunk. `python3 chip_smoke.py
                 --float64-bcc-li` runs the bcc-Li part alone, on the
                 kernels of the checkout it is run from;
      si_2x2x2 - Si 2x2x2 (224 electrons, 112 a spin) as the benchmark
@@ -671,6 +674,10 @@ def dethead_row(dev, gen, walkers, n, t_dim, path="main", dtype=None, window=Non
     extra = {"bound_ms_fp64_fma": bound_ms(nbytes, flops, PEAK_FP64_FMA)[0]} if f64 else {}
     body = dh.body(n, real)
     key = (dh.KERNEL, (matrices, n, t_dim), body)
+    # the body's kernel as ptxas named it: the template on the scalar and the
+    # tile, or the tensor-core body (its two- and five-slot builds)
+    kernel = ("dethead_trace_kernel_dmma" if body == dh.BODY_C128 else
+              f"dethead_trace_kernelI{'d' if f64 else 'f'}Li{dh._lib().dethead_tile_cols(n, int(f64))}EE")
     row = {
         "name": dh.KERNEL, "route": "cuda",
         "source": "deepsolid_tpu_torch/ops/cuda/csrc/dethead_trace.cu",
@@ -686,6 +693,9 @@ def dethead_row(dev, gen, walkers, n, t_dim, path="main", dtype=None, window=Non
         "plain_ms": time_ms(lambda: windowed_plain(args, window), warmup=1, reps=3),
         "plain_window": window,
         "library_ms": None, "bound_ms": bnd, "bound_by": by,
+        # registers, spills, shared memory a block and blocks an SM
+        "resources": [r for r in KERNEL_RESOURCES if r["kernel"].startswith(kernel)],
+        **dh.occupancy(n, real),
     }
     del args, jr, jbc, val, b_val, a_inv
     torch.cuda.empty_cache()
@@ -3446,7 +3456,7 @@ def float64_bodies_only(shapes):
     """The launch-shape records whose body is not a float64 one: B1's
     complex128 bodies, the jets' general and pair bodies in double,
     their wide body in double at any slice count, and the det head's
-    complex128 body."""
+    complex128 bodies (FMA, tensor cores)."""
     import re
 
     import torch
@@ -3455,7 +3465,7 @@ def float64_bodies_only(shapes):
     from deepsolid_tpu_torch.ops.cuda import jet_kernels as jk
 
     f64 = {*dk.BODIES_C128, jk.variant_label(jk.FLOAT64),
-           jk.variant_label(jk.PAIR, torch.float64), dh.BODY_C128}
+           jk.variant_label(jk.PAIR, torch.float64), dh.BODY_C128_FMA, dh.BODY_C128}
     return [r for r in shapes if r["variant"] not in f64
             and not re.fullmatch(r"wide, float64, \d+ tangent slices", r["variant"])]
 
@@ -3467,7 +3477,12 @@ def float64_new_bodies(shapes):
     complex128 B1 launch on the body its n names (`b1_body_c128`: the
     warp body up to 32, the register body at 48, the mid body at 49-96),
     every two-electron jet launch (plain rule, closed or open, d_out 32,
-    d_in 4 or 32) on the pair body in double."""
+    d_in 4 or 32) on the pair body in double, every complex128 det head
+    launch on the body its n names (`dethead_kernels.body`: the tensor
+    cores at C-diamond's 48 and bcc-Li's 81, FMA at Si 1x1x1's 14)."""
+    import torch
+    from deepsolid_tpu_torch.ops.cuda import dethead_kernels as dh
+
     out = []
     for r in shapes:
         if (r["kernel"] in ("fused_dense_tanh_jet_mix", "fused_dense_tanh_jet_mix_partial")
@@ -3479,6 +3494,8 @@ def float64_new_bodies(shapes):
             out.append(r)
         if (r["kernel"] == "gj_inverse_slogdet"
                 and r["variant"] != b1_body_c128(r["shape"][-1])):
+            out.append(r)
+        if r["kernel"] == dh.KERNEL and r["variant"] != dh.body(r["shape"][1], torch.float64):
             out.append(r)
     return out
 
@@ -4131,6 +4148,9 @@ def float64_systems_phase(dev, gen, si, bcc_li):
                                        ("float64_si", 28, si64["el_chunk"], "Si ")):
             rows += [b2_row(dev, gen, n, chunk, path, system, dtype=f64),
                      b3_row(dev, gen, n, chunk, path, system, dtype=f64)]
+        # the det head kernel at bcc-Li's float64 E_L chunk: the tensor-core body
+        rows.append(dethead_row(dev, gen, bcc["el_chunk"], 81, 6 * 81, "float64_bcc_li",
+                                dtype=f64, window=DETHEAD_PLAIN_WINDOW))
         for row in rows:  # the body the path took at each of the row's shapes
             took = [sorted({r["variant"] for r in records[row["path"]]["launch_shapes"]
                             if r["kernel"] == row["name"] and r["shape"] == shape})

@@ -34,13 +34,17 @@ from deepsolid_tpu_torch.ops.cuda import build
 from deepsolid_tpu_torch.utils import profiling
 
 KERNEL = "dethead_traces"
-# the kernel body by the products' dtype and the columns of a thread's tile
-# of M_t (dethead_tile_cols in the source): complex64 keeps M_t in a buffer
-# of its own at 4 and 6 columns (n <= 96) and stages it over J_t at 8
-# (97 <= n <= 119); complex128 stages it over J_t at 4
-BODY_C64, BODY_C64_STAGED, BODY_C128 = "complex64", "complex64, staged", "complex128"
+# the kernel body by the products' dtype and dethead_tile_cols in the
+# source: complex64 by the columns of a thread's tile of M_t, keeping M_t
+# in a buffer of its own at 4 and 6 columns (n <= 96) and staging it over
+# J_t at 8 (97 <= n <= 119); complex128 on the FP64 tensor cores (16, the
+# side of a warp's blocks of M_t) at n = 46-49 and 58-84, and on FP64 FMA
+# at 4 columns for the other n, where the card timed it faster
+BODY_C64, BODY_C64_STAGED = "complex64", "complex64, staged"
+BODY_C128_FMA, BODY_C128 = "complex128", "complex128, tensor cores"
 BODIES = {(torch.float32, 4): BODY_C64, (torch.float32, 6): BODY_C64,
-          (torch.float32, 8): BODY_C64_STAGED, (torch.float64, 4): BODY_C128}
+          (torch.float32, 8): BODY_C64_STAGED, (torch.float64, 4): BODY_C128_FMA,
+          (torch.float64, 16): BODY_C128}
 # launches by (kernel, (matrices, n, T_loc), body): every launch, counted once
 SHAPES = collections.Counter()
 # a matrix's tangents go to at most MAX_SPLITS blocks of at least
@@ -56,6 +60,8 @@ _SIGNATURES = {
     "dethead_trace_launch_c128": (_I, [_P] * 8 + [_I] * 7 + [_P]),
     "dethead_max_n": (_I, [_I]),
     "dethead_tile_cols": (_I, [_I, _I]),
+    "dethead_blocks_per_sm": (_I, [_I, _I]),
+    "dethead_smem_bytes": (_I, [_I, _I]),
 }
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 # largest n each products' dtype serves (dethead_max_n in the source), both
@@ -100,6 +106,14 @@ def body(n: int, dtype: torch.dtype) -> str:
     """The body that launches for n x n matrices with `dtype` products (one
     of BODIES), as the library's dispatch picks it."""
     return BODIES[dtype, _lib().dethead_tile_cols(n, int(dtype == torch.float64))]
+
+
+def occupancy(n: int, dtype: torch.dtype) -> dict:
+    """The body n takes with `dtype` products on the current card: its
+    dynamic shared memory a block and the blocks that fit an SM."""
+    lib, is_double = _lib(), int(dtype == torch.float64)
+    return {"smem_bytes": lib.dethead_smem_bytes(n, is_double),
+            "blocks_per_sm": lib.dethead_blocks_per_sm(n, is_double)}
 
 
 def splits(t_loc: int) -> int:

@@ -3,7 +3,7 @@
     python -m deepsolid_tpu_torch.ops.cuda.time_kernels
     python -m deepsolid_tpu_torch.ops.cuda.time_kernels \\
         --baseline DIR [--baseline-slices N] [--baseline-pair] [--slices 2,4,8]
-    python -m deepsolid_tpu_torch.ops.cuda.time_kernels --dethead-only
+    python -m deepsolid_tpu_torch.ops.cuda.time_kernels --dethead-only [--baseline DIR]
 
 A kernel's time moves by up to ~30% between machines and runs, so two
 designs are compared inside one process, in turns (baseline, current,
@@ -52,8 +52,9 @@ float64 body that sums in another order reads false).
 The det head's one-pass kernel (dethead_kernels, csrc/dethead_trace.cu)
 is timed at one spin channel of an E_L chunk of C-diamond 2x2x2 (512
 matrices of 48, T = 288) in float32 and float64, of bcc-Li 3x3x3 (256
-of 81, T = 486) and of Si 2x2x2 (128 and 256 of 112, T = 672) in float32
-(DETHEAD_SHAPES): its launcher alone, the
+of 81, T = 486, in float32; 128 in float64) and of Si 2x2x2 (128 and 256
+of 112, T = 672) in float32 (DETHEAD_SHAPES), with each body's shared
+memory a block and blocks an SM: its launcher alone, the
 wrapper, its plain version, and the whole stage it serves from the
 orbital GEMM's products to (sign, jet of log det) (fl.det_head_jet)
 against today's composition of that stage (the broadcast add, complexify,
@@ -65,7 +66,7 @@ Where the plain version or the composition would not fit the card's
 free memory (about five copies of the orbital Jacobian: Si's 256
 matrices), the plain version is read on the first 8 walkers and the
 composition's and the plain version's times are null. `--dethead-only` times
-these rows alone.
+these rows alone; with --baseline, beside DIR's dethead_trace.cu in turns.
 """
 
 from __future__ import annotations
@@ -123,10 +124,11 @@ GJ_SHAPES_C128 = ((8192, 48), (512, 48), (4096, 81), (2048, 81), (128, 81),
 F64_PAIR_CHUNKS = ((WALKERS, 96), (16, 162), (128, 28))
 F64_SHARD_WALKERS = 32
 # (walkers, determinants, n, T, precision) of one spin channel of an E_L
-# chunk: C-diamond at el_chunk 64 in float32 and float64, bcc-Li at 32
+# chunk: C-diamond at el_chunk 64 in float32 and float64, bcc-Li at 32 in
+# float32 and at 16 in float64, Si 2x2x2 at 16 and 32
 DETHEAD_SHAPES = ((WALKERS, 8, 48, 288, "float32"), (WALKERS, 8, 48, 288, "float64"),
-                  (32, 8, 81, 486, "float32"), (16, 8, 112, 672, "float32"),
-                  (32, 8, 112, 672, "float32"))
+                  (32, 8, 81, 486, "float32"), (16, 8, 81, 486, "float64"),
+                  (16, 8, 112, 672, "float32"), (32, 8, 112, 672, "float32"))
 JET_SHAPES_F64 = ((288, ROWS, 16, D_OUT, True, False, WALKERS),
                   (288, ROWS, 320, D_OUT, True, False, WALKERS),
                   (144, ROWS, 16, D_OUT, True, True, WALKERS),
@@ -268,7 +270,7 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"card": smi, "baseline": str(args.baseline)}), flush=True)
     if args.dethead_only:
-        dethead_rows(dev, gen)
+        dethead_rows(dev, gen, args.baseline)
         return
 
     gj, jet = dk._lib(), jk._lib()
@@ -374,7 +376,7 @@ def main() -> None:
             "matmul_ms": time_ms(lambda: torch.matmul(jac, w))}), flush=True)
         del val, jac, lap, mix, current, general
         torch.cuda.empty_cache()
-    dethead_rows(dev, gen)
+    dethead_rows(dev, gen, args.baseline)
 
 
 def dethead_launcher(lib, jr, jbc, ep_val, ep_jac3, orb_val0, a_inv, offset, splits):
@@ -401,15 +403,20 @@ def dethead_launcher(lib, jr, jbc, ep_val, ep_jac3, orb_val0, a_inv, offset, spl
     return run
 
 
-def dethead_rows(dev, gen) -> None:
+def dethead_rows(dev, gen, baseline=None) -> None:
     """One JSON line per DETHEAD_SHAPES entry (the second spin channel, the
-    row-constant block's tangents present, as on both systems' path)."""
+    row-constant block's tangents present, as on both systems' path); with
+    a `baseline` directory, its dethead_trace.cu's launcher in turns
+    beside this one's (`baseline_ms`) and its largest gap from this one's
+    outputs (`baseline_max_rel_err`)."""
     import torch
 
     from deepsolid_tpu_torch.ops import fwdlap as fl
     from deepsolid_tpu_torch.ops.cuda import dethead_kernels as dh
 
     lib = dh._lib()
+    base = (baseline_library(baseline, "dethead_trace", dh._SIGNATURES)
+            if baseline and (baseline / "dethead_trace.cu").exists() else None)
     for walkers, ndet, n, t_dim, precision in DETHEAD_SHAPES:
         real = getattr(torch, precision)
         cplx = dh._COMPLEX[real]
@@ -433,14 +440,24 @@ def dethead_rows(dev, gen) -> None:
         splits = dh.splits(t_dim)
         kernel = dethead_launcher(lib, jr, jbc, b_val, b_jac3, val, a_inv, offset, splits)
         unsplit = dethead_launcher(lib, jr, jbc, b_val, b_jac3, val, a_inv, offset, 1)
-        kernel_ms, unsplit_ms = [], []
-        for _ in range(2):  # in turns: the split, one block a matrix
+        other = (dethead_launcher(base, jr, jbc, b_val, b_jac3, val, a_inv, offset, splits)
+                 if base else None)
+        kernel_ms, unsplit_ms, base_ms = [], [], []
+        for turn in range(2):  # in turns: (the baseline,) the split, one block a matrix
+            if other and turn == 0:
+                base_ms.append(time_ms(other))
             kernel_ms.append(time_ms(kernel))
             unsplit_ms.append(time_ms(unsplit))
+            if other and turn == 1:
+                base_ms.append(time_ms(other))
         first = tuple(x.clone() for x in kernel.outputs)
         kernel()
         torch.cuda.synchronize()
         same = all(torch.equal(x, y) for x, y in zip(first, kernel.outputs))
+        base_err = (max(float((x - y).abs().max() / y.abs().max())
+                        for x, y in zip((first[0], first[1].sum(0)),
+                                        (other.outputs[0], other.outputs[1].sum(0))))
+                    if other else None)
         args = (jr, jbc, b_val, b_jac3, val, a_inv, offset, 0)
         got = dh.dethead_traces(*args)
         # the plain version and the composition hold ~5 copies of jr
@@ -476,7 +493,8 @@ def dethead_rows(dev, gen) -> None:
         print(json.dumps({
             "kernel": dh.KERNEL, "precision": precision, "matrices": matrices, "n": n,
             "T": t_dim, "splits": splits, "body": dh.body(n, real),
-            "ms": kernel_ms, "unsplit_ms": unsplit_ms,
+            "ms": kernel_ms, "unsplit_ms": unsplit_ms, **dh.occupancy(n, real),
+            **({"baseline_ms": base_ms, "baseline_max_rel_err": base_err} if other else {}),
             "wrapper_ms": time_ms(lambda: dh.dethead_traces(*args)),
             "bound_ms": max(flops / (PEAK_FP64_TENSOR if f64 else PEAK_FP32),
                             nbytes / PEAK_BYTES) * 1e3,
@@ -485,7 +503,7 @@ def dethead_rows(dev, gen) -> None:
             "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3, "plain_ms": plain_ms,
             "max_rel_err_vs_plain": err, "same_bits_two_launches": same,
             "stage_ms": stage_ms, "composition_stage_ms": comp_ms}), flush=True)
-        del jr, jbc, val, lap, b_val, b_jac3, b_lap, a_inv, kernel, unsplit, got, first
+        del jr, jbc, val, lap, b_val, b_jac3, b_lap, a_inv, kernel, unsplit, other, got, first
         torch.cuda.empty_cache()
 
 

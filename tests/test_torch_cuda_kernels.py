@@ -482,9 +482,10 @@ def _jet_float64_case(cuda_device, t_dim, groups, n, d_in, d_out, mixed, open_su
 # walkers x 8 determinants) of n = 48, bcc-Li's 256 of n = 81, each the
 # second channel with a window whose first tangents lie before its slab
 # (split over 3 and 2 blocks a matrix); a few matrices split over 6
-# blocks; n = 90, a tile of 6 columns a thread; Si 2x2x2's 256 of n = 112
-# and the largest, 119, on 8-column tiles with M_t staged over J_t
-# (complex64 only: complex128 serves n <= 84, and takes 84 there)
+# blocks (n = 16: complex128's FMA body); n = 90, a tile of 6 columns a
+# thread; Si 2x2x2's 256 of n = 112 and the largest, 119, on 8-column
+# tiles with M_t staged over J_t (complex64 only: complex128 serves n <=
+# 84, and takes 84 there; above 40 on the tensor cores)
 DETHEAD_CASES = {
     "diamond": dict(batch=64, ndet=8, n=48, offset=48, t0=138, t_loc=48, jbc=True),
     "bcc_li": dict(batch=32, ndet=8, n=81, offset=81, t0=238, t_loc=32, jbc=True),
@@ -530,6 +531,35 @@ def test_dethead_kernel_matches_plain(cuda_device, case, real):
     for x, y, z in zip(got, again, tdh.dethead_traces_plain(*args)):
         assert torch.equal(x, y)  # no atomics: two launches, the same bits
         torch.testing.assert_close(x, z, rtol=0, atol=tol * float(z.abs().max()))
+
+
+# the complex128 tensor-core body at the float64 cells' launches, every
+# tangent: C-diamond's second channel (512 matrices of 48, T 288) and
+# bcc-Li's (128 of 81, T 486); the plain version 96 tangents at a time
+DETHEAD_F64_CELLS = {
+    "diamond_f64": dict(batch=64, ndet=8, n=48, offset=48, t0=0, t_loc=288, jbc=True),
+    "bcc_li_f64": dict(batch=16, ndet=8, n=81, offset=81, t0=0, t_loc=486, jbc=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DETHEAD_F64_CELLS))
+def test_dethead_tensor_core_body_at_the_float64_cells(cuda_device, case):
+    spec = DETHEAD_F64_CELLS[case]
+    jr, jbc, *factors, offset, t0 = _dethead_inputs(cuda_device, torch.float64, **spec)
+    matrices, n, t_loc = spec["batch"] * spec["ndet"], spec["n"], spec["t_loc"]
+    assert tdh.body(n, torch.float64) == tdh.BODY_C128
+    before = tdh.SHAPES.copy()
+    got = tdh.dethead_traces(jr, jbc, *factors, offset, t0)
+    again = tdh.dethead_traces(jr, jbc, *factors, offset, t0)
+    torch.cuda.synchronize()
+    assert tdh.SHAPES - before == {(tdh.KERNEL, (matrices, n, t_loc), tdh.BODY_C128): 2}
+    parts = [tdh.dethead_traces_plain(jr[s:s + 96], jbc[s:s + 96], *factors, offset, t0 + s)
+             for s in range(0, t_loc, 96)]
+    want = (torch.cat([q[0] for q in parts]), sum(q[1] for q in parts))
+    for x, y, z in zip(got, again, want):
+        assert torch.equal(x, y)  # no atomic sums: two launches, the same bits
+        torch.testing.assert_close(x, z, rtol=0, atol=1e-12 * float(z.abs().max()))
 
 
 @pytest.mark.cuda
