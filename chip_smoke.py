@@ -151,7 +151,7 @@ Phases, one JSON line each; any failure exits non-zero:
                 32-walker chunk each way and the largest el_chunk of 32,
                 64, 128 under 60 GB with the scan; the sharded phase's two
                 ranks also run one scan-on E_L of 64 walkers, held against
-                the unsharded port;
+                the unsharded det head in one window;
  16. trace    - log.trace_path with trace_start 1, trace_steps 1 in a
                 3-iteration inference run: one torch.profiler trace file
                 naming B1's kernel and the jet kernels, the traced
@@ -210,9 +210,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 tensor cores, Si's on FMA), every launch on a float64 body,
                 no plain version called; B1 then held against its plain
                 version and timed at every shape the two paths launched,
-                and the det head kernel at bcc-Li's E_L chunk. `python3 chip_smoke.py
-                --float64-bcc-li` runs the bcc-Li part alone, on the
-                kernels of the checkout it is run from;
+                and the det head kernel at bcc-Li's E_L chunk.
+                `bcc_li_float64(dev)` runs the bcc-Li part alone, on the
+                kernels of the checkout it is imported from;
      si_2x2x2 - Si 2x2x2 (224 electrons, 112 a spin) as the benchmark
                 cell si-f32-kfac-512 runs it (portbench's configuration,
                 traffic and step-0 handoff): one KFAC iteration through
@@ -222,9 +222,6 @@ Phases, one JSON line each; any failure exits non-zero:
                 two an E_L chunk and pass; then B1 at both of its shapes
                 and the det head kernel at its shape against their plain
                 versions (the det head's 96 tangents at a time);
- 19. profile  - torch.profiler over one 64-walker C-diamond local-energy
-                chunk and one bcc-Li chunk (el_chunk walkers): kernels by
-                device time and the device's idle share.
 Launch counts are set to 0 just before each driven path and read just
 after it. The last lines are the card as nvidia-smi reports it, the
 kernels line and {"ok": true, "device": {...}}.
@@ -392,10 +389,12 @@ F64_REL_TOLERANCE = 1e-10
 F32_BIAS_BUDGET = 2e-4     # Ha per 2-atom primitive cell: 1e-4 Ha/atom
 # Ha/cell, |E_L float32 - float64| per walker on the card over the 1024
 # checkpoint walkers: the median, the largest, and the most any walker's
-# reads above the float32 composition's on the same walker. Readings of
-# the one-pass path (the same on every run: fixed walkers, no atomics):
-# 8.1e-5, 7.83e-2 (walker 327, where the composition reads the same:
-# float32's own error near a node; the next 5.8e-3) and 3.7e-4
+# reads above the float32 plain head's (`plain_det_head`) on the same
+# walker ("above_composition": the limit was set against the composition
+# mul_row + slogdet_jet, which read 3.7e-4 there). Readings of the
+# kernel's path (the same on every run: fixed walkers, no atomics):
+# 8.1e-5, 7.83e-2 (walker 327, where the plain head reads the same:
+# float32's own error near a node; the next 5.8e-3) and 2.3e-4
 F32_EL_LIMITS = {"median": 3e-4, "max": 0.1, "above_composition": 1e-3}
 F64_SHARD_WALKERS = 32     # one E_L chunk over two deriv ranks on the card
 JET_F64_TOLERANCE = 1e-10  # relative, a float64 jet body against its plain version
@@ -1128,13 +1127,14 @@ def read_launches():
 
 
 @contextlib.contextmanager
-def composition_det_head():
-    """Inside the block the full-width det head runs as mul_row +
-    slogdet_jet, the contractions the orbital scan chunks, in place of the
-    one-pass kernel (dethead_kernels.serves answers no): the scan's like
-    for like. Two float32 algorithms of E_L differ by their rounding, up to
-    ~1e-3 Ha/cell at a walker near a node; `float32_bias` holds the
-    one-pass path to the card's float64 with this composition beside."""
+def plain_det_head():
+    """Inside the block fl.det_head_jet takes the det head's plain version
+    (dethead_kernels.dethead_traces_plain) in the scan's windows of
+    tangents in place of the kernel (dethead_kernels.serves answers no):
+    the path of matrices past the kernel's largest n. Two float32
+    algorithms of E_L differ by their rounding, up to ~1e-3 Ha/cell at a
+    walker near a node; `float32_bias` holds the kernel's path to the
+    card's float64 with this plain head beside."""
     from deepsolid_tpu_torch.ops.cuda import dethead_kernels as dh
 
     serves = dh.serves
@@ -1353,9 +1353,7 @@ def sharded_phase(dev, backend="gloo"):
     chunks = SHARD_BATCH // EL_CHUNK
     expect_b4b = 3 * chunks * SHARD_ITERATIONS
     diffs = [float(np.abs(r["first_el"] - want_el.numpy()).max()) for r in ranks]
-    with composition_det_head():
-        want_scan, _ = scan_el_chunk(cfg, scan="off")
-    one_pass, _ = scan_el_chunk(cfg, scan="off")
+    want_scan, _ = scan_el_chunk(cfg, scan="off")
     scan_diffs = [float(np.abs(r["scan_el"] - want_scan).max()) for r in ranks]
     sharded = statistics.median(
         SHARD_BATCH / it["seconds"]["local_energy"] for it in ranks[0]["iterations"])
@@ -1371,8 +1369,6 @@ def sharded_phase(dev, backend="gloo"):
         "expected_mix_partial_launches": expect_b4b,
         "max_abs_el_diff_per_cell_by_rank": diffs, "tolerance": SHARD_EL_TOLERANCE,
         "orb_scan_max_abs_el_diff_per_cell_by_rank": scan_diffs,
-        "orb_scan_max_abs_el_diff_per_cell_against_one_pass":
-            max(float(np.abs(r["scan_el"] - one_pass).max()) for r in ranks),
         "orb_scan_launches_per_rank": [r["scan_launches"] for r in ranks],
         "energy_per_cell": [r["energy_per_cell"] for r in ranks],
         "energy_per_cell_unsharded": energy,
@@ -2305,7 +2301,7 @@ def si_2x2x2_phase(dev):
     handoff; no pretraining): SI_2X2X2_ITERATIONS KFAC iterations through
     process(), the launch counters reset just before. Every det head
     launch must take the staged complex64 body on one channel of an E_L
-    chunk, two an E_L chunk and pass (the composition never runs), and
+    chunk, two an E_L chunk and pass (the plain version never runs), and
     every B1 launch the mid wide body, at B1's exact count."""
     import tempfile
     from pathlib import Path
@@ -3085,9 +3081,8 @@ def full_envelope_phase(dev, si_reference):
 
 def orb_scan_phase(dev, source, bcc_li_reference):
     """DEEPSOLID_TPU_ORB_SCAN=on against off: one 64-walker C-diamond E_L
-    chunk (device ms, peak memory; the scan's values against the full-width
-    composition it chunks, `composition_det_head`, and beside it against
-    the one-pass path) and bcc-Li's chunk memory."""
+    chunk (device ms, peak memory; the scan's windows of tangents against
+    the det head in one window) and bcc-Li's chunk memory."""
     import numpy as np
     import torch
     from deepsolid_tpu_torch.hamiltonian import make_local_energy
@@ -3116,12 +3111,7 @@ def orb_scan_phase(dev, source, bcc_li_reference):
             out[scan] = {"device_ms_per_chunk": ms, "peak_memory_bytes": peak,
                          "b1_launches": b1,
                          "el": ((el[0] + el[1]) / cfg.system.cell.scale).cpu().numpy()}
-        os.environ[ORB_SCAN_ENV] = "off"
-        with torch.no_grad(), composition_det_head():
-            el = el_fn(params, x)
-        composition = ((el[0] + el[1]) / cfg.system.cell.scale).cpu().numpy()
-        diff = float(np.abs(out["on"]["el"] - composition).max())
-        diff_one_pass = float(np.abs(out["on"].pop("el") - out["off"].pop("el")).max())
+        diff = float(np.abs(out["on"].pop("el") - out["off"].pop("el")).max())
 
         bcc_cfg, bcc_klist, bcc_params, _ = bcc_li_reference
         el_fn, params, x = setup(bcc_cfg, bcc_klist, BCC_LI_CKPT, bcc_params)
@@ -3142,7 +3132,6 @@ def orb_scan_phase(dev, source, bcc_li_reference):
             and bcc[f"on_{c}"]["peak_memory_bytes"] < PROBE_LIMIT_BYTES]
     result = {"phase": "orb_scan", "diamond_el_chunk": EL_CHUNK, "diamond": out,
               "max_abs_el_diff_per_cell": diff, "tolerance": ORB_SCAN_TOLERANCE,
-              "max_abs_el_diff_per_cell_against_one_pass": diff_one_pass,
               "bcc_li": bcc, "bcc_li_largest_el_chunk_with_scan": max(fits) if fits else None,
               "limit_bytes": PROBE_LIMIT_BYTES}
     result["ok"] = (diff <= ORB_SCAN_TOLERANCE and bool(fits)
@@ -3705,9 +3694,9 @@ def float32_bias(dev, source, el_chunk):
     on the card: the batch-mean difference per primitive cell, its
     standard error, the per-walker median and max, beside the 1e-4
     Ha/atom budget; and the float64 E_L's walkers/s. The float32 main path
-    (the det head's one-pass kernel) is held per walker to the float64
-    E_L (F32_EL_LIMITS), with the float32 composition it replaced
-    (`composition_det_head`) read beside it on the same walkers."""
+    (the det head's kernel) is held per walker to the float64 E_L
+    (F32_EL_LIMITS), with the float32 plain head (`plain_det_head`) read
+    beside it on the same walkers."""
     import numpy as np
     import torch
     from deepsolid_tpu_torch.configs import diamond
@@ -3724,7 +3713,7 @@ def float32_bias(dev, source, el_chunk):
     data = data[:BATCH]
     out, seconds = {}, {}
     runs = (("float32", torch.float32, contextlib.nullcontext),
-            ("composition", torch.float32, composition_det_head),
+            ("plain_head", torch.float32, plain_det_head),
             ("float64", torch.float64, contextlib.nullcontext))
     for key, dtype, det_head in runs:
         params = params_from_jax(params_np, dev, dtype)
@@ -3739,7 +3728,7 @@ def float32_bias(dev, source, el_chunk):
         out[key] = (torch.cat(els).real.double() / sc.scale).cpu().numpy()
         del params, x, els
     d = out["float32"] - out["float64"]
-    dc = out["composition"] - out["float64"]
+    dc = out["plain_head"] - out["float64"]
     worst = np.argsort(-np.abs(d))[:5]
     median, largest = float(np.median(np.abs(d))), float(np.abs(d).max())
     above = float((np.abs(d) - np.abs(dc)).max())
@@ -3748,11 +3737,11 @@ def float32_bias(dev, source, el_chunk):
             "mean_diff_f32_minus_f64_per_cell": float(d.mean()),
             "standard_error_per_cell": float(d.std(ddof=1) / math.sqrt(len(d))),
             "median_abs_diff_per_cell": median, "max_abs_diff_per_cell": largest,
-            "composition_median_abs_diff_per_cell": float(np.median(np.abs(dc))),
-            "composition_max_abs_diff_per_cell": float(np.abs(dc).max()),
+            "plain_head_median_abs_diff_per_cell": float(np.median(np.abs(dc))),
+            "plain_head_max_abs_diff_per_cell": float(np.abs(dc).max()),
             "worst_walkers": [{"walker": int(i), "diff": float(d[i]),
-                               "composition_diff": float(dc[i])} for i in worst],
-            "max_abs_diff_above_composition_per_cell": above,
+                               "plain_head_diff": float(dc[i])} for i in worst],
+            "max_abs_diff_above_plain_head_per_cell": above,
             "limits_per_cell": F32_EL_LIMITS,
             "ok": (median <= F32_EL_LIMITS["median"] and largest <= F32_EL_LIMITS["max"]
                    and above <= F32_EL_LIMITS["above_composition"]),
@@ -4463,17 +4452,6 @@ def main() -> int:
         return fail(f"kernels at the Si 2x2x2 shapes disagree with their plain "
                     f"versions, take another body, or the path launched none "
                     f"at a shape: {bad}")
-    from deepsolid_tpu_torch.configs import diamond
-    from deepsolid_tpu_torch.utils.checkpoint import find_last_checkpoint, restore
-
-    _, data, params, _, _ = restore(
-        find_last_checkpoint(os.path.join(REPO, "runs", "ckpt_diamond")))
-    profile_phase(dev, diamond.get_config(CONFIG), source.klist, params, data[:EL_CHUNK],
-                  "one 64-walker C-diamond local-energy chunk")
-    bcc_cfg, bcc_klist, _, _ = bcc_li_reference
-    _, data, params, _, _ = restore(find_last_checkpoint(BCC_LI_CKPT))
-    profile_phase(dev, bcc_cfg, bcc_klist, params, data[:bcc_li["el_chunk"]],
-                  f"one {bcc_li['el_chunk']}-walker bcc-Li local-energy chunk")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

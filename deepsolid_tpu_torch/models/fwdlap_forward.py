@@ -1,13 +1,15 @@
 """Forward-Laplacian evaluation of the periodic FermiNet kinetic energy.
 
 Mirrors deepsolid_tpu/models/fwdlap_forward.py (network_jets with its
-optional tangent sharding, the full-width orbital head and the opt-in
-tangent-chunked orbital and determinant head, `_orbital_det_scan`). One traversal
-carrying (value, Jacobian, Laplacian) jets replaces 3N JVP-of-grad
-passes: the two-electron stream stays pair-sparse (6 tangents), each
-determinant is factorized once, and the 3N tangent axis rides the
-batched matmuls. The walker batch is the leading axis of every value.
-"""
+optional tangent sharding and the opt-in tangent-chunked orbital and
+determinant head). One traversal carrying (value, Jacobian, Laplacian)
+jets replaces 3N JVP-of-grad passes: the two-electron stream stays
+pair-sparse (6 tangents), each determinant is factorized once, and the 3N
+tangent axis rides the batched matmuls. Every layout of the determinant
+head (a channel's own matrices, full_det's one matrix, the scan) goes
+through fl.det_head_jet, which reads the orbital GEMM's tangent products
+a window of tangents at a time. The walker batch is the leading axis of
+every value."""
 
 from __future__ import annotations
 
@@ -22,7 +24,6 @@ from deepsolid_tpu_torch.models import envelopes as envelopes_lib
 from deepsolid_tpu_torch.models import features as features_lib
 from deepsolid_tpu_torch.models.network import NetworkConfig, SystemSpec
 from deepsolid_tpu_torch.ops import fwdlap as fl
-from deepsolid_tpu_torch.ops.cuda import dethead_kernels
 from deepsolid_tpu_torch.ops.distance import enforce_pbc
 from deepsolid_tpu_torch.utils import profiling
 
@@ -34,12 +35,11 @@ _WARNED = set()
 def _use_orb_scan() -> bool:
     """Gate of the tangent-chunked orbital and determinant head: off by
     default, on with DEEPSOLID_TPU_ORB_SCAN=on (the JAX package's gate). A
-    memory lever: the full-width head holds a channel's orbital products
-    (T, B, n, 2 ndet norb) at once (with full_det also the complex (T, B,
-    ndet, n, n) Jacobian after mul_row, which the det head packs again);
-    the scan builds a chunk of tangents at a time and never holds a
-    post-trunk (T, ...) tensor. An unrecognized value warns once and keeps
-    it off."""
+    memory lever: without it the det head reads a channel's orbital
+    products (T, B, n, 2 ndet norb) whole (with full_det every channel's,
+    stacked); with it each window of tangents is formed from the trunk's
+    parts, so no (T, B, n, ...) tensor past the trunk is held. An
+    unrecognized value warns once and keeps it off."""
     value = os.environ.get(_ORB_SCAN_ENV, "")
     if value and value not in ("on", "off"):
         if _ORB_SCAN_ENV not in _WARNED:
@@ -52,7 +52,8 @@ def _use_orb_scan() -> bool:
 
 def _jet0(j: fl.Jet) -> fl.Jet:
     """The value and Laplacian of a jet with an empty tangent axis: every
-    fl op below then skips its tangent work (the scan supplies it)."""
+    fl op below then skips its tangent work (the det head reads the
+    tangents as the orbital GEMM's products)."""
     return fl.Jet(j.val, j.jac[:0], j.lap)
 
 
@@ -221,43 +222,35 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
         use_scan = _use_orb_scan()
         if use_scan:
             h_orb_rv = fl.concat([_jet0(p) for p in orb_parts], axis=-1)
-            rc0 = None if h_orb_rc is None else _jet0(h_orb_rc)
         else:
             h_orb_rv = orb_parts[0] if len(orb_parts) == 1 else fl.concat(orb_parts, axis=-1)
-            rc0 = h_orb_rc
+        t_loc = orb_parts[0].jac.shape[0]
 
     # ---- orbital heads ----------------------------------------------------------
     envelope_fn = envelopes_lib.ENVELOPES[cfg.envelope_type]
     klist = [constant(k, x) for k in spec.klist]
     prim_av, prim_bv = spec.prim_av, spec.prim_bv
 
-    channel_jets = []  # the envelope-phase products, for full_det and the scan
     dets = []  # per-channel (sign, jet of log det), in channel order
-    scan_ing = []  # per-channel ingredients of the tangent-chunk scan
+    heads = []  # full_det: per channel, the det head's inputs
     for ch, (s, e) in enumerate(ranges):
         with profiling.annotate("el.orbitals", ch):
             spin = e - s
             w_orb = params["orbital"][ch]["w"]
             b_orb = params["orbital"][ch].get("b")
             rows = fl.slice_axis(h_orb_rv, 1, s, e)
-            # a channel's own square matrices: its tangents stay the
-            # orbital GEMM's real products, read once by the det head's
-            # kernel (fl.det_head_jet); full_det's matrices span both
-            # channels and the scan builds its own, so both keep the
-            # complex Jacobian and mul_row
-            one_pass = (not cfg.full_det and not use_scan
-                        and dethead_kernels.serves(spin, dtype, dev))
-            jr = jbc = None
+            # the orbitals' value and Laplacian; their tangents stay the
+            # orbital GEMM's real products, which the det head reads a
+            # window of tangents at a time (fl.det_head_jet)
             if h_orb_rc is None:
-                w_rv = w_orb
-                raw = fl.dense(_jet0(rows) if one_pass else rows, w_orb, b_orb)
+                w_rv, jbc = w_orb, None
+                raw = fl.dense(_jet0(rows), w_orb, b_orb)
             else:
                 w_rv, w_rc = split_w(w_orb, f1_orb)
-                raw = (fl.dense_mix(_jet0(rows), _jet0(rc0), w_rv, w_rc, b_orb)
-                       if one_pass else fl.dense_mix(rows, rc0, w_rv, w_rc, b_orb))
-            if one_pass:
-                jr = rows.jac @ w_rv  # (T_loc, B, spin, 2 nparam)
-                jbc = None if h_orb_rc is None else (rc0.jac @ w_rc)[:, :, 0]
+                raw = fl.dense_mix(_jet0(rows), _jet0(h_orb_rc), w_rv, w_rc, b_orb)
+                jbc = (h_orb_rc.jac @ w_rc)[:, :, 0]  # (T_loc, B, 2 nparam)
+            window = (_parts_window(orb_parts, w_rv, jbc, s, e) if use_scan
+                      else fl.sliced_window(rows.jac @ w_rv, jbc))
             nparam = raw.val.shape[-1] // 2
             orb = fl.complexify(fl.slice_axis(raw, -1, 0, nparam),
                                 fl.slice_axis(raw, -1, nparam, 2 * nparam))
@@ -286,8 +279,7 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
             phase_lap = -torch.sum(kcol**2, dim=-1) * phase_val
 
             # envelope * phase: a row-local factor, multiplied into the
-            # orbital jet in one pass over the tangent stream (by the det
-            # head's kernel, or by fl.mul_row)
+            # orbital jet by the det head in its pass over the tangents
             env_val = envr.val.unflatten(-1, (ndet, norb))
             env_jac3 = envr.jac.unflatten(-1, (ndet, norb))  # (3, B, spin, ndet, norb)
             env_lap = envr.lap.unflatten(-1, (ndet, norb))
@@ -297,144 +289,62 @@ def network_jets(params, x: torch.Tensor, spec: SystemSpec,
             ep_jac3 = env_jac3 * pv + env_val * pj
             ep_lap = (env_lap * pv + 2.0 * torch.sum(env_jac3 * pj, dim=0)
                       + env_val * phase_lap[:, :, None, :])
-            ep_val_sw = ep_val.transpose(1, 2)     # (B, ndet, spin, norb)
-            ep_jac3_sw = ep_jac3.transpose(2, 3)   # (3, B, ndet, spin, norb)
-            ep_lap_sw = ep_lap.transpose(1, 2)
-            if one_pass:
-                dets.append(fl.det_head_jet(orb.val, orb.lap, jr, jbc, ep_val_sw,
-                                            ep_jac3_sw, ep_lap_sw, offset=s, shard=shard))
-                del jr, jbc  # before the next channel's orbital GEMM
-                continue
-            orb_val0 = orb.val
-            orb = fl.mul_row(orb, ep_val_sw, ep_jac3_sw, ep_lap_sw,
-                             n_total=n, offset=s, shard=shard)
-            if cfg.full_det or use_scan:
-                channel_jets.append(orb)
+            head = (orb.val, orb.lap, ep_val.transpose(1, 2),  # (B, ndet, spin, norb)
+                    ep_jac3.transpose(2, 3), ep_lap.transpose(1, 2), window)
+            if cfg.full_det:
+                heads.append(head)
             else:
-                dets.append(fl.slogdet_jet(orb, shard=shard))
-            if use_scan:
-                offs = [0]
-                for p in orb_parts:
-                    offs.append(offs[-1] + p.val.shape[-1])
-                scan_ing.append(dict(
-                    s=s, spin=spin, ndet=ndet, norb=norb, nparam=nparam,
-                    w_parts=[w_rv[offs[i]:offs[i + 1]] for i in range(len(orb_parts))],
-                    # the row-constant block's tangents, (T_loc, B, d_out)
-                    jbc=None if h_orb_rc is None else (h_orb_rc.jac @ w_rc)[:, :, 0],
-                    ep_val_sw=ep_val_sw, ep_jac3_sw=ep_jac3_sw, orb_val0=orb_val0))
+                dets.append(fl.det_head_jet(*head, t_loc, offset=s, shard=shard,
+                                            scan=use_scan))
+            # a channel's products go before the next channel's orbital GEMM
+            # (full_det keeps them in `heads`)
+            del head, window, jbc
 
-    # the rest of the det head: the determinants and their sum
+    # the rest of the det head: full_det's one matrix of every channel's
+    # rows, the determinants and their sum
     with profiling.annotate("el.det_head"):
-        mats = [fl.concat(channel_jets, axis=2)] if cfg.full_det else channel_jets
-
-        if use_scan:
-            sign_total, l_total = _orbital_det_scan(mats, scan_ing, orb_parts,
-                                                    cfg.full_det, shard)
-            return fl.logsumexp_det_jet(sign_total, l_total, shard=shard)
-
         if cfg.full_det:
-            dets = [fl.slogdet_jet(mats[0], shard=shard)]
-        sign_total, l_total = None, None
-        for sign, l in dets:
-            if l_total is None:
-                sign_total, l_total = sign, l
-            else:
-                sign_total = sign_total * sign
-                l_total = fl.add(l_total, l)
+            *mats, windows = zip(*heads)
+            del heads
+            dets = [fl.det_head_jet(*(torch.cat(m, dim=-2) for m in mats),
+                                    _rows_window(windows), t_loc, offset=0,
+                                    shard=shard, scan=use_scan)]
+        sign_total, l_total = dets[0]
+        for sign, l in dets[1:]:
+            sign_total = sign_total * sign
+            l_total = fl.add(l_total, l)
         return fl.logsumexp_det_jet(sign_total, l_total, shard=shard)
 
 
-def _orbital_det_scan(mats0, ing, parts, full_det: bool, shard):
-    """Tangent-chunked orbital and determinant head.
+def _parts_window(parts, w_rv, jbc, s: int, e: int):
+    """The scan's window of one channel's orbital products: each trunk
+    part's tangents [c0, c1) of the rows [s, e) through its own weight rows
+    (the parts' (T_loc, B, n, f_p) Jacobians are read a window at a time,
+    never concatenated), and the row-constant block's tangents jbc."""
+    bounds = [0]
+    for p in parts:
+        bounds.append(bounds[-1] + p.val.shape[-1])
+    w_parts = [w_rv[lo:hi] for lo, hi in zip(bounds, bounds[1:])]
 
-    mats0: per-matrix value/Laplacian jets (empty tangent axis): the whole
-    orbital pipeline applied to val and lap, lacking only the tangent-borne
-    2 x cross term of the envelope-phase product's Laplacian. ing: per
-    spin channel, the orbital weight rows per trunk part, the row-constant
-    block's tangents, the row-local envelope-phase factor and the orbital
-    values before that product. parts: the trunk's row-varying jets, whose
-    (T_loc, B, n, f_p) Jacobians are the only full-width tangent tensors
-    read; they are sliced a chunk of tangents at a time, so no post-trunk
-    (T, ...) tensor is ever held.
+    def window(c0, c1):
+        jr = sum(p.jac[c0:c1, :, s:e] @ w for p, w in zip(parts, w_parts))
+        return jr, None if jbc is None else jbc[c0:c1]
 
-    Per chunk: trunk slice -> orbital dense -> complexify -> row-local
-    envelope-phase product -> the det head's trace contractions
-    (fl.det_trace_chunk). The loop accumulates sum_t tr((A^-1 J_t)^2) per
-    matrix and the product rule's cross term per channel, and collects
-    tr(A^-1 J_t) per tangent. With a shard, global tangent indices start
-    at the shard's offset and both sums are reduced over the deriv ranks.
-    Returns (sign_total, l_total) as slogdet_jet per matrix would.
-    """
-    t_loc = parts[0].jac.shape[0]
-    facs = [fl.det_factor(m.val) for m in mats0]
-    n_max = max(m.val.shape[-1] for m in mats0)
-    tc = fl._pick_det_scan_chunk(t_loc, n_max)
-    shard0 = 0 if shard is None else shard.t0(t_loc)
-    dev = mats0[0].val.device
+    return window
 
-    def channel_chunk(g, c0, d):
-        s, spin = d["s"], d["spin"]
-        ndet, norb, nparam = d["ndet"], d["norb"], d["nparam"]
-        jr = None
-        for p, wp in zip(parts, d["w_parts"]):
-            contrib = p.jac[c0:c0 + tc, :, s:s + spin] @ wp
-            jr = contrib if jr is None else jr + contrib
-        if d["jbc"] is not None:
-            jr = jr + d["jbc"][c0:c0 + tc, :, None, :]
-        jc = torch.complex(jr[..., :nparam], jr[..., nparam:])
-        # (tc, B, spin, ndet * norb) -> (tc, B, ndet, spin, norb)
-        jc = jc.unflatten(-1, (ndet, norb)).transpose(2, 3)
-        # global tangent g moves electron g // 3 (component g % 3): row
-        # g // 3 - s of this channel, when that row is in it (fl.mul_row)
-        i_g = g // 3 - s
-        comp = g % 3
-        valid = (i_g >= 0) & (i_g < spin)
-        i_cl = torch.clamp(i_g, 0, spin - 1)
-        bj_row = d["ep_jac3_sw"][comp, :, :, i_cl, :]       # (tc, B, ndet, norb)
-        u = d["orb_val0"][:, :, i_cl, :].movedim(2, 0) * bj_row
-        rowsel = ((i_cl[:, None] == torch.arange(spin, device=dev)[None])
-                  & valid[:, None]).to(jr.dtype)            # (tc, spin)
-        jac_mat = (jc * d["ep_val_sw"]
-                   + rowsel[:, None, None, :, None] * u[:, :, :, None, :])
-        # the Laplacian's cross term: the chunk's slab-diagonal jac rows
-        # against the row-local factor's jac
-        g_rows = jc[torch.arange(tc, device=dev), :, :, i_cl, :]  # (tc, B, ndet, norb)
-        cross_c = torch.einsum("tbdf,ts->bdsf", g_rows * bj_row, rowsel.to(jc.dtype))
-        return jac_mat, cross_c
 
-    l2s = [torch.zeros(m.val.shape[:2], dtype=m.val.dtype, device=dev) for m in mats0]
-    crosses = [torch.zeros_like(d["orb_val0"]) for d in ing]
-    trbs = [[] for _ in mats0]
-    for c0 in range(0, t_loc, tc):
-        g = shard0 + c0 + torch.arange(tc, device=dev)
-        chunks = []
-        for ci, d in enumerate(ing):
-            jac_mat, cross_c = channel_chunk(g, c0, d)
-            chunks.append(jac_mat)
-            crosses[ci] = crosses[ci] + cross_c
-        mats_chunks = [torch.cat(chunks, dim=3)] if full_det else chunks
-        for mi, (jm, fac) in enumerate(zip(mats_chunks, facs)):
-            batch, ndet, nm = jm.shape[1], jm.shape[2], jm.shape[3]
-            j2c = jm.movedim(0, -2).reshape(batch, ndet, nm, tc * nm)
-            trb_c, l2_c = fl.det_trace_chunk(fac[0], j2c, tc, nm, lead=(batch, ndet))
-            trbs[mi].append(trb_c)
-            l2s[mi] = l2s[mi] + l2_c
+def _rows_window(windows):
+    """full_det's window: each channel's products with its row-constant
+    tangents folded into its own rows (they come from that channel's
+    weights), the channels stacked along the rows."""
+    def window(c0, c1):
+        jrs = []
+        for w in windows:
+            jr, jbc = w(c0, c1)
+            jrs.append(jr if jbc is None else jr + jbc[:, :, None])
+        return torch.cat(jrs, dim=2), None
 
-    sign_total, l_total = None, None
-    for mi, (m0, (a_inv, sign, logdet)) in enumerate(zip(mats0, facs)):
-        cross = torch.cat(crosses, dim=2) if full_det else crosses[mi]
-        lap2 = l2s[mi]
-        if shard is not None:
-            cross, lap2 = shard.all_sum(cross), shard.all_sum(lap2)
-        mat_lap = m0.lap + 2.0 * cross
-        lap1 = torch.sum(a_inv * mat_lap.transpose(-1, -2), dim=(-1, -2))
-        l = fl.Jet(logdet, torch.cat(trbs[mi], dim=0), lap1 - lap2)
-        if l_total is None:
-            sign_total, l_total = sign, l
-        else:
-            sign_total = sign_total * sign
-            l_total = fl.add(l_total, l)
-    return sign_total, l_total
+    return window
 
 
 def _check_shard(spec: SystemSpec, shard) -> None:

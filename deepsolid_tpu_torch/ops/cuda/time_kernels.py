@@ -57,7 +57,7 @@ of 112, T = 672) in float32 (DETHEAD_SHAPES), with each body's shared
 memory a block and blocks an SM: its launcher alone, the
 wrapper, its plain version, and the whole stage it serves from the
 orbital GEMM's products to (sign, jet of log det) (fl.det_head_jet)
-against today's composition of that stage (the broadcast add, complexify,
+against the composition it stands for (the broadcast add, complexify,
 fl.mul_row, fl.slogdet_jet), in turns, with its bound (8 n^3 flops a
 matrix and tangent at the precision's peak: FP32 FMA, and for float64 the
 FP64 tensor cores, with the FMA-only bound beside), and the launcher with
@@ -480,7 +480,8 @@ def dethead_rows(dev, gen, baseline=None) -> None:
             return fl.slogdet_jet(mat)
 
         def one_pass():
-            return fl.det_head_jet(val, lap, jr, jbc, b_val, b_jac3, b_lap, offset=offset)
+            return fl.det_head_jet(val, lap, b_val, b_jac3, b_lap, fl.sliced_window(jr, jbc),
+                                   t_dim, offset=offset)
 
         comp_first = time_ms(composition, warmup=1, reps=5) if whole else None
         stage_ms = [time_ms(one_pass, warmup=1, reps=5), time_ms(one_pass, warmup=1, reps=5)]

@@ -15,9 +15,10 @@ rows say which axis holds them.
 
 The fused dense+tanh rules (`dense_tanh`, `dense_tanh_mix`), the
 determinant factorization (`det_factor`) and the determinant head's
-tangent stream (`det_head_jet`) always go through the kernel wrappers of
+tangent stream (`det_head_jet`) go through the kernel wrappers of
 ops/cuda: the CUDA kernels on the card, their plain versions for CPU
-tensors.
+tensors; `det_head_jet` takes the plain version on the card for matrices
+past the kernel's largest n.
 
 Tangent sharding: functions that contract over the tangent axis take
 `shard` (a parallel.TangentShard, or None), the counterpart of the JAX
@@ -378,40 +379,68 @@ def slogdet_jet(mat: Jet, shard=None) -> Tuple[torch.Tensor, Jet]:
     return sign, Jet(logdet, jac, lap1 - lap2)
 
 
-def det_head_jet(val, lap, jr, jbc, b_val, b_jac3, b_lap, offset: int,
-                 shard=None) -> Tuple[torch.Tensor, Jet]:
-    """(sign, jet of log det A) of one spin channel's determinant head,
-    A = orb * b with b a row-local factor: mul_row's product, then
-    slogdet_jet, without building orb's complex Jacobian.
+def sliced_window(jr, jbc=None):
+    """det_head_jet's window of tangent products held whole: jr and jbc on
+    the local tangents [c0, c1)."""
+    return lambda c0, c1: (jr[c0:c1], None if jbc is None else jbc[c0:c1])
+
+
+def det_head_jet(val, lap, b_val, b_jac3, b_lap, window, t_loc: int, offset: int,
+                 shard=None, scan: bool = False) -> Tuple[torch.Tensor, Jet]:
+    """(sign, jet of log det A) of a determinant head, A = orb * b with b a
+    row-local factor: mul_row's product, then slogdet_jet, without building
+    orb's complex Jacobian.
 
     val, lap: (B, D, rows, rows) complex, the orbitals' value and
-    Laplacian (electron rows, orbital columns). Their Jacobian arrives as
-    the orbital GEMM's real products: jr (T_loc, B, rows, 2P), P = D rows,
-    the P real parts then the P imaginary ones of each row, and the
-    row-constant block's jbc (T_loc, B, 2P) or None, added to every row.
-    b_val, b_lap (B, D, rows, rows) and b_jac3 (3, B, D, rows, rows) as
-    mul_row takes them; `offset` and `shard` as there. The tangent stream
-    goes through dethead_kernels.dethead_traces in one pass; mul_row's
-    cross term reads only jr's slab rows, in mul_row's order.
+    Laplacian (electron rows `offset`.., orbital columns). Their Jacobian
+    arrives as the orbital GEMM's real products, a window of the t_loc
+    local tangents at a time: window(c0, c1) -> (jr (c1 - c0, B, rows,
+    2P), jbc (c1 - c0, B, 2P) or None), P = D rows, the P real parts then
+    the P imaginary ones of each row, jbc the row-constant block's
+    tangents, added to every row. b_val, b_lap (B, D, rows, rows) and
+    b_jac3 (3, B, D, rows, rows) as mul_row takes them; `offset` and
+    `shard` as there.
+
+    A is factored once. A window's tangent stream goes through
+    dethead_kernels.dethead_traces where it serves the matrices (the
+    plain version for CPU tensors), else through dethead_traces_plain;
+    mul_row's cross term reads only the window's slab rows, in mul_row's
+    order. All t_loc tangents go in one window where the kernel serves and
+    `scan` is off; otherwise windows of _pick_det_scan_chunk(t_loc, rows)
+    tangents, so that no full-width complex copy is held. With a shard the
+    cross term and sum_t tr((A^-1 J_t)^2) are summed over the ranks once.
     """
-    rows, ndet, t_loc = val.shape[-2], val.shape[1], jr.shape[0]
+    rows, ndet = val.shape[-2], val.shape[1]
     p = ndet * val.shape[-1]
     t0 = 0 if shard is None else shard.t0(t_loc)
-    tl, i, c = dethead_kernels.slab(t0, t_loc, offset, rows, val.device)
-    slab = jr[tl, :, i, :]  # (len, B, 2P)
-    if jbc is not None:
-        slab = slab + jbc[tl]
-    slab = torch.complex(slab[..., :p], slab[..., p:]).unflatten(-1, (ndet, -1))
-    cross = _row_cross(slab * b_jac3[c, :, :, i, :], max(3 * offset, t0), offset,
-                       rows, shard)
-    mat_val = val * b_val
-    mat_lap = lap * b_val + val * b_lap + 2.0 * cross
-    a_inv, sign, logdet = det_factor(mat_val)
-    lap1 = torch.sum(a_inv * mat_lap.transpose(-1, -2), dim=(-1, -2))
-    trb, lap2 = dethead_kernels.dethead_traces(jr, jbc, b_val, b_jac3, val, a_inv,
-                                               offset, t0)
+    kernel = dethead_kernels.serves(rows, val.real.dtype, val.device)
+    traces = dethead_kernels.dethead_traces if kernel else dethead_kernels.dethead_traces_plain
+    tc = t_loc if kernel and not scan else _pick_det_scan_chunk(t_loc, rows)
+    a_inv, sign, logdet = det_factor(val * b_val)
+    cross, lap2, trbs = None, None, []
+    for c0 in range(0, t_loc, tc):
+        c1 = min(c0 + tc, t_loc)
+        jr, jbc = window(c0, c1)
+        tl, i, c = dethead_kernels.slab(t0 + c0, c1 - c0, offset, rows, val.device)
+        if len(tl):
+            slab = jr[tl, :, i, :]  # (len, B, 2P)
+            if jbc is not None:
+                slab = slab + jbc[tl]
+            slab = torch.complex(slab[..., :p], slab[..., p:]).unflatten(-1, (ndet, -1))
+            part = _row_cross(slab * b_jac3[c, :, :, i, :], max(3 * offset, t0 + c0),
+                              offset, rows)
+            cross = part if cross is None else cross + part
+        trb, l2 = traces(jr, jbc, b_val, b_jac3, val, a_inv, offset, t0 + c0)
+        trbs.append(trb)
+        lap2 = l2 if lap2 is None else lap2 + l2
+        del jr, jbc
+    if cross is None:  # no local tangent moves an electron of these rows
+        cross = torch.zeros_like(val)
     if shard is not None:
-        lap2 = shard.all_sum(lap2)
+        cross, lap2 = shard.all_sum(cross), shard.all_sum(lap2)
+    mat_lap = lap * b_val + val * b_lap + 2.0 * cross
+    lap1 = torch.sum(a_inv * mat_lap.transpose(-1, -2), dim=(-1, -2))
+    trb = trbs[0] if len(trbs) == 1 else torch.cat(trbs, dim=0)
     return sign, Jet(logdet, trb, lap1 - lap2)
 
 

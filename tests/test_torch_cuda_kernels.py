@@ -579,3 +579,70 @@ def test_dethead_kernel_refuses(cuda_device):
     for real, n in ((torch.float32, 120), (torch.float64, 85)):  # past shared memory
         with pytest.raises(ValueError, match="serves n <="):
             tdh.dethead_traces(*_dethead_inputs(cuda_device, real, 1, 1, n, 0, 0, 3, False))
+
+
+# fl.det_head_jet on the card against the composition it stands for (the
+# complex Jacobian, fl.mul_row, fl.slogdet_jet), every tangent of an n x n
+# matrix of all n electrons (full_det's layout, offset 0, T = 3n), 2
+# walkers x 2 determinants: C-diamond's full_det matrix (n = 96) in
+# complex64 through the kernel in one window; past the kernel's largest n
+# (120 in complex64, 85 in complex128) through the plain version in the
+# scan's windows, with no kernel launch
+DET_HEAD_JET_CASES = {
+    "full_det_diamond_c64": (torch.float32, 96),
+    "past_max_n_c64": (torch.float32, 120),
+    "past_max_n_c128": (torch.float64, 85),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DET_HEAD_JET_CASES))
+def test_det_head_jet_matches_composition(cuda_device, case, monkeypatch):
+    from deepsolid_tpu_torch.ops import fwdlap as fl
+
+    real, n = DET_HEAD_JET_CASES[case]
+    batch, ndet, t_dim = 2, 2, 3 * n
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    cplx = tdh._COMPLEX[real]
+
+    def rnd(*shape, dtype=real):
+        return torch.randn(shape, generator=gen, device=cuda_device, dtype=dtype)
+
+    # orbitals near 3 x the identity in each determinant: A well conditioned
+    eye = torch.eye(n, device=cuda_device, dtype=real).repeat(1, ndet)
+    orb = torch.complex(3.0 * eye + rnd(batch, n, ndet * n) / n**0.5,
+                        rnd(batch, n, ndet * n) / n**0.5)
+    val = orb.unflatten(-1, (ndet, n)).transpose(1, 2)  # (B, D, n, n)
+    lap = rnd(batch, ndet, n, n, dtype=cplx)
+    jr, jbc = 0.3 * rnd(t_dim, batch, n, 2 * ndet * n), 0.3 * rnd(t_dim, batch, 2 * ndet * n)
+    b_val = 1.0 + 0.1 * rnd(batch, ndet, n, n, dtype=cplx)
+    b_jac3, b_lap = 0.3 * rnd(3, batch, ndet, n, n, dtype=cplx), rnd(batch, ndet, n, n, dtype=cplx)
+
+    plain_calls = []
+    plain = tdh.dethead_traces_plain
+    monkeypatch.setattr(tdh, "dethead_traces_plain",
+                        lambda *args: plain_calls.append(args[0].shape[0]) or plain(*args))
+    kernel = tdh.serves(n, real, cuda_device)
+    before = tdh.SHAPES.copy()
+    sign, got = fl.det_head_jet(val, lap, b_val, b_jac3, b_lap, fl.sliced_window(jr, jbc),
+                                t_dim, offset=0)
+    torch.cuda.synchronize()
+    if kernel:
+        assert n <= tdh.MAX_N[real] and not plain_calls
+        assert tdh.SHAPES - before == {
+            (tdh.KERNEL, (batch * ndet, n, t_dim), tdh.body(n, real)): 1}
+    else:
+        chunk = fl._pick_det_scan_chunk(t_dim, n)
+        assert n > tdh.MAX_N[real] and tdh.SHAPES == before
+        assert plain_calls == [chunk] * (t_dim // chunk) and len(plain_calls) > 1
+
+    jac = jr + jbc[:, :, None, :]
+    jc = torch.complex(jac[..., :ndet * n], jac[..., ndet * n:])
+    mat = fl.mul_row(fl.Jet(val, jc.unflatten(-1, (ndet, n)).transpose(2, 3), lap),
+                     b_val, b_jac3, b_lap, n_total=n, offset=0)
+    want_sign, want = fl.slogdet_jet(mat)
+    assert torch.equal(sign, want_sign) and torch.equal(got.val, want.val)
+    assert got.jac.shape == (t_dim, batch, ndet)
+    tol = 2e-5 if real == torch.float32 else 1e-12
+    for x, y in ((got.jac, want.jac), (got.lap, want.lap)):
+        torch.testing.assert_close(x, y, rtol=0, atol=tol * float(y.abs().max()))

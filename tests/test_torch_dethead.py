@@ -1,14 +1,18 @@
 """The determinant head's one-pass tangent stream (fl.det_head_jet over
-dethead_kernels.dethead_traces) against today's composition (the orbital
-GEMM's Jacobian -> complexify -> fl.mul_row -> fl.slogdet_jet), on the
-CPU, where the wrapper takes its plain version.
+dethead_kernels.dethead_traces) against the composition it stands for
+(the orbital GEMM's Jacobian -> complexify -> fl.mul_row ->
+fl.slogdet_jet), on the CPU, where the wrapper takes its plain version.
 
 Small shapes: one channel of n 4-6 electrons beside another of 4, T =
 3 N_total, 2 walkers, 2 determinants; float32 and float64; the channel
 first or second (offset 0 or 4); with and without the row-constant
 block's tangents; the whole tangent axis or a shard's window whose edges
-cut through an electron's three tangents of the channel's slab. Then
-network_jets on a tiny LiH cell through both paths and against the JAX
+cut through an electron's three tangents of the channel's slab; the
+tangents in one window or in windows of 4, whose edges cut through an
+electron's three tangents too. Then network_jets on a tiny LiH cell, for
+spin channels and for one full determinant, with the head in one window
+against the plain version in windows (dethead_kernels.serves answering
+no, the card's path past the kernel's largest n) and against the JAX
 package. Tolerances: float64 1e-12 of the scale (the same contractions in
 another order), float32 2e-5.
 """
@@ -74,11 +78,12 @@ def _orbitals(raw, n):
     return fl.linear_op(lambda v: v.unflatten(-1, (DETS, n)).transpose(-3, -2), orb)
 
 
+@pytest.mark.parametrize("chunk", [None, 4], ids=["one", "tc4"])
 @pytest.mark.parametrize("window", [None, (4, 10), (14, 10)], ids=["all", "w4", "w14"])
 @pytest.mark.parametrize("jbc_on", [True, False], ids=["jbc", "nojbc"])
 @pytest.mark.parametrize("offset", [0, OTHER], ids=["first", "second"])
 @pytest.mark.parametrize("real", [torch.float32, torch.float64], ids=["f32", "f64"])
-def test_one_pass_matches_composition(real, offset, jbc_on, window):
+def test_one_pass_matches_composition(real, offset, jbc_on, window, chunk, monkeypatch):
     n = 5 if real == torch.float32 else 4 + offset // 2  # 5; 4 and 6 in float64
     val, lap, jr, jbc, b_val, b_jac3, b_lap = _channel(n, real, jbc_on, seed=3 + offset)
     t_dim = jr.shape[0]
@@ -89,7 +94,7 @@ def test_one_pass_matches_composition(real, offset, jbc_on, window):
         jbc = None if jbc is None else jbc[t0:t0 + t_loc]
     tol = 2e-5 if real == torch.float32 else 1e-12
 
-    # today's composition: the GEMM's Jacobian with the broadcast add, the
+    # the composition: the GEMM's Jacobian with the broadcast add, the
     # complex copy, mul_row, slogdet_jet
     jac = jr if jbc is None else jr + jbc[:, :, None, :]
     orb = _orbitals(fl.Jet(val, jac, lap), n)
@@ -109,12 +114,23 @@ def test_one_pass_matches_composition(real, offset, jbc_on, window):
     # the one-pass det head: the value and the Laplacian's cross term are
     # the composition's own arithmetic; the tangent outputs within rounding
     orb0 = _orbitals(fl.Jet(val, jac[:0], lap), n)
-    got_sign, got = fl.det_head_jet(orb0.val, orb0.lap, jr, jbc, b_val, b_jac3, b_lap,
-                                    offset=offset, shard=shard)
+    head = (orb0.val, orb0.lap, b_val, b_jac3, b_lap, fl.sliced_window(jr, jbc), t_loc)
+    got_sign, got = fl.det_head_jet(*head, offset=offset, shard=shard)
     assert torch.equal(got_sign, sign) and torch.equal(got.val, want.val)
     assert got.jac.shape == (t_loc, BATCH, DETS)
     _close(got.jac, want.jac, tol)
     _close(got.lap, want.lap, tol)
+    if chunk is None:
+        return
+
+    # the same head in windows of `chunk` tangents (the scan's rule, its
+    # width forced) against one window
+    monkeypatch.setattr(fl, "_pick_det_scan_chunk", lambda t_dim, n: chunk)
+    w_sign, windowed = fl.det_head_jet(*head, offset=offset, shard=shard, scan=True)
+    assert torch.equal(w_sign, got_sign) and torch.equal(windowed.val, got.val)
+    assert windowed.jac.shape == (t_loc, BATCH, DETS)
+    _close(windowed.jac, got.jac, tol)
+    _close(windowed.lap, got.lap, tol)
 
 
 def test_split_rule():
@@ -138,9 +154,15 @@ def test_split_rule():
 
 
 @pytest.mark.parametrize("cfg", [dict(full_det=False),
-                                 dict(full_det=False, use_last_layer=True)],
-                         ids=["spins", "spins_last"])
+                                 dict(full_det=False, use_last_layer=True),
+                                 dict(full_det=True),
+                                 dict(full_det=True, use_last_layer=True)],
+                         ids=["spins", "spins_last", "full_det", "full_det_last"])
 def test_network_jets_one_pass_matches_composition_and_jax(cfg, monkeypatch):
+    """The det head in one window against the plain version in windows
+    (`serves` answering no: the card's path past the kernel's largest n)
+    and against the JAX package: one det head call a matrix, a spin
+    channel's or full_det's one."""
     import jax
     import jax.numpy as jnp
 
@@ -157,16 +179,21 @@ def test_network_jets_one_pass_matches_composition_and_jax(cfg, monkeypatch):
         return plain(*args)
 
     monkeypatch.setattr(dh, "dethead_traces_plain", counting)
+    spec = tnet.spec
+    sides = [spec.nelectron] if tnet.cfg.full_det else [s for s in spec.spins if s > 0]
+    t_dim = 3 * spec.nelectron
     with torch.no_grad():
-        one_pass = tff.network_jets(tp, t64(x), tnet.spec, tnet.cfg)
-        assert len(calls) == len([s for s in tnet.spec.spins if s > 0])
+        one_pass = tff.network_jets(tp, t64(x), spec, tnet.cfg)
+        assert len(calls) == len(sides)
         monkeypatch.setattr(dh, "serves", lambda *args: False)
-        composed = tff.network_jets(tp, t64(x), tnet.spec, tnet.cfg)
-        assert len(calls) == len([s for s in tnet.spec.spins if s > 0])
+        windowed = tff.network_jets(tp, t64(x), spec, tnet.cfg)
+        assert len(calls) == len(sides) + sum(t_dim // fl._pick_det_scan_chunk(t_dim, n)
+                                              for n in sides)
     want = jax.jit(jax.vmap(lambda xi: jff.network_jets(params, xi, jnet.spec, jnet.cfg)))(
         jnp.asarray(x))
-    for got, comp, jax_w in ((one_pass.val, composed.val, want.val),
-                             (one_pass.jac, composed.jac, np.moveaxis(np.asarray(want.jac), 0, 1)),
-                             (one_pass.lap, composed.lap, want.lap)):
-        _close(got, comp, 1e-12)
+    for got, plain_w, jax_w in ((one_pass.val, windowed.val, want.val),
+                                (one_pass.jac, windowed.jac,
+                                 np.moveaxis(np.asarray(want.jac), 0, 1)),
+                                (one_pass.lap, windowed.lap, want.lap)):
+        _close(got, plain_w, 1e-12)
         _close(got, torch.as_tensor(np.array(jax_w)), 1e-10)
